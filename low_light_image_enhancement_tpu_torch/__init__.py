@@ -1,0 +1,40 @@
+"""Low-light image enhancement on PyTorch and CUDA (NVIDIA Hopper).
+
+The port of ``low_light_image_enhancement_tpu`` (JAX on a TPU), which stays
+the reference. This package imports ``torch`` and numpy, never ``jax``.
+
+Public API::
+
+    import low_light_image_enhancement_tpu_torch as llt
+    out = llt.enhance(img_u8_hwc)                # default config, on CUDA
+    pipe = llt.EnhancePipeline(llt.PipelineConfig(method="hybrid"),
+                               device="cuda")
+    server = llt.EnhanceServer(device="cuda")    # micro-batching server
+"""
+
+from low_light_image_enhancement_tpu_torch.config import (
+    PRESETS,
+    PipelineConfig,
+)
+from low_light_image_enhancement_tpu_torch.pipeline import (
+    EnhancePipeline,
+    enhance,
+    enhance_batch,
+)
+from low_light_image_enhancement_tpu_torch.serving import (
+    EnhanceServer,
+    ServerSaturated,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PipelineConfig",
+    "PRESETS",
+    "EnhancePipeline",
+    "EnhanceServer",
+    "ServerSaturated",
+    "enhance",
+    "enhance_batch",
+    "__version__",
+]

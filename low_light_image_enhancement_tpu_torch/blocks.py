@@ -1,0 +1,206 @@
+"""Block-form graph of the learned methods (curve and hybrid at
+``curve_downsample`` 1).
+
+The net consumes the image extended by ``canvas_margin`` replicate
+rows/cols on each side and zeros beyond (``_mask_extent``); conv SAME
+zero padding at the block edge coincides with that mask, so alignment
+padding never reaches a consumed pixel. The tail (curves, denoise,
+quantize) runs as K3, ``kernels.fused_enhance.fused_curve_enhance``, which
+takes the contract of the JAX package's ``blocks._fused_curve_tail``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from low_light_image_enhancement_tpu_torch.config import (
+    PipelineConfig,
+    canvas_margin,
+    denoise_radius,
+)
+from low_light_image_enhancement_tpu_torch.core import (
+    MARGIN,
+    illumination_boost,
+    replicate_margin_cols,
+)
+from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
+    fused_curve_enhance,
+)
+from low_light_image_enhancement_tpu_torch.models.curve_cnn import (
+    apply_curve_cnn,
+)
+from low_light_image_enhancement_tpu_torch.ops.colorspace import normalize_u8
+
+__all__ = ["cnn_radius", "learned_halo", "single_block_halo",
+           "block_geometry", "resolve_conv_impl", "replicate_margin_cols",
+           "block_curve_maps", "enhance_learned_block"]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _fcn_dilations(depth: int = 7):
+    # the fcn's schedule (models/fcn.py of the JAX package)
+    return tuple(min(2 ** i, 32) for i in range(depth - 1)) + (1,)
+
+
+def cnn_radius(cfg: PipelineConfig) -> int:
+    """Receptive-field radius (full-resolution pixels) of the method's net;
+    0 for methods with no net."""
+    if cfg.method in ("curve", "hybrid"):
+        ds = cfg.curve_downsample
+        return 7 if ds == 1 else 9 * ds
+    if cfg.method == "fcn":
+        return sum(_fcn_dilations())
+    if cfg.method == "decom":
+        return 5
+    return 0
+
+
+def learned_halo(cfg: PipelineConfig) -> int:
+    """Halo rows per side of a block that must carry real neighbor content
+    (the sharded contract): the full receptive radius, rounded to 8 (8*ds
+    for the curve methods), floored at margin + denoise radius."""
+    r = cnn_radius(cfg)
+    if cfg.method == "hybrid":
+        r += cfg.blur_radius
+    r += denoise_radius(cfg)
+    granule = 8 * cfg.curve_downsample if cfg.method in ("curve", "hybrid") \
+        else 8
+    floor = canvas_margin(cfg) + denoise_radius(cfg)
+    return _round_up(max(r, floor), granule)
+
+
+def single_block_halo(cfg: PipelineConfig) -> int:
+    """Halo rows of an unsharded block (the whole image is one block):
+    smaller than ``learned_halo`` and giving the same consumed pixels, since
+    the input mask zeroes beyond image + margin either way (the JAX
+    package's derivation at ``blocks.single_block_halo``)."""
+    if cfg.denoise_taps == "guided":
+        return learned_halo(cfg)
+    if cfg.method == "fcn":
+        return _round_up(sum(_fcn_dilations()[1:]) + denoise_radius(cfg), 8)
+    r = canvas_margin(cfg)
+    if cfg.method == "hybrid":
+        r += cfg.blur_radius
+    granule = 8 * cfg.curve_downsample if cfg.method in ("curve", "hybrid") \
+        else 8
+    return _round_up(r, granule)
+
+
+def block_geometry(cfg: PipelineConfig, h: int, w: int, n_shards: int = 1):
+    """(rows_per_shard, padded_w) of the block graph: rows rounded to the
+    granule, width padded to 128 with ``canvas_margin`` cols before the
+    image origin."""
+    halo = learned_halo(cfg)
+    granule = 8
+    if cfg.method in ("curve", "hybrid"):
+        granule = 8 * cfg.curve_downsample
+    hl = _round_up(int(math.ceil(h / n_shards)), granule)
+    if n_shards > 1 and hl < halo:
+        raise ValueError(
+            f"{n_shards} spatial shards of a {h}-row image give {hl} "
+            f"rows/shard, below the {halo}-row receptive-field halo of "
+            f"method={cfg.method!r}; use fewer shards or larger frames"
+        )
+    wp = _round_up(w + 2 * canvas_margin(cfg), 128)
+    return hl, wp
+
+
+def resolve_conv_impl(cfg: PipelineConfig) -> PipelineConfig:
+    """``auto`` and ``xla`` both resolve to ``xla``, which this package runs
+    as ``F.conv2d``; the packed, GEMM and Pallas conv stacks are not
+    ported."""
+    if cfg.conv_impl in ("auto", "xla"):
+        return cfg.replace(conv_impl="xla")
+    raise NotImplementedError(
+        f"conv_impl={cfg.conv_impl!r} is not ported yet (ROADMAP Queue 1, "
+        "conv-stack alternatives K6/K7)"
+    )
+
+
+def _mask_extent(y: torch.Tensor, row0: int, h: int, w: int,
+                 m: int = MARGIN) -> torch.Tensor:
+    """Zero everything outside the image extended by ``m`` replicate
+    rows/cols. Block row l <-> image row row0 + l; block col c <-> image
+    col c - m."""
+    hb, wb = y.shape[-2], y.shape[-1]
+    g = row0 + torch.arange(hb, device=y.device)
+    row_ok = (g >= -m) & (g < h + m)
+    col_ok = torch.arange(wb, device=y.device) < w + 2 * m
+    return torch.where(row_ok[:, None] & col_ok[None, :], y,
+                       torch.zeros((), dtype=y.dtype, device=y.device))
+
+
+def _curve_maps(cnn_in: torch.Tensor, cfg: PipelineConfig,
+                params: Dict[str, Any]) -> torch.Tensor:
+    """Full-resolution LE-curve maps (B, n_iter, 3, HB, WB), float32."""
+    if cfg.curve_downsample != 1:
+        raise NotImplementedError(
+            f"curve_downsample={cfg.curve_downsample} is not ported yet "
+            "(ROADMAP Queue 1: K3's ds 2/4 variants)"
+        )
+    return apply_curve_cnn(params, cnn_in, n_iter=cfg.curve_iters,
+                           compute_dtype=cfg.compute_dtype)
+
+
+def block_curve_maps(
+    xb: torch.Tensor,
+    cfg: PipelineConfig,
+    model_params: Dict[str, Any],
+    row0: int,
+    h: int,
+    w: int,
+) -> torch.Tensor:
+    """Curve maps (B, n_iter, 3, HB, WB) of a u8 block: the CNN runs on the
+    normalized block (hybrid: boosted, margin cols re-replicated, so the
+    CNN never sees the wrap shifts' opposite-edge content), zeroed beyond
+    image + margin."""
+    cfg = resolve_conv_impl(cfg)
+    if cfg.method in ("fcn", "decom"):
+        raise NotImplementedError(
+            f"method={cfg.method!r} is not ported yet (ROADMAP Queue 1)")
+    if cfg.method not in ("curve", "hybrid"):
+        raise ValueError(
+            f"method {cfg.method!r} is not a learned method (retinex has "
+            "its own fused path)"
+        )
+    if xb.dtype != torch.uint8:
+        raise NotImplementedError(
+            "float blocks are not ported yet (ROADMAP Queue 1: f32 I/O)")
+    m = canvas_margin(cfg)
+    y = normalize_u8(xb)
+    if cfg.method == "hybrid":
+        y = replicate_margin_cols(illumination_boost(y, cfg), w, m)
+    return _curve_maps(_mask_extent(y, row0, h, w, m), cfg, model_params)
+
+
+def enhance_learned_block(
+    xb: torch.Tensor,
+    cfg: PipelineConfig,
+    model_params: Dict[str, Any],
+    row0: int,
+    h: int,
+    w: int,
+    halo: Optional[int] = None,
+) -> torch.Tensor:
+    """Learned-method enhance on one halo'd u8 row block.
+
+    Args:
+      xb: (B, 3, HB, WB) uint8; HB = owned rows + 2 * halo, WB a multiple
+        of 128 with ``canvas_margin`` replicate cols before the image.
+      row0: image-row index of block row 0.
+      h, w: true image extent, for the zero mask beyond the margin.
+      halo: rows per side; defaults to ``learned_halo(cfg)``.
+
+    Returns (B, 3, HB - 2*halo, WB) uint8, columns uncropped.
+    """
+    if halo is None:
+        halo = learned_halo(cfg)
+    maps = block_curve_maps(xb, cfg, model_params, row0, h, w)
+    return fused_curve_enhance(xb, maps, cfg, halo, xb.shape[-2] - 2 * halo,
+                               img_w=w)

@@ -1,0 +1,127 @@
+"""Build and load the CUDA kernel library.
+
+``nvcc`` compiles every ``csrc/*.cu`` of this package for ``sm_90a`` into
+one shared library with a plain C interface, which is loaded with
+``ctypes``. The library lands in ``<repo>/build/torch_kernels/`` (resolved
+from this file, not from the working directory), named by a hash of the
+sources and the flags, and is built at first use under a lock. Nothing is
+built or loaded when the module is imported.
+
+``--fmad=false`` keeps every ``a*b+c`` a multiply and an add, as PyTorch's
+eager ops compute them, so the kernels agree with their plain versions; no
+``--use_fast_math``, so division, ``expf`` and ``logf`` keep full precision.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)
+_SIGNATURES = {
+    "llie_fused_retinex_u8": [
+        _P, _P, _I, _I, _I,          # in, out, B, H, W
+        _I, _FP, _F, _F,             # radius, taps, gamma - 1, eps
+        _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
+        _P,                          # kind, joint, sep; stream
+    ],
+    "llie_fused_curve_u8": [
+        _P, _P, _P, _I, _I, _I,      # in, maps, out, B, HB, WB
+        _I, _I, _I, _I, _I, _I,      # halo, rows, n_iter, boost, margin, img_w
+        _I, _FP, _F, _F,             # radius, taps, gamma - 1, eps
+        _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
+        _P,                          # kind, joint, sep; stream
+    ],
+    "llie_max_blur_radius": [],
+}
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on PATH, then
+    ``/usr/local/cuda/bin/nvcc``; raises when none exists."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found ($CUDA_HOME/bin, PATH, /usr/local/cuda/bin): the "
+        "CUDA kernels of low_light_image_enhancement_tpu_torch cannot be "
+        "built"
+    )
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"llie_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(target: Path) -> None:
+    cu, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a temporary name, then rename: a concurrent process sees
+    # either no library or a whole one
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built first if it is not there yet."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.llie_error_string.argtypes = [ctypes.c_int]
+            lib.llie_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib

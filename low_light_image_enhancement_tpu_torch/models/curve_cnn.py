@@ -1,0 +1,69 @@
+"""Zero-DCE-style curve-estimation CNN.
+
+Seven 3x3 convs with U-style skip concatenations; the head emits
+``3 * n_iter`` tanh-bounded per-pixel curve maps for ``ops.curves``.
+Parameters are a dict ``{"c1": {"w": (Cout, Cin, 3, 3), "b": (Cout,)}, ...}``
+(``models.weights.params_from_numpy`` converts the JAX package's HWIO).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from low_light_image_enhancement_tpu_torch.models.layers import conv2d
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+def init_curve_cnn(
+    generator: torch.Generator, features: int = 32, n_iter: int = 8
+) -> Params:
+    """He-normal initialized parameters for the 7-conv curve estimator."""
+    sizes = [
+        (3, features),                 # c1
+        (features, features),          # c2
+        (features, features),          # c3
+        (features, features),          # c4
+        (2 * features, features),      # c5 (cat x3, x4)
+        (2 * features, features),      # c6 (cat x2, x5)
+        (2 * features, 3 * n_iter),    # c7 (cat x1, x6)
+    ]
+    params: Params = {}
+    for i, (cin, cout) in enumerate(sizes, start=1):
+        w = torch.randn((cout, cin, 3, 3), generator=generator,
+                        dtype=torch.float32)
+        params[f"c{i}"] = {
+            "w": w * math.sqrt(2.0 / (3 * 3 * cin)),
+            "b": torch.zeros((cout,), dtype=torch.float32),
+        }
+    return params
+
+
+def apply_curve_cnn(
+    params: Params,
+    x: torch.Tensor,
+    n_iter: int = 8,
+    compute_dtype="float32",
+) -> torch.Tensor:
+    """(..., 3, H, W) in [0,1] -> curve maps (..., n_iter, 3, H, W) in
+    [-1,1], float32. Map channel ``i*3 + c`` is iteration i, color c."""
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+
+    def cv(name, h):
+        return conv2d(h, params[name]["w"], params[name]["b"], compute_dtype)
+
+    x1 = torch.relu(cv("c1", x))
+    x2 = torch.relu(cv("c2", x1))
+    x3 = torch.relu(cv("c3", x2))
+    x4 = torch.relu(cv("c4", x3))
+    x5 = torch.relu(cv("c5", torch.cat([x3, x4], dim=1)))
+    x6 = torch.relu(cv("c6", torch.cat([x2, x5], dim=1)))
+    a = torch.tanh(cv("c7", torch.cat([x1, x6], dim=1))).to(torch.float32)
+    b, _, h, w = a.shape
+    a = a.reshape(b, n_iter, 3, h, w)
+    return a if batched else a[0]

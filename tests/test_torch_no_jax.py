@@ -1,0 +1,71 @@
+"""The port imports no jax and no module of the JAX package: in a fresh
+interpreter where both are blocked, it imports and runs a CPU pipeline."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+from low_light_image_enhancement_tpu_torch.kernels import fused_enhance as fe
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROGRAM = r"""
+import sys
+preloaded = set(sys.modules)
+sys.modules["jax"] = None
+sys.modules["low_light_image_enhancement_tpu"] = None
+import numpy as np
+import low_light_image_enhancement_tpu_torch as llt
+from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
+lows, _ = synth_batch(1, 24, 40)
+for method in ("retinex", "hybrid"):
+    out = llt.EnhancePipeline(llt.PipelineConfig(method=method),
+                              device="cpu").enhance_batch(lows)
+    assert out.shape == lows.shape and out.dtype == np.uint8
+loaded = sorted(m for m in set(sys.modules) - preloaded
+                if m.startswith(("jax", "low_light_image_enhancement_tpu."))
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_port_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_port_sources_name_no_jax_import():
+    pkg = ROOT / "low_light_image_enhancement_tpu_torch"
+    for path in pkg.rglob("*.py"):
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+        assert "from low_light_image_enhancement_tpu." not in text, path
+        assert "import low_light_image_enhancement_tpu\n" not in text, path
+
+
+def test_cuda_tensors_go_to_the_kernels_or_raise():
+    """A tensor on a CUDA device never takes the plain version: on a host
+    without nvcc and a card, each wrapper raises."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is there: chip_smoke.py runs the kernels")
+    with FakeTensorMode():
+        x = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="cuda")
+        xb = torch.empty((1, 3, 24, 128), dtype=torch.uint8, device="cuda")
+        maps = torch.empty((1, 8, 3, 24, 128), device="cuda")
+    assert x.device.type == "cuda"
+    before = (fe.fused_retinex.launches, fe.fused_curve_enhance.launches)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_retinex(x, PipelineConfig())
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_curve_enhance(xb, maps, PipelineConfig(method="hybrid"),
+                               8, 8, 8)
+    assert (fe.fused_retinex.launches,
+            fe.fused_curve_enhance.launches) == before

@@ -1,0 +1,128 @@
+"""EnhancePipeline(device="cpu") against the JAX package's
+EnhancePipeline(force_jnp=True) with the same weights.
+
+Bars: retinex and float32 hybrid/curve, max |du8| <= 1 with a changed share
+< 1e-3 (the JAX package's own bar between its kernels and its jnp path);
+bf16 hybrid, PSNR >= 40 dB, since bf16 convs round at other places in the
+two frameworks (tests/test_torch_models.py) and a one-step change of a
+curve map moves some pixels by a u8 step or two."""
+
+import numpy as np
+import pytest
+import torch
+
+from low_light_image_enhancement_tpu import pipeline as jpipe
+from low_light_image_enhancement_tpu.config import PipelineConfig as JConfig
+from low_light_image_enhancement_tpu_torch import pipeline as tpipe
+from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
+from low_light_image_enhancement_tpu_torch.models.weights import (
+    params_from_numpy,
+)
+
+
+def _pair(kw, bucket=None):
+    ref = jpipe.EnhancePipeline(JConfig(**kw), force_jnp=True, bucket=bucket)
+    params = None if ref.model_params is None else \
+        params_from_numpy(ref.model_params)
+    port = tpipe.EnhancePipeline(PipelineConfig(**kw), model_params=params,
+                                 device="cpu", bucket=bucket)
+    return port, ref
+
+
+def _delta(got, want):
+    d = np.abs(got.astype(int) - want.astype(int))
+    return d.max(), (d > 0).mean()
+
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return np.inf if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+@pytest.mark.parametrize("size", [(64, 96), (33, 47)])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(method="hybrid", compute_dtype="float32"),
+    dict(method="curve", compute_dtype="float32"),
+])
+def test_pipeline_matches_jax(kw, size):
+    lows, _ = synth_batch(2, *size)
+    port, ref = _pair(kw)
+    got, want = port.enhance_batch(lows), ref.enhance_batch(lows)
+    assert got.shape == lows.shape and got.dtype == np.uint8
+    dmax, share = _delta(got, want)
+    assert dmax <= 1 and share < 1e-3, (dmax, share)
+
+
+@pytest.mark.parametrize("size", [(64, 96), (33, 47)])
+def test_hybrid_bf16_psnr_vs_jax(size):
+    lows, _ = synth_batch(2, *size, seed=1)
+    port, ref = _pair(dict(method="hybrid"))
+    p = _psnr(port.enhance_batch(lows), ref.enhance_batch(lows))
+    assert p >= 40.0, p
+
+
+def test_bucket_crops_back_exactly():
+    lows, _ = synth_batch(2, 33, 47, seed=2)
+    port, ref = _pair(dict(method="hybrid", compute_dtype="float32"),
+                      bucket=64)
+    got = port.enhance_batch(lows)
+    assert got.shape == lows.shape
+    dmax, share = _delta(got, ref.enhance_batch(lows))
+    assert dmax <= 1 and share < 1e-3, (dmax, share)
+    single = port.enhance(lows[1])
+    np.testing.assert_array_equal(single, got[1])
+    np.testing.assert_array_equal(port(lows[1]), single)
+
+
+def test_default_params_are_the_shipped_weights():
+    hybrid = tpipe.EnhancePipeline(PipelineConfig(method="hybrid"),
+                                   device="cpu")
+    want = params_from_numpy(
+        jpipe.EnhancePipeline(JConfig(method="hybrid"),
+                              force_jnp=True).model_params)
+    for name, layer in want.items():
+        torch.testing.assert_close(hybrid.model_params[name]["w"], layer["w"],
+                                   rtol=0, atol=0)
+    assert tpipe.EnhancePipeline(device="cpu").model_params is None
+    # a width the shipped weights do not have: random init from the seed
+    a = tpipe.EnhancePipeline(PipelineConfig(method="curve",
+                                             curve_features=8),
+                              device="cpu", rng_seed=3)
+    b = tpipe.EnhancePipeline(PipelineConfig(method="curve",
+                                             curve_features=8),
+                              device="cpu", rng_seed=3)
+    assert a.model_params["c1"]["w"].shape == (8, 3, 3, 3)
+    torch.testing.assert_close(a.model_params["c2"]["w"],
+                               b.model_params["c2"]["w"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="fcn"), dict(method="decom"), dict(spatial_shards=2),
+    dict(data_shards=2), dict(denoise_taps="guided"),
+    dict(method="hybrid", curve_downsample=4),
+])
+def test_unported_configs_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipe.EnhancePipeline(PipelineConfig(**kw), device="cpu")
+
+
+def test_device_is_explicit_and_inputs_are_checked():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tpipe.EnhancePipeline(device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tpipe.enhance(np.zeros((8, 8, 3), np.uint8))
+    with pytest.raises(ValueError):
+        tpipe.EnhancePipeline(device="meta")
+    pipe = tpipe.EnhancePipeline(device="cpu")
+    with pytest.raises(TypeError):
+        pipe.enhance_batch_device(torch.zeros((1, 8, 8, 3)))
+    with pytest.raises(ValueError):
+        pipe.enhance_batch_device(torch.zeros((1, 8, 8, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        pipe.enhance(np.zeros((8, 8), np.uint8))
+    out = pipe.enhance_batch_device(torch.zeros((1, 8, 8, 3),
+                                                dtype=torch.uint8))
+    assert out.device.type == "cpu" and out.shape == (1, 8, 8, 3)
+    pipe.warmup([(2, 16, 24)])
