@@ -9,7 +9,12 @@ Public API::
     out = llt.enhance(img_u8_hwc)                # default config, on CUDA
     pipe = llt.EnhancePipeline(llt.PipelineConfig(method="hybrid"),
                                device="cuda")
+    best = llt.EnhancePipeline(llt.PRESETS["quality"], device="cuda")
     server = llt.EnhanceServer(device="cuda")    # micro-batching server
+
+Methods: retinex (kernel K1), curve and hybrid (the curve CNN, then K3),
+fcn and decom (their net, then K5, the bilateral or guided denoise tail).
+``eval.metrics`` has PSNR, SSIM and CIE76 delta-E on tensors.
 """
 
 from low_light_image_enhancement_tpu_torch.config import (

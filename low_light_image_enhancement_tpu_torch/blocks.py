@@ -1,12 +1,14 @@
-"""Block-form graph of the learned methods (curve and hybrid at
-``curve_downsample`` 1).
+"""Block-form graph of the learned methods: curve and hybrid (at
+``curve_downsample`` 1), fcn and decom.
 
 The net consumes the image extended by ``canvas_margin`` replicate
 rows/cols on each side and zeros beyond (``_mask_extent``); conv SAME
 zero padding at the block edge coincides with that mask, so alignment
-padding never reaches a consumed pixel. The tail (curves, denoise,
-quantize) runs as K3, ``kernels.fused_enhance.fused_curve_enhance``, which
-takes the contract of the JAX package's ``blocks._fused_curve_tail``.
+padding never reaches a consumed pixel. The curve/hybrid tail (curves,
+denoise, quantize) runs as K3, ``kernels.fused_enhance.fused_curve_enhance``,
+which takes the contract of the JAX package's ``blocks._fused_curve_tail``;
+the fcn/decom tail (denoise) as K5, ``kernels.tiled_denoise.tiled_denoise``,
+and the quantize after it.
 """
 
 from __future__ import annotations
@@ -29,23 +31,31 @@ from low_light_image_enhancement_tpu_torch.core import (
 from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
     fused_curve_enhance,
 )
+from low_light_image_enhancement_tpu_torch.kernels.tiled_denoise import (
+    tiled_denoise,
+)
 from low_light_image_enhancement_tpu_torch.models.curve_cnn import (
     apply_curve_cnn,
 )
-from low_light_image_enhancement_tpu_torch.ops.colorspace import normalize_u8
+from low_light_image_enhancement_tpu_torch.models.decom import (
+    apply_decom_net,
+)
+from low_light_image_enhancement_tpu_torch.models.fcn import (
+    _dilations,
+    apply_fcn,
+)
+from low_light_image_enhancement_tpu_torch.ops.colorspace import (
+    normalize_u8,
+    quantize_u8,
+)
 
 __all__ = ["cnn_radius", "learned_halo", "single_block_halo",
            "block_geometry", "resolve_conv_impl", "replicate_margin_cols",
-           "block_curve_maps", "enhance_learned_block"]
+           "block_curve_maps", "block_net_image", "enhance_learned_block"]
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def _fcn_dilations(depth: int = 7):
-    # the fcn's schedule (models/fcn.py of the JAX package)
-    return tuple(min(2 ** i, 32) for i in range(depth - 1)) + (1,)
 
 
 def cnn_radius(cfg: PipelineConfig) -> int:
@@ -55,7 +65,7 @@ def cnn_radius(cfg: PipelineConfig) -> int:
         ds = cfg.curve_downsample
         return 7 if ds == 1 else 9 * ds
     if cfg.method == "fcn":
-        return sum(_fcn_dilations())
+        return sum(_dilations())
     if cfg.method == "decom":
         return 5
     return 0
@@ -83,7 +93,7 @@ def single_block_halo(cfg: PipelineConfig) -> int:
     if cfg.denoise_taps == "guided":
         return learned_halo(cfg)
     if cfg.method == "fcn":
-        return _round_up(sum(_fcn_dilations()[1:]) + denoise_radius(cfg), 8)
+        return _round_up(sum(_dilations()[1:]) + denoise_radius(cfg), 8)
     r = canvas_margin(cfg)
     if cfg.method == "hybrid":
         r += cfg.blur_radius
@@ -161,14 +171,9 @@ def block_curve_maps(
     CNN never sees the wrap shifts' opposite-edge content), zeroed beyond
     image + margin."""
     cfg = resolve_conv_impl(cfg)
-    if cfg.method in ("fcn", "decom"):
-        raise NotImplementedError(
-            f"method={cfg.method!r} is not ported yet (ROADMAP Queue 1)")
     if cfg.method not in ("curve", "hybrid"):
         raise ValueError(
-            f"method {cfg.method!r} is not a learned method (retinex has "
-            "its own fused path)"
-        )
+            f"method {cfg.method!r} has no curve maps (curve and hybrid do)")
     if xb.dtype != torch.uint8:
         raise NotImplementedError(
             "float blocks are not ported yet (ROADMAP Queue 1: f32 I/O)")
@@ -177,6 +182,34 @@ def block_curve_maps(
     if cfg.method == "hybrid":
         y = replicate_margin_cols(illumination_boost(y, cfg), w, m)
     return _curve_maps(_mask_extent(y, row0, h, w, m), cfg, model_params)
+
+
+def block_net_image(
+    xb: torch.Tensor,
+    cfg: PipelineConfig,
+    model_params: Dict[str, Any],
+    row0: int,
+    h: int,
+    w: int,
+) -> torch.Tensor:
+    """fcn/decom: the net's enhanced f32 block (B, 3, HB, WB) in [0, 1],
+    before the denoise tail. The net runs on the normalized block, zeroed
+    beyond image + margin; decom relights its reflectance by
+    ``clip(L, illum_eps, 1) ** decom_gamma``."""
+    cfg = resolve_conv_impl(cfg)
+    if cfg.method not in ("fcn", "decom"):
+        raise ValueError(f"method {cfg.method!r} is not fcn or decom")
+    if xb.dtype != torch.uint8:
+        raise NotImplementedError(
+            "float blocks are not ported yet (ROADMAP Queue 1: f32 I/O)")
+    cnn_in = _mask_extent(normalize_u8(xb), row0, h, w, canvas_margin(cfg))
+    if cfg.method == "fcn":
+        y = apply_fcn(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
+        return torch.clamp(y, 0.0, 1.0)
+    r, l = apply_decom_net(model_params, cnn_in,
+                           compute_dtype=cfg.compute_dtype)
+    l_boost = torch.clamp(l, cfg.illum_eps, 1.0) ** cfg.decom_gamma
+    return torch.clamp(r * l_boost, 0.0, 1.0)
 
 
 def enhance_learned_block(
@@ -201,6 +234,11 @@ def enhance_learned_block(
     """
     if halo is None:
         halo = learned_halo(cfg)
-    maps = block_curve_maps(xb, cfg, model_params, row0, h, w)
-    return fused_curve_enhance(xb, maps, cfg, halo, xb.shape[-2] - 2 * halo,
-                               img_w=w)
+    rows = xb.shape[-2] - 2 * halo
+    if cfg.method in ("curve", "hybrid"):
+        maps = block_curve_maps(xb, cfg, model_params, row0, h, w)
+        return fused_curve_enhance(xb, maps, cfg, halo, rows, img_w=w)
+    y = block_net_image(xb, cfg, model_params, row0, h, w)
+    if cfg.denoise_strength <= 0.0:
+        return quantize_u8(y[..., halo:halo + rows, :])
+    return quantize_u8(tiled_denoise(y, cfg, halo, rows))

@@ -55,8 +55,8 @@ class PipelineConfig:
     # "retinex": classical illumination-map / reflectance path (no weights).
     # "curve":   Zero-DCE-style learned curve adjustment (needs CNN params).
     # "hybrid":  retinex illumination boost followed by learned curves.
-    # "fcn":     supervised context-aggregation FCN enhancer (not yet ported).
-    # "decom":   learned Retinex decomposition + relight (not yet ported).
+    # "fcn":     supervised context-aggregation FCN enhancer.
+    # "decom":   learned Retinex decomposition + relight.
     method: str = "retinex"
 
     # --- retinex / gamma -----------------------------------------------------
@@ -71,7 +71,8 @@ class PipelineConfig:
     denoise_sigma: float = 0.2      # range sigma of the bilateral
     denoise_kernel: str = "exp"     # range weight: "exp" or "epan"
     denoise_taps: str = "sep"       # "sep" 3+3 taps, "full" 3x3, "guided"
-                                    # (guided is not yet ported: raises)
+                                    # (guided runs on fcn and decom; on
+                                    # retinex/curve/hybrid it raises)
     guided_radius: int = 2          # box radius of the guided tail
     guided_eps: float = 1e-2        # guided-filter variance threshold
     denoise_guide: str = "luma"     # "luma" joint bilateral or "perchannel"

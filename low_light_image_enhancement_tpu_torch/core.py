@@ -22,8 +22,9 @@ from low_light_image_enhancement_tpu_torch.ops.filters import (
     separable_blur,
 )
 
-__all__ = ["MARGIN", "illumination_boost", "enhance_core_padded",
-           "pad_edge", "pad_planar", "replicate_margin_cols"]
+__all__ = ["MARGIN", "illumination_boost", "denoise_tail",
+           "enhance_core_padded", "pad_edge", "pad_planar",
+           "replicate_margin_cols"]
 
 
 def pad_edge(x: torch.Tensor, top: int, bottom: int, left: int,
@@ -69,11 +70,14 @@ def illumination_boost(xp: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
 
 
 def denoise_tail(x: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
-    """The configured denoise on a padded planar canvas (wrap shifts)."""
+    """The configured denoise on a padded planar canvas (wrap shifts). The
+    guided radius and eps are passed on: the cores' own defaults are not the
+    config's."""
     inv2s2 = 1.0 / (2.0 * cfg.denoise_sigma * cfg.denoise_sigma)
     return denoise_planar(x, inv2s2, cfg.denoise_strength, roll2d,
                           cfg.denoise_kernel, cfg.denoise_guide,
-                          cfg.denoise_taps)
+                          cfg.denoise_taps, cfg.guided_radius,
+                          cfg.guided_eps)
 
 
 def enhance_core_padded(

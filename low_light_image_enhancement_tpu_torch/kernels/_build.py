@@ -1,8 +1,9 @@
 """Build and load the CUDA kernel library.
 
-``nvcc`` compiles every ``csrc/*.cu`` of this package for ``sm_90a`` into
-one shared library with a plain C interface, which is loaded with
-``ctypes``. The library lands in ``<repo>/build/torch_kernels/`` (resolved
+``nvcc`` compiles every ``csrc/*.cu`` of this package for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The library lands in ``<repo>/build/torch_kernels/`` (resolved
 from this file, not from the working directory), named by a hash of the
 sources and the flags, and is built at first use under a lock. Nothing is
 built or loaded when the module is imported.
@@ -27,7 +28,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -48,6 +49,14 @@ _SIGNATURES = {
         _I, _FP, _F, _F,             # radius, taps, gamma - 1, eps
         _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
         _P,                          # kind, joint, sep; stream
+    ],
+    "llie_tiled_denoise_f32": [
+        _P, _P, _I, _I, _I,          # in, out, B, HB, WB
+        _I, _I, _I,                  # halo, rows, margin
+        _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
+                                     # kind, joint, sep
+        _I, _I, _F, _F,              # guided, radius, 1/(2r+1), eps
+        _P,                          # stream
     ],
     "llie_max_blur_radius": [],
 }
@@ -87,25 +96,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"llie_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(target: Path) -> None:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name, then rename: a concurrent process sees
-    # either no library or a whole one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = find_nvcc()
+    # objects and the library under temporary names, then one rename: a
+    # concurrent process sees either no library or a whole one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in cu]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(cu, objs)])
+        lib = str(Path(tmp) / target.name)
+        _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]])
+        os.replace(lib, target)
 
 
 def load_library() -> ctypes.CDLL:

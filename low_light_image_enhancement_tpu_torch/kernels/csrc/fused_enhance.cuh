@@ -8,7 +8,8 @@
 // where they multiply by one, exp(g * log L) for the power, and every
 // constant rounded once from double on the host. The library is built with
 // --fmad=false so that a*b+c stays a multiply and an add, as in PyTorch's
-// eager ops.
+// eager ops. Functions defined here are inline: every .cu that includes the
+// header is compiled on its own and linked into one library.
 #pragma once
 
 #include <cstdint>
@@ -81,9 +82,10 @@ __device__ __forceinline__ float spatial(int k) {
 // [eps, 1], then exp((gamma-1) * log L). sL0 holds max(R,G,B) on
 // (YH + 2R) x (YW + 2R) positions; sV is scratch of YH x (YW + 2R).
 // Position (i, j) of the ring tile is (i + R, j + R) of sL0.
-__device__ void gain_tile(const float* __restrict__ sL0, float* __restrict__ sV,
-                          float* __restrict__ sG, const BoostParams& bp,
-                          int tid) {
+__device__ inline void gain_tile(const float* __restrict__ sL0,
+                                 float* __restrict__ sV,
+                                 float* __restrict__ sG,
+                                 const BoostParams& bp, int tid) {
   const int R = bp.radius;
   const int LW = YW + 2 * R;
   // Vertical taps first: term k reads row y + R - k, k ascending.
@@ -110,9 +112,10 @@ __device__ void gain_tile(const float* __restrict__ sL0, float* __restrict__ sV,
 // planes of YH x YW (the ring tile); sP is scratch of three planes of
 // TILE_H x YW. Every thread of the block must call it: the separable form
 // synchronises between its passes. out[] gets the blended, unclipped value.
-__device__ void denoise_tile(const float* __restrict__ sY,
-                             float* __restrict__ sP, const TailParams& p,
-                             int tid, int ty, int tx, float out[3]) {
+__device__ inline void denoise_tile(const float* __restrict__ sY,
+                                    float* __restrict__ sP,
+                                    const TailParams& p, int tid, int ty,
+                                    int tx, float out[3]) {
   const int cy = ty + 1, cx = tx + 1;
   const int ce = cy * YW + cx;
   if (p.strength <= 0.0f) {

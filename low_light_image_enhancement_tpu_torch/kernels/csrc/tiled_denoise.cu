@@ -1,0 +1,178 @@
+// K5, the tiled denoise tail for Hopper (sm_90a), bound to PyTorch through
+// ctypes (kernels/tiled_denoise.py).
+//
+// What it replaces. The TPU kernel tiled_denoise -> _denoise_kernel
+// (low_light_image_enhancement_tpu/kernels/tiled_denoise.py): the denoise
+// tail of the fcn and decom methods on an f32 block, bilateral (separable or
+// full 3x3, exp or epan range weight, per channel or luma-joint) or guided
+// (radius r, eps, per channel or luma-joint), blended by strength and
+// clipped to [0, 1].
+//
+// Window contract. The input is the whole f32 block (B, 3, HB, WB); the
+// output (B, 3, rows, WB) holds block rows [halo, halo + rows). The kernel
+// reads the window [halo - m, halo + rows + m) where it lies, with row reads
+// clamped into it and column reads clamped into [0, WB). The TPU kernel
+// copies that window out and wraps inside it instead; since the margin m
+// covers the tail's receptive radius (1 for the bilateral, 2r for the
+// guided cascade), no pixel a caller keeps (every row, columns [m, m + w))
+// reads a clamped or wrapped value, and the two agree there.
+//
+// What bounds it. Data is read once and written once: 12 bytes in and 12
+// out per pixel, plus the halo rows. The guided cascade at r = 4 does some
+// 300 float operations per pixel (14 box means of 4r + 1 adds and a
+// multiply, and the a / b algebra), the bilateral up to ~250 with 27 exps:
+// at the H100's 67 TFLOP/s of f32 against 3.35 TB/s that is below the
+// ~20 operations per byte where arithmetic would bound it, so device
+// memory bounds K5 on paper.
+//
+// What the design does about it. One thread per output pixel on a 16 x 32
+// tile. The tile's input with its ring (1 for the bilateral, 2r for the
+// guided filter) is staged once in shared memory, and every intermediate
+// (the first bilateral pass; the guide, its box means, the per-channel
+// statistics and the a / b planes of the guided filter) stays there, so
+// device memory sees each input value once per tile plus the ring's
+// overlap. The guided scratch grows with r: 48,384 bytes at r = 4, 88,064
+// at r = 8, above the 48 KB of static shared memory, so the launch opts in
+// to dynamic shared memory (cudaFuncAttributeMaxDynamicSharedMemorySize)
+// whenever it needs more; the tile stays 16 x 32 at every radius. Speed
+// (more pixels per thread, a ring shared between tiles) is later work.
+//
+// Numerics. --fmad=false and no --use_fast_math (see _build.py); the
+// device code repeats the plain versions' operations in their order
+// (fused_enhance.cuh for the bilateral, guided.cuh for the guided filter).
+#include "fused_enhance.cuh"
+#include "guided.cuh"
+
+namespace llie {
+
+// Bilateral arms: the ring tile (rows halo + y0 - 1 .., cols x0 - 1 ..) of
+// the window, then denoise_tile as in K1 / K3.
+__global__ void __launch_bounds__(NTHREADS)
+denoise_bilateral_kernel(const float* __restrict__ in, float* __restrict__ out,
+                         int HB, int WB, int halo, int rows, int m,
+                         TailParams tp) {
+  extern __shared__ float smem[];
+  float* sY = smem;         // 3 x YH x YW: the input ring tile
+  float* sP = sY + 3 * YN;  // 3 x TILE_H x YW: separable pass 1
+
+  const int tid = threadIdx.x;
+  const int ty = tid / TILE_W, tx = tid - (tid / TILE_W) * TILE_W;
+  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+  const size_t plane = (size_t)HB * WB;
+  const float* blk = in + (size_t)blockIdx.z * 3 * plane;
+  const int lo = halo - m, hi = halo + rows + m - 1;
+  const int r0 = halo + y0 - 1, c0 = x0 - 1;
+
+  for (int e = tid; e < YN; e += NTHREADS) {
+    const int i = e / YW, j = e - (e / YW) * YW;
+    const size_t at = (size_t)clampi(r0 + i, lo, hi) * WB
+                      + clampi(c0 + j, 0, WB - 1);
+    for (int c = 0; c < 3; ++c) sY[c * YN + e] = blk[c * plane + at];
+  }
+  __syncthreads();
+
+  float o[3];
+  denoise_tile(sY, sP, tp, tid, ty, tx, o);
+  const int r = y0 + ty, c = x0 + tx;
+  if (r < rows && c < WB) {
+    float* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
+    for (int ch = 0; ch < 3; ++ch) q[(size_t)ch * rows * WB] = clip01(o[ch]);
+  }
+}
+
+// Guided arms: the input tile with a 2r ring, then guided_tile.
+__global__ void __launch_bounds__(NTHREADS)
+denoise_guided_kernel(const float* __restrict__ in, float* __restrict__ out,
+                      int HB, int WB, int halo, int rows, int m,
+                      GuidedParams gp) {
+  extern __shared__ float smem[];
+  const int R = gp.radius;
+  const int LW = guided_lw(R), LN = guided_lh(R) * LW;
+  float* sX = smem;              // 3 x LH x LW: the input tile
+  float* scratch = sX + 3 * LN;  // guided_scratch_floats(R)
+
+  const int tid = threadIdx.x;
+  const int ty = tid / TILE_W, tx = tid - (tid / TILE_W) * TILE_W;
+  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+  const size_t plane = (size_t)HB * WB;
+  const float* blk = in + (size_t)blockIdx.z * 3 * plane;
+  const int lo = halo - m, hi = halo + rows + m - 1;
+  const int r0 = halo + y0 - 2 * R, c0 = x0 - 2 * R;
+
+  for (int e = tid; e < LN; e += NTHREADS) {
+    const int i = e / LW, j = e - (e / LW) * LW;
+    const size_t at = (size_t)clampi(r0 + i, lo, hi) * WB
+                      + clampi(c0 + j, 0, WB - 1);
+    for (int c = 0; c < 3; ++c) sX[c * LN + e] = blk[c * plane + at];
+  }
+  __syncthreads();
+
+  float o[3];
+  guided_tile(sX, scratch, gp, tid, ty, tx, o);
+  const int r = y0 + ty, c = x0 + tx;
+  if (r < rows && c < WB) {
+    float* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
+    for (int ch = 0; ch < 3; ++ch) q[(size_t)ch * rows * WB] = clip01(o[ch]);
+  }
+}
+
+// Dynamic shared memory of the guided arm at radius r, in bytes.
+static int guided_smem_bytes(int r) {
+  const int ln = guided_lh(r) * guided_lw(r);
+  return (int)sizeof(float) * (3 * ln + guided_scratch_floats(r));
+}
+
+}  // namespace llie
+
+using namespace llie;
+
+extern "C" {
+
+// f32 block (B, 3, HB, WB) -> f32 (B, 3, rows, WB), output row r <-> block
+// row halo + r. `guided` selects the guided arms (radius g_radius, box
+// factor g_k, eps g_eps; `joint` picks the luma guide), else the bilateral
+// arms of TailParams. Returns cudaGetLastError() after the launch (0 when
+// it was accepted).
+int llie_tiled_denoise_f32(const void* in, void* out, int B, int HB, int WB,
+                           int halo, int rows, int m, float strength,
+                           float inv2s2, float inv2s2_3, int kind, int joint,
+                           int sep, int guided, int g_radius, float g_k,
+                           float g_eps, void* stream) {
+  if (rows < 1 || halo < m || HB < halo + rows + m || WB < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((WB + TILE_W - 1) / TILE_W, (rows + TILE_H - 1) / TILE_H, B);
+  if (guided) {
+    if (g_radius < 1 || g_radius > MAX_GUIDED_RADIUS || 2 * g_radius > m)
+      return (int)cudaErrorInvalidValue;
+    GuidedParams gp;
+    gp.radius = g_radius;
+    gp.k = g_k;
+    gp.eps = g_eps;
+    gp.strength = strength;
+    gp.joint = joint;
+    const int smem = guided_smem_bytes(g_radius);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          denoise_guided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    denoise_guided_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)in, (float*)out, HB, WB, halo, rows, m, gp);
+  } else {
+    if (m < 1) return (int)cudaErrorInvalidValue;
+    TailParams tp;
+    tp.strength = strength;
+    tp.inv2s2 = inv2s2;
+    tp.inv2s2_3 = inv2s2_3;
+    tp.kind = kind;
+    tp.joint = joint;
+    tp.sep = sep;
+    const size_t smem = sizeof(float) * (3 * YN + 3 * PN);
+    denoise_bilateral_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)in, (float*)out, HB, WB, halo, rows, m, tp);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,53 @@
+"""Learned Retinex decomposition net (RetinexNet-style DecomNet).
+
+Maps an RGB image to reflectance R in [0,1]^3 and illumination L in [0,1]:
+five 3x3 convs at 32 features on RGB plus its channel max (4 channels in),
+ReLU after the first four, a sigmoid head of 4 channels split into R and L.
+Parameters as in ``models/curve_cnn.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from low_light_image_enhancement_tpu_torch.models.layers import (
+    conv2d,
+    sigmoid,
+)
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+def init_decom_net(generator: torch.Generator,
+                   features: int = 32) -> Params:
+    """He-normal initialized parameters of the five convs."""
+    sizes = [(4, features), (features, features), (features, features),
+             (features, features), (features, 4)]
+    params: Params = {}
+    for i, (cin, cout) in enumerate(sizes, start=1):
+        w = torch.randn((cout, cin, 3, 3), generator=generator,
+                        dtype=torch.float32)
+        params[f"c{i}"] = {"w": w * math.sqrt(2.0 / (3 * 3 * cin)),
+                           "b": torch.zeros((cout,), dtype=torch.float32)}
+    return params
+
+
+def apply_decom_net(params: Params, x: torch.Tensor,
+                    compute_dtype="float32"):
+    """(..., 3, H, W) -> (R (..., 3, H, W), L (..., 1, H, W)), both float32
+    in [0,1]."""
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    h = torch.cat([x, torch.amax(x, dim=1, keepdim=True)], dim=1)
+    for i in range(1, 5):
+        p = params[f"c{i}"]
+        h = torch.relu(conv2d(h, p["w"], p["b"], compute_dtype))
+    p = params["c5"]
+    out = sigmoid(conv2d(h, p["w"], p["b"], compute_dtype)) \
+        .to(torch.float32)
+    r, l = out[:, :3], out[:, 3:4]
+    return (r, l) if batched else (r[0], l[0])

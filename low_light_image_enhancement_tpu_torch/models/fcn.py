@@ -1,0 +1,66 @@
+"""Context-aggregation FCN enhancer.
+
+A stack of 3x3 convs with exponentially growing dilation (1, 2, 4, ..., 1)
+at 24 features, then a 1x1 sigmoid head to RGB. Parameters are a dict
+``{"c1": {"w": (Cout, Cin, 3, 3), "b": (Cout,)}, ..., "out": {...}}``
+(``models.weights.params_from_numpy`` converts the JAX package's HWIO).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from low_light_image_enhancement_tpu_torch.models.layers import (
+    as_dtype,
+    conv2d,
+    sigmoid,
+)
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+def _dilations(depth: int = 7) -> Tuple[int, ...]:
+    """1, 2, 4, ... capped at 32, then a closing dilation-1 layer."""
+    return tuple(min(2 ** i, 32) for i in range(depth - 1)) + (1,)
+
+
+def init_fcn(generator: torch.Generator, features: int = 24,
+             depth: int = 7) -> Params:
+    """He-normal initialized parameters of the dilated stack and head."""
+    sizes = [(3, features)] + [(features, features)] * (depth - 1)
+    params: Params = {}
+    for i, (cin, cout) in enumerate(sizes, start=1):
+        w = torch.randn((cout, cin, 3, 3), generator=generator,
+                        dtype=torch.float32)
+        params[f"c{i}"] = {"w": w * math.sqrt(2.0 / (3 * 3 * cin)),
+                           "b": torch.zeros((cout,), dtype=torch.float32)}
+    w = torch.randn((3, features, 1, 1), generator=generator,
+                    dtype=torch.float32)
+    params["out"] = {"w": w * math.sqrt(2.0 / features),
+                     "b": torch.zeros((3,), dtype=torch.float32)}
+    return params
+
+
+def apply_fcn(params: Params, x: torch.Tensor,
+              compute_dtype="float32") -> torch.Tensor:
+    """(..., 3, H, W) in [0,1] -> enhanced (..., 3, H, W) in [0,1],
+    float32. The activations and the head's sigmoid run in the compute
+    dtype, as in the JAX package."""
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    cd = as_dtype(compute_dtype)
+    # the slope as a value of the compute dtype, as JAX rounds it
+    slope = torch.tensor(0.2, dtype=cd)
+    depth = sum(1 for k in params if k.startswith("c"))
+    h = x
+    for i, dil in enumerate(_dilations(depth), start=1):
+        p = params[f"c{i}"]
+        h = conv2d(h, p["w"], p["b"], cd, dilation=dil)
+        h = torch.where(h >= 0, h, h * slope)
+    out = sigmoid(conv2d(h, params["out"]["w"], params["out"]["b"],
+                               cd)).to(torch.float32)
+    return out if batched else out[0]

@@ -1,4 +1,5 @@
-"""Shared conv primitive: NCHW 3x3 (optionally dilated) SAME conv."""
+"""Shared primitives of the nets: NCHW (optionally dilated) SAME conv of
+any odd kernel size, and the sigmoid as the JAX package computes it."""
 
 from __future__ import annotations
 
@@ -14,14 +15,27 @@ def as_dtype(compute_dtype) -> torch.dtype:
 
 
 def conv2d(x, w, b, compute_dtype, dilation: int = 1):
-    """x (B, Cin, H, W), w (Cout, Cin, 3, 3), b (Cout,). As in the JAX
+    """x (B, Cin, H, W), w (Cout, Cin, k, k) with k odd, b (Cout,). SAME
+    padding, ``dilation * (k - 1) // 2`` on each side, so the output keeps
+    the input's spatial shape (a 1x1 conv pads nothing). As in the JAX
     package, x, w and b are all cast to ``compute_dtype`` and the bias is
     added in that dtype.
 
     A float32 conv on CUDA goes through cuDNN, which uses TF32 unless
     ``torch.backends.cudnn.allow_tf32`` is False: turn it off for float32
     parity with the reference."""
+    kh, kw = w.shape[-2:]
+    if kh != kw or kh % 2 != 1:
+        raise ValueError(f"conv2d takes square odd kernels, got {kh}x{kw}")
     cd = as_dtype(compute_dtype)
-    y = F.conv2d(x.to(cd), w.to(cd), None, padding=dilation,
+    y = F.conv2d(x.to(cd), w.to(cd), None, padding=dilation * (kh - 1) // 2,
                  dilation=dilation)
     return y + b.to(cd)[:, None, None]
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))`` in x's dtype, each step rounded to it: the
+    form JAX's ``logistic`` takes on the CPU. In bfloat16,
+    ``torch.sigmoid`` rounds once instead, and a third of its outputs land
+    one bf16 step away from the reference's."""
+    return 1.0 / (1.0 + torch.exp(-x))

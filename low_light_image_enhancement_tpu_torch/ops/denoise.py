@@ -1,4 +1,5 @@
-"""Bilateral-lite 3x3 denoise expressed as shifted taps.
+"""Bilateral-lite 3x3 denoise expressed as shifted taps, and the dispatch
+to the guided cores (``ops/guided.py``).
 
 Spatial weights are the separable [1/4, 1/2, 1/4] binomial; the range
 weight is ``"exp"`` (Gaussian, ``exp(-d^2 / 2 sigma^2)``) or ``"epan"``
@@ -11,6 +12,11 @@ and the arithmetic form of each core follow the JAX package's
 from __future__ import annotations
 
 import torch
+
+from low_light_image_enhancement_tpu_torch.ops.guided import (
+    guided_core_shift,
+    guided_joint_core_shift,
+)
 
 _SPATIAL_1D = (0.25, 0.5, 0.25)
 
@@ -105,26 +111,38 @@ def bilateral_sep_joint_core(planes, inv2s2, strength, shift_fn,
     return [p + strength * (o - p) for p, o in zip(planes, outs)]
 
 
-def plane_cores(guide: str, taps: str):
-    """(single-plane core, joint core) pair for a (guide, taps) choice."""
+def plane_cores(guide: str, taps: str, guided_radius: int = 2,
+                guided_eps: float = 3e-3):
+    """(single-plane core, joint core) pair for a (guide, taps) choice. Every
+    core has the signature ``core(x_or_planes, inv2s2, strength, shift_fn,
+    kind)``; the guided cores (taps="guided") bind their radius and eps
+    here and ignore ``inv2s2`` and ``kind``. The defaults are the JAX
+    package's; the config's ``guided_eps`` default differs (1e-2), so the
+    pipeline always passes both."""
     if guide not in GUIDES:
         raise ValueError(f"denoise guide must be one of {GUIDES}: {guide!r}")
     if taps not in TAPS:
         raise ValueError(f"denoise taps must be one of {TAPS}: {taps!r}")
     if taps == "guided":
-        raise NotImplementedError(
-            "denoise_taps='guided' is not ported yet (ROADMAP Queue 1: "
-            "the guided tail of K1/K3)"
-        )
+        def core1(x, inv2s2, strength, shift_fn, kind="exp"):
+            return guided_core_shift(x, guided_eps, strength, shift_fn,
+                                     guided_radius)
+
+        def corej(planes, inv2s2, strength, shift_fn, kind="exp"):
+            return guided_joint_core_shift(planes, guided_eps, strength,
+                                           shift_fn, guided_radius)
+
+        return core1, corej
     if taps == "full":
         return bilateral_core, bilateral_joint_core
     return bilateral_sep_core, bilateral_sep_joint_core
 
 
 def denoise_planar(x, inv2s2, strength, shift_fn, kind: str = "exp",
-                   guide: str = "perchannel", taps: str = "full"):
+                   guide: str = "perchannel", taps: str = "full",
+                   guided_radius: int = 2, guided_eps: float = 3e-3):
     """Dispatch on (guide, taps) for a planar (..., 3, H, W) tensor."""
-    core1, corej = plane_cores(guide, taps)
+    core1, corej = plane_cores(guide, taps, guided_radius, guided_eps)
     if guide == "perchannel":
         return core1(x, inv2s2, strength, shift_fn, kind)
     planes = [x[..., c, :, :] for c in range(3)]

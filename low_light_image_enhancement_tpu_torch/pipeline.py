@@ -2,7 +2,8 @@
 
 u8 HWC in, u8 HWC out. ``device`` is explicit: a pipeline on ``"cuda"``
 runs the CUDA kernels (K1 for retinex; the curve CNN through ``F.conv2d``
-and K3 for curve/hybrid), one on ``"cpu"`` their plain versions. There is
+and K3 for curve/hybrid; the fcn or decom net through ``F.conv2d`` and K5
+for their denoise tail), one on ``"cpu"`` their plain versions. There is
 no fallback from one to the other.
 """
 
@@ -30,6 +31,8 @@ from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
 from low_light_image_enhancement_tpu_torch.models.curve_cnn import (
     init_curve_cnn,
 )
+from low_light_image_enhancement_tpu_torch.models.decom import init_decom_net
+from low_light_image_enhancement_tpu_torch.models.fcn import init_fcn
 from low_light_image_enhancement_tpu_torch.models.weights import (
     load_pretrained,
     params_from_numpy,
@@ -42,16 +45,15 @@ __all__ = ["pad_planar", "pad_block", "EnhancePipeline", "enhance",
 
 def check_ported(cfg: PipelineConfig) -> None:
     """Raise for configs whose path is not ported yet."""
-    if cfg.method not in ("retinex", "curve", "hybrid"):
-        raise NotImplementedError(
-            f"method={cfg.method!r} is not ported yet (ROADMAP Queue 1)")
     if cfg.spatial_shards > 1 or cfg.data_shards > 1:
         raise NotImplementedError(
             "spatial_shards/data_shards > 1 are not ported yet (ROADMAP "
             "Queue 1: parallel)")
-    if cfg.denoise_taps == "guided":
+    if cfg.denoise_taps == "guided" and cfg.method not in ("fcn", "decom"):
         raise NotImplementedError(
-            "denoise_taps='guided' is not ported yet (ROADMAP Queue 1)")
+            f"denoise_taps='guided' on method={cfg.method!r} is not ported "
+            "yet (ROADMAP Queue 1: K1's and K3's guided tails); fcn and "
+            "decom run it")
     if cfg.method != "retinex" and cfg.curve_downsample != 1:
         raise NotImplementedError(
             f"curve_downsample={cfg.curve_downsample} is not ported yet "
@@ -111,10 +113,10 @@ class EnhancePipeline:
         device="cuda",
         bucket: Optional[int] = None,
     ):
-        """``model_params``: curve-CNN weights as this package's tensors
-        (``models.weights.params_from_numpy``); when omitted, the shipped
-        weights for the method, or a random init from ``rng_seed`` if they
-        do not fit the config.
+        """``model_params``: the method's net (curve CNN, fcn or decom) as
+        this package's tensors (``models.weights.params_from_numpy``); when
+        omitted, the shipped weights for the method, or a random init from
+        ``rng_seed`` if they are missing or do not fit the config.
 
         ``device``: ``"cuda"`` or ``"cpu"``; a CUDA device that is not
         there raises.
@@ -145,9 +147,16 @@ class EnhancePipeline:
         set by name. None for retinex."""
         if config.weights_name is not None:
             return params_from_numpy(resolve_weights(config.weights_name))
-        if config.method not in ("curve", "hybrid"):
+        if config.method == "retinex":
             return None
         pre = load_pretrained(config.method)
+        gen = torch.Generator().manual_seed(rng_seed)
+        if config.method == "fcn":
+            return params_from_numpy(pre) if pre is not None \
+                else init_fcn(gen)
+        if config.method == "decom":
+            return params_from_numpy(pre) if pre is not None \
+                else init_decom_net(gen)
         if (
             pre is not None
             and pre["c1"]["w"].shape[-1] == config.curve_features
@@ -155,7 +164,7 @@ class EnhancePipeline:
         ):
             return params_from_numpy(pre)
         return init_curve_cnn(
-            torch.Generator().manual_seed(rng_seed),
+            gen,
             features=config.curve_features,
             n_iter=config.curve_iters,
         )

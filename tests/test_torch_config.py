@@ -49,6 +49,10 @@ _GEOMETRY_CASES = [
     dict(method="curve", curve_downsample=4), dict(method="fcn"),
     dict(method="decom", denoise_taps="guided", guided_radius=4),
     dict(method="hybrid", denoise_strength=0.0),
+    dict(method="fcn", denoise_taps="guided", guided_radius=2),
+    dict(method="fcn", denoise_taps="guided", guided_radius=4),
+    dict(method="decom"),
+    dict(method="decom", denoise_taps="guided", guided_radius=2),
 ]
 
 

@@ -1,5 +1,5 @@
-"""The curve CNN and its weights against the JAX package's, with the
-shipped curve_hybrid.npz weights given to both."""
+"""The nets (curve CNN, fcn, decom) and their weights against the JAX
+package's, with the shipped weights given to both."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,9 +7,13 @@ import pytest
 import torch
 
 from low_light_image_enhancement_tpu.models import curve_cnn as jcnn
+from low_light_image_enhancement_tpu.models import decom as jdecom
+from low_light_image_enhancement_tpu.models import fcn as jfcn
 from low_light_image_enhancement_tpu.models import layers as jlayers
 from low_light_image_enhancement_tpu.models import weights as jweights
 from low_light_image_enhancement_tpu_torch.models import curve_cnn as tcnn
+from low_light_image_enhancement_tpu_torch.models import decom as tdecom
+from low_light_image_enhancement_tpu_torch.models import fcn as tfcn
 from low_light_image_enhancement_tpu_torch.models import layers as tlayers
 from low_light_image_enhancement_tpu_torch.models import weights as tweights
 
@@ -106,3 +110,89 @@ def test_curve_cnn_single_image_and_init():
     a = tcnn.apply_curve_cnn(p, x, n_iter=4)
     assert a.shape == (4, 3, 10, 14)
     assert float(a.abs().max()) <= 1.0
+
+
+# ------------------------------------------------------------ fcn, decom #
+
+_NETS = {
+    # name: (shipped weights, JAX apply, port apply)
+    "fcn": ("fcn", jfcn.apply_fcn, tfcn.apply_fcn),
+    "decom": ("decom_relit_guided", jdecom.apply_decom_net,
+              tdecom.apply_decom_net),
+}
+
+
+def _net_outputs(name, x, compute_dtype):
+    weights, japply, tapply = _NETS[name]
+    w = jweights.resolve_weights(weights)
+    want = japply(w, jnp.asarray(x), compute_dtype=jnp.dtype(compute_dtype))
+    got = tapply(tweights.params_from_numpy(w), torch.from_numpy(x),
+                 compute_dtype=compute_dtype)
+    if name == "decom":
+        return (torch.cat(got, dim=1).numpy(),
+                np.concatenate([np.asarray(v) for v in want], axis=1))
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("name", ["fcn", "decom"])
+def test_net_f32_matches(name):
+    # 80 columns: fcn's dilation-32 layer reads beyond the zero padding
+    got, want = _net_outputs(name, _input(seed=4, shape=(2, 3, 24, 80)),
+                             "float32")
+    assert got.shape == want.shape == (2, 3 if name == "fcn" else 4, 24, 80)
+    assert got.dtype == np.float32
+    # conv sums in another order, over 5 (decom) or 8 (fcn) layers
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["fcn", "decom"])
+def test_net_bf16_within_two_bf16_steps(name):
+    got, want = _net_outputs(name, _input(seed=5, shape=(2, 3, 24, 80)),
+                             "bfloat16")
+    # The sigmoid head's output lies in (0, 1), where one bf16 step is at
+    # most 2^-8. As for the curve CNN, a conv sum near a rounding boundary
+    # lands on the neighbouring bf16 value in one framework, and the step
+    # carries through the later layers. Measured over 3 seeds at this size
+    # (with the sigmoid in JAX's form, models/layers.py): 0.01-0.4% of the
+    # outputs differ, by one step, and under 0.2% by two (2^-7); mean
+    # 3e-7 to 2.4e-5. Bound: two steps, 1e-4 mean.
+    err = np.abs(got - want)
+    assert err.max() <= 2 * 2.0 ** -8, err.max()
+    assert err.mean() <= 1e-4, err.mean()
+
+
+def test_conv2d_1x1_keeps_the_spatial_shape():
+    """A 1x1 conv (fcn's head) pads nothing: SAME padding is
+    dilation * (k - 1) // 2, not the dilation."""
+    rng = np.random.default_rng(6)
+    x = rng.random((2, 24, 10, 14), dtype=np.float32)
+    w = rng.standard_normal((1, 1, 24, 3)).astype(np.float32)
+    b = rng.standard_normal(3).astype(np.float32)
+    want = jlayers.conv2d(jnp.asarray(x.transpose(0, 2, 3, 1)),
+                          jnp.asarray(w), jnp.asarray(b), jnp.float32)
+    got = tlayers.conv2d(torch.from_numpy(x),
+                         torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
+                         torch.from_numpy(b), "float32")
+    assert got.shape == (2, 3, 10, 14)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).transpose(0, 3, 1, 2),
+                               atol=1e-5, rtol=0)
+    p = tfcn.init_fcn(torch.Generator().manual_seed(0))
+    assert p["out"]["w"].shape == (3, 24, 1, 1)
+    assert tfcn.apply_fcn(p, torch.zeros((3, 9, 13))).shape == (3, 9, 13)
+    with pytest.raises(ValueError):
+        tlayers.conv2d(torch.zeros((1, 3, 8, 8)), torch.zeros((4, 3, 2, 2)),
+                       torch.zeros(4), "float32")
+
+
+def test_fcn_and_decom_init_and_single_image():
+    assert tfcn._dilations() == jfcn._dilations(7) == (1, 2, 4, 8, 16, 32, 1)
+    a = tdecom.init_decom_net(torch.Generator().manual_seed(1))
+    b = tdecom.init_decom_net(torch.Generator().manual_seed(1))
+    assert a["c1"]["w"].shape == (32, 4, 3, 3)
+    assert a["c5"]["w"].shape == (4, 32, 3, 3)
+    np.testing.assert_array_equal(a["c3"]["w"].numpy(), b["c3"]["w"].numpy())
+    r, l = tdecom.apply_decom_net(a, torch.from_numpy(
+        _input(seed=7, shape=(3, 10, 14))))
+    assert r.shape == (3, 10, 14) and l.shape == (1, 10, 14)
+    assert float(r.min()) >= 0.0 and float(l.max()) <= 1.0

@@ -11,6 +11,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from low_light_image_enhancement_tpu_torch.config import PipelineConfig
 from low_light_image_enhancement_tpu_torch.kernels import fused_enhance as fe
+from low_light_image_enhancement_tpu_torch.kernels import tiled_denoise as td
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -20,13 +21,16 @@ preloaded = set(sys.modules)
 sys.modules["jax"] = None
 sys.modules["low_light_image_enhancement_tpu"] = None
 import numpy as np
+import torch
 import low_light_image_enhancement_tpu_torch as llt
 from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
 lows, _ = synth_batch(1, 24, 40)
-for method in ("retinex", "hybrid"):
-    out = llt.EnhancePipeline(llt.PipelineConfig(method=method),
-                              device="cpu").enhance_batch(lows)
+from low_light_image_enhancement_tpu_torch.eval.metrics import psnr_u8
+for cfg in (llt.PipelineConfig(), llt.PipelineConfig(method="hybrid"),
+            llt.PRESETS["quality"], llt.PRESETS["quality_fast"]):
+    out = llt.EnhancePipeline(cfg, device="cpu").enhance_batch(lows)
     assert out.shape == lows.shape and out.dtype == np.uint8
+    assert float(psnr_u8(torch.from_numpy(out), torch.from_numpy(lows))) > 0
 loaded = sorted(m for m in set(sys.modules) - preloaded
                 if m.startswith(("jax", "low_light_image_enhancement_tpu."))
                 and sys.modules[m] is not None)
@@ -60,12 +64,19 @@ def test_cuda_tensors_go_to_the_kernels_or_raise():
         x = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="cuda")
         xb = torch.empty((1, 3, 24, 128), dtype=torch.uint8, device="cuda")
         maps = torch.empty((1, 8, 3, 24, 128), device="cuda")
+        yb = torch.empty((1, 3, 48, 128), device="cuda")
     assert x.device.type == "cuda"
-    before = (fe.fused_retinex.launches, fe.fused_curve_enhance.launches)
+    before = (fe.fused_retinex.launches, fe.fused_curve_enhance.launches,
+              td.tiled_denoise.launches)
     with pytest.raises(RuntimeError, match="nvcc"):
         fe.fused_retinex(x, PipelineConfig())
     with pytest.raises(RuntimeError, match="nvcc"):
         fe.fused_curve_enhance(xb, maps, PipelineConfig(method="hybrid"),
                                8, 8, 8)
-    assert (fe.fused_retinex.launches,
-            fe.fused_curve_enhance.launches) == before
+    for cfg in (PipelineConfig(method="fcn"),
+                PipelineConfig(method="decom", denoise_taps="guided",
+                               guided_radius=4)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            td.tiled_denoise(yb, cfg, 16, 16)
+    assert (fe.fused_retinex.launches, fe.fused_curve_enhance.launches,
+            td.tiled_denoise.launches) == before

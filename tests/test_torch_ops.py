@@ -16,6 +16,7 @@ from low_light_image_enhancement_tpu.ops import denoise as jdn
 from low_light_image_enhancement_tpu.ops import filters as jf
 from low_light_image_enhancement_tpu_torch import blocks as tblocks
 from low_light_image_enhancement_tpu_torch import core as tcore
+from low_light_image_enhancement_tpu_torch import pipeline as tpipe
 from low_light_image_enhancement_tpu_torch.config import PipelineConfig
 from low_light_image_enhancement_tpu_torch.ops import colorspace as tcs
 from low_light_image_enhancement_tpu_torch.ops import curves as tcurves
@@ -105,8 +106,14 @@ def test_bilateral_cores_match(guide, taps, kind):
 
 
 def test_guided_taps_raise_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdn.plane_cores("luma", "guided")
+    """The guided cores run (tests/test_torch_guided.py); the tails that do
+    not take them yet, K1's and K3's, raise."""
+    core1, corej = tdn.plane_cores("luma", "guided", 4, 1e-2)
+    assert callable(core1) and callable(corej)
+    for method in ("retinex", "hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpipe.check_ported(PipelineConfig(method=method,
+                                              denoise_taps="guided"))
     with pytest.raises(ValueError):
         tdn.plane_cores("luma", "box")
 

@@ -12,9 +12,14 @@ import pytest
 import torch
 
 from low_light_image_enhancement_tpu import pipeline as jpipe
+from low_light_image_enhancement_tpu.models import weights as jweights
+from low_light_image_enhancement_tpu.config import PRESETS as JPRESETS
 from low_light_image_enhancement_tpu.config import PipelineConfig as JConfig
 from low_light_image_enhancement_tpu_torch import pipeline as tpipe
-from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+from low_light_image_enhancement_tpu_torch.config import (
+    PRESETS,
+    PipelineConfig,
+)
 from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
 from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
@@ -98,7 +103,8 @@ def test_default_params_are_the_shipped_weights():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="fcn"), dict(method="decom"), dict(spatial_shards=2),
+    dict(method="hybrid", denoise_taps="guided"),
+    dict(method="curve", denoise_taps="guided"), dict(spatial_shards=2),
     dict(data_shards=2), dict(denoise_taps="guided"),
     dict(method="hybrid", curve_downsample=4),
 ])
@@ -126,3 +132,65 @@ def test_device_is_explicit_and_inputs_are_checked():
                                                 dtype=torch.uint8))
     assert out.device.type == "cpu" and out.shape == (1, 8, 8, 3)
     pipe.warmup([(2, 16, 24)])
+
+
+# ------------------------------------------------- fcn, decom, the presets #
+
+_LEARNED = {
+    # the quality frontier: decom, decom_relit_guided, guided tail r=4
+    "quality": (PRESETS["quality"], JPRESETS["quality"]),
+    # fcn with the default luma/sep/exp bilateral tail
+    "quality_fast": (PRESETS["quality_fast"], JPRESETS["quality_fast"]),
+    "decom-bilateral": (PipelineConfig(method="decom"),
+                        JConfig(method="decom")),
+}
+
+
+def _learned_pair(name, compute_dtype):
+    tcfg, jcfg = _LEARNED[name]
+    ref = jpipe.EnhancePipeline(jcfg.replace(compute_dtype=compute_dtype),
+                                force_jnp=True)
+    port = tpipe.EnhancePipeline(tcfg.replace(compute_dtype=compute_dtype),
+                                 model_params=params_from_numpy(
+                                     ref.model_params), device="cpu")
+    return port, ref
+
+
+@pytest.mark.parametrize("name", sorted(_LEARNED))
+def test_learned_preset_f32_matches_jax(name):
+    """float32 nets: max |du8| <= 1, as for hybrid. Measured at 40x72 b2:
+    0 for all three. decom's relight is a true power (``**``), which XLA
+    and PyTorch may round an ulp apart, so a u8 step stays allowed."""
+    lows, _ = synth_batch(2, 40, 72)
+    port, ref = _learned_pair(name, "float32")
+    got, want = port.enhance_batch(lows), ref.enhance_batch(lows)
+    assert got.shape == lows.shape and got.dtype == np.uint8
+    dmax, share = _delta(got, want)
+    assert dmax <= 1 and share < 1e-3, (dmax, share)
+
+
+@pytest.mark.parametrize("name", sorted(_LEARNED))
+def test_learned_preset_bf16_psnr_vs_jax(name):
+    """bfloat16 nets: PSNR >= 40 dB, hybrid's bar for bf16. Measured at
+    40x72 b2: 57-65 dB, 2-12% of values one u8 step off (the jitted JAX
+    pipeline drops some of the bf16 roundings between fused ops)."""
+    lows, _ = synth_batch(2, 40, 72, seed=1)
+    port, ref = _learned_pair(name, "bfloat16")
+    p = _psnr(port.enhance_batch(lows), ref.enhance_batch(lows))
+    assert p >= 40.0, p
+
+
+def test_learned_default_params_are_the_shipped_weights():
+    for method, weights in (("fcn", "fcn"), ("decom", "decom_relit")):
+        pipe = tpipe.EnhancePipeline(PipelineConfig(method=method),
+                                     device="cpu")
+        want = params_from_numpy(jweights.resolve_weights(weights))
+        assert set(pipe.model_params) == set(want)
+        for name, layer in want.items():
+            torch.testing.assert_close(pipe.model_params[name]["w"],
+                                       layer["w"], rtol=0, atol=0)
+    quality = tpipe.EnhancePipeline(PRESETS["quality"], device="cpu")
+    torch.testing.assert_close(
+        quality.model_params["c1"]["w"],
+        params_from_numpy(jweights.resolve_weights(
+            "decom_relit_guided"))["c1"]["w"], rtol=0, atol=0)

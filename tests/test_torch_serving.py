@@ -20,7 +20,7 @@ def _imgs():
             + [synth_pair(i, 70, 90)[0] for i in range(4)])
 
 
-@pytest.mark.parametrize("method", ["retinex", "hybrid"])
+@pytest.mark.parametrize("method", ["retinex", "hybrid", "fcn"])
 def test_two_threads_two_shapes_equal_pipeline_enhance(method):
     cfg = PipelineConfig(method=method)
     pipe = EnhancePipeline(cfg, device="cpu", bucket=64)
