@@ -5,29 +5,45 @@ one NVIDIA Hopper card and check it.
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 Paths driven: the default retinex config (K1), the shipped-weight hybrid
-(the curve CNN and K3), and the two quality presets, ``quality`` (decom,
+(the curve CNN and K3), the two quality presets, ``quality`` (decom,
 guided tail r=4) and ``quality_fast`` (fcn, bilateral tail), both through
-the fcn/decom net and K5.
+the fcn/decom net and K5, and the four arms of the 1080p video benchmark
+(the JAX package's bench config 7): retinex as K4, retinex through K1's
+gain form, curve and hybrid at curve_downsample 4 through K3 with low-res
+maps (hybrid also with the gain plane).
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
   2. the kernel build from the sources in the checkout (nvcc, sm_90a);
-  3. each kernel (K1 fused_retinex, K3 fused_curve_enhance, K5
-     tiled_denoise) against its plain PyTorch version on the card, on
-     synthetic images: max |du8|, changed share and a histogram of du8;
-     bar: max |du8| <= 1 and changed share < 1e-3; then each kernel's
-     time beside its plain version's at 600x400 batch 48;
-  4. each path through EnhancePipeline(device="cuda"): agreement with the
-     CPU pipeline on a small input (float32 max |du8| bar, bf16 PSNR >= 40
-     dB) and img/s at 600x400 batch 48 from CUDA events;
+  3. each kernel (K1 fused_retinex and its gain form, K3
+     fused_curve_enhance with maps at 1/1, 1/2, 1/4 and with the gain
+     plane, K4 fused_retinex_ema over chained frames, K5 tiled_denoise)
+     against its plain PyTorch version on the card, on synthetic images:
+     max |du8|, changed share and a histogram of du8; bar: max |du8| <= 1
+     and changed share < 1e-3 (K4's new carry: max |df32| <= 1e-6 on the
+     image's columns; K3 also on the video step's blocks, 1080p b8 among
+     them); then each kernel's time beside its plain version's at 600x400
+     batch 48, and the video forms' at 1080p b1 and 600x400 b8, twice;
+     times are of the device alone, the calls queued behind a spin;
+  4. each path through EnhancePipeline(device="cuda"), and stateless curve
+     ds 2 and hybrid ds 4 and 8: agreement with the CPU pipeline on a small
+     input (float32 max |du8| bar, bf16 PSNR >= 40 dB) and img/s at
+     600x400 batch 48 from CUDA events;
   4b. the two presets' PSNR/SSIM/dE76 means over the 15 synthetic eval
      pairs on the card, against the JAX package's numbers for the same
      pairs (tools/jax_eval15_reference.py): bar 0.1 dB and 0.005 SSIM;
+  4c. each video arm through VideoEnhancer(device="cuda"): agreement with
+     device="cpu" over 4 frames at 96x64 with a reset (float32 max |du8|
+     bar, bf16 PSNR >= 40 dB), the 1080p frame rate of the step chained on
+     the card with its state fed forward (CUDA events), and for curve and
+     hybrid MultiStreamVideoEnhancer(8)'s summed rate and whether a
+     stream's output equals its lone output on the card;
   5. an EnhanceServer per path (retinex, hybrid, quality), 16 requests of
      two shapes from 4 threads per round, each answer equal to
      pipeline.enhance, p50/p99 latency;
   6. each path's launch counts, reset to 0 just before it runs (phases
-     4-5) and read just after: every path launched its kernels.
+     4-5, 4c) and read just after: every path launched its kernels, and
+     the retinex video path launched K4 and no K1.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -93,12 +109,23 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean ms per call of ``fn`` over ``iters`` calls, CUDA events."""
+# ~25 ms of spinning at the H100's clock: long enough for the host to
+# queue every timed call of a kernel behind it
+PREFILL_CYCLES = 50_000_000
+
+
+def cuda_ms(torch, fn, iters: int, prefill: bool = False) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` calls, CUDA events. With
+    ``prefill`` the card spins first, so that the host has queued all the
+    calls before the first one runs and the events time the device alone:
+    a kernel shorter than the wrapper's host path (about a tenth of a ms)
+    is timed otherwise by the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if prefill:
+        torch.cuda._sleep(PREFILL_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -108,11 +135,12 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 
 def paired_ms(torch, plain, kernel, iters: int):
-    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
-    p0 = cuda_ms(torch, plain, iters)
-    k0 = cuda_ms(torch, kernel, iters)
-    k1 = cuda_ms(torch, kernel, iters)
-    p1 = cuda_ms(torch, plain, iters)
+    """(kernel ms, plain ms) of the device alone, timed in turns plain,
+    kernel, kernel, plain."""
+    p0 = cuda_ms(torch, plain, iters, prefill=True)
+    k0 = cuda_ms(torch, kernel, iters, prefill=True)
+    k1 = cuda_ms(torch, kernel, iters, prefill=True)
+    p1 = cuda_ms(torch, plain, iters, prefill=True)
     return (k0 + k1) / 2, (p0 + p1) / 2
 
 
@@ -180,14 +208,52 @@ def k1_bound(cfg, b, h, w):
     return bound_ms(6 * px, ops * px)
 
 
-def k3_bound(cfg, xb, maps, halo, rows, m):
+GAIN_OPS = 9        # x * gain 3 and its clip 6
+
+
+def upsample_ops(ds: int) -> float:
+    """Operations per full-resolution map value of the upsample of record:
+    the column blend lo * (1 - f) + hi * f (2 multiplies, 1 add) at the
+    low-res rows, shared by the ds full-res rows under each, then the row
+    blend (3): 3 / ds + 3. ds 1 has no upsample."""
+    return 0.0 if ds == 1 else 3.0 / ds + 3.0
+
+
+def k3_bound(cfg, xb, maps, halo, rows, m, ds=1, gain=False):
+    """Maps at 1/ds are read once (n_iter * 3 * 4 / ds^2 bytes a pixel);
+    each full-resolution map value then costs the upsample's operations
+    (``upsample_ops``) besides the curve step's 4."""
     b, _, _, wb = xb.shape
     win = b * (rows + 2 * m) * wb
     n_iter = maps.shape[1]
-    nbytes = win * (3 + n_iter * 3 * 4) + b * rows * wb * 3
-    ops = (NORMALIZE_OPS + (boost_ops(cfg) if cfg.method == "hybrid" else 0)
-           + n_iter * 3 * 4 + 6 + tail_ops(cfg) + QUANTIZE_OPS)
+    nbytes = (win * (3 + n_iter * 3 * 4 / (ds * ds) + (4 if gain else 0))
+              + b * rows * wb * 3)
+    pre = GAIN_OPS if gain else (
+        boost_ops(cfg) if cfg.method == "hybrid" else 0)
+    ops = (NORMALIZE_OPS + pre + n_iter * 3 * (4 + upsample_ops(ds)) + 6
+           + tail_ops(cfg) + QUANTIZE_OPS)
     return bound_ms(nbytes, ops * b * rows * wb)
+
+
+def k1_gain_bound(cfg, b, rows, m, wb):
+    """K1's gain form: the u8 window and its gain plane in, u8 rows out."""
+    win = b * (rows + 2 * m) * wb
+    ops = NORMALIZE_OPS + GAIN_OPS + tail_ops(cfg) + QUANTIZE_OPS
+    return bound_ms(win * 7 + b * rows * wb * 3, ops * b * rows * wb)
+
+
+def k4_bound(cfg, b, hb, wb, rows, m):
+    """K4: over the band [m, HB - m) it reads u8 RGB and the carry (7 bytes
+    a pixel) and computes max RGB 2, the blur, the EMA 4 (compare, two
+    multiplies, add) and the gain 9 (two clips, two logs, multiply,
+    subtract, exp); it writes the new carry over the block (4 bytes) and
+    the u8 rows (3 bytes) with their x * gain, tail and quantize."""
+    band = b * (hb - 2 * m) * wb
+    taps = 2 * cfg.blur_radius + 1
+    per_band = NORMALIZE_OPS + 2 + 2 * (2 * taps - 1) + 4 + 9
+    per_out = GAIN_OPS + tail_ops(cfg) + QUANTIZE_OPS
+    nbytes = band * 7 + b * hb * wb * 4 + b * rows * wb * 3
+    return bound_ms(nbytes, band * per_band + b * rows * wb * per_out)
 
 
 def k5_bound(cfg, y, rows, m):
@@ -209,9 +275,14 @@ def main() -> int:
         return 1
 
     import low_light_image_enhancement_tpu_torch as llt
+    from low_light_image_enhancement_tpu_torch import video as tvideo
     from low_light_image_enhancement_tpu_torch.blocks import (
+        _mask_extent,
         block_curve_maps,
         block_net_image,
+        curve_maps_for_kernel,
+        kernel_maps_ds,
+        learned_halo,
     )
     from low_light_image_enhancement_tpu_torch.config import canvas_margin
     from low_light_image_enhancement_tpu_torch.data.synth import (
@@ -227,6 +298,7 @@ def main() -> int:
         tiled_denoise as td,
     )
     from low_light_image_enhancement_tpu_torch.ops.colorspace import (
+        normalize_u8,
         quantize_u8,
     )
     from low_light_image_enhancement_tpu_torch.pipeline import pad_block
@@ -249,6 +321,7 @@ def main() -> int:
           f"{lib_path.name}")
 
     dev = torch.device("cuda")
+    cfg0 = llt.PipelineConfig()
     hybrid, curve = (llt.PipelineConfig(method="hybrid"),
                      llt.PipelineConfig(method="curve"))
     quality, quality_fast = llt.PRESETS["quality"], llt.PRESETS["quality_fast"]
@@ -256,8 +329,8 @@ def main() -> int:
               for name, c in (("hybrid", hybrid), ("curve", curve),
                               ("decom", quality), ("fcn", quality_fast))}
     wrappers = {"k1": fe.fused_retinex, "k3": fe.fused_curve_enhance,
-                "k5": td.tiled_denoise}
-    err = {"k1": 0, "k3": 0, "k5": 0.0}
+                "k4": fe.fused_retinex_ema, "k5": td.tiled_denoise}
+    err = {"k1": 0, "k3": 0, "k4": 0, "k5": 0.0}
 
     print("[3] kernels against their plain versions on the card")
     k1_cases = [
@@ -322,6 +395,121 @@ def main() -> int:
         check_bar(f"K3 {name}", st)
         err["k3"] = max(err["k3"], st["max_abs"])
 
+    # K3 with maps at 1/2 and 1/4 (upsampled in the kernel)
+    k3_ds_cases = [(f"{c.method} ds{ds} {w}x{h} b{b}",
+                    c.replace(curve_downsample=ds), (b, h, w))
+                   for c in (curve, hybrid) for ds in (2, 4)
+                   for b, h, w in ((8, 400, 600), (1, 1080, 1920))]
+    for name, cfg, (b, h, w) in k3_ds_cases:
+        xb, maps, halo, rows, iw, m = curve_case(
+            cfg, synth_batch(b, h, w, seed=4)[0])
+        ds = kernel_maps_ds(cfg)
+        got = fe.fused_curve_enhance(xb, maps, cfg, halo, rows, iw, ds=ds)
+        want = fe.fused_curve_enhance_plain(xb, maps, cfg, halo, rows, iw, ds)
+        st = delta_stats(got[..., :h, m:m + iw].cpu().numpy(),
+                         want[..., :h, m:m + iw].cpu().numpy())
+        check_bar(f"K3 {name}", st)
+        err["k3"] = max(err["k3"], st["max_abs"])
+        del xb, maps, got, want
+
+    def frames_of(base, t):
+        """Frame t of a synthetic clip: the scene under a flickering
+        exposure."""
+        return np.clip(base.astype(np.int16) * (8 + (t % 3)) // 9, 0,
+                       255).astype(np.uint8)
+
+    def video_case(cfg, lows_np):
+        """The video step's u8 block (learned_halo rows), the gain plane of
+        a first frame, the first frame's maps (curve: on the block; hybrid:
+        on the block boosted by that gain), halo, rows, the image width and
+        the margin."""
+        x = torch.from_numpy(lows_np).to(dev)
+        b, h, w, _ = lows_np.shape
+        xb = tvideo.pad_video_block(x, cfg)
+        halo, m = learned_halo(cfg), canvas_margin(cfg)
+        flag = torch.zeros((b,), dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            xf = normalize_u8(xb)
+            gain, _ = tvideo.ema_gain(xf, flag, torch.zeros_like(xf[:, 0]),
+                                      cfg, 0.3, w)
+            maps = None
+            if cfg.method in ("curve", "hybrid"):
+                cnn_in = (xf if cfg.method == "curve"
+                          else torch.clamp(xf * gain[:, None], 0.0, 1.0))
+                maps = curve_maps_for_kernel(
+                    _mask_extent(cnn_in, -halo, h, w, m), cfg,
+                    params[cfg.method])
+        return xb, gain, maps, halo, xb.shape[-2] - 2 * halo, w, m
+
+    # K3 on the video step's blocks, as its curve arm (no gain) and hybrid
+    # arm (with the gain plane) call it, ds 1 and 4; 1080p b8 is the
+    # x8-stream step's block
+    for base, ds, (b, h, w) in (
+            (hybrid, 1, (8, 400, 600)), (hybrid, 4, (8, 400, 600)),
+            (hybrid, 4, (1, 1080, 1920)), (hybrid, 4, (8, 1080, 1920)),
+            (curve, 4, (8, 1080, 1920))):
+        cfg = base.replace(curve_downsample=ds)
+        xb, gain, maps, halo, rows, iw, m = video_case(
+            cfg, synth_batch(b, h, w, seed=8)[0])
+        if cfg.method == "curve":
+            gain = None
+        kds = kernel_maps_ds(cfg)
+        got = fe.fused_curve_enhance(xb, maps, cfg, halo, rows, iw, ds=kds,
+                                     gain=gain)
+        want = fe.fused_curve_enhance_plain(xb, maps, cfg, halo, rows, iw,
+                                            kds, gain)
+        st = delta_stats(got[..., :h, m:m + iw].cpu().numpy(),
+                         want[..., :h, m:m + iw].cpu().numpy())
+        check_bar(f"K3 {cfg.method} ds{ds}{'' if gain is None else ' + gain'}"
+                  f" video block {w}x{h} b{b}", st)
+        err["k3"] = max(err["k3"], st["max_abs"])
+        del xb, gain, maps, got, want
+
+    # K1's gain form
+    for b, h, w in ((1, 1080, 1920), (8, 400, 600)):
+        xb, gain, _, halo, rows, iw, m = video_case(
+            cfg0, synth_batch(b, h, w, seed=9)[0])
+        got = fe.fused_retinex_gain(xb, gain, cfg0, halo, rows)
+        want = fe.fused_retinex_gain_plain(xb, gain, cfg0, halo, rows)
+        st = delta_stats(got[..., :h, m:m + iw].cpu().numpy(),
+                         want[..., :h, m:m + iw].cpu().numpy())
+        check_bar(f"K1 gain form {w}x{h} b{b}", st)
+        err["k1"] = max(err["k1"], st["max_abs"])
+        del xb, gain, got, want
+
+    # K4 over chained frames, kernel and plain version each fed its own
+    # carry: frame 1 starts from the all-sentinel carry; before frame 3
+    # stream 1 of a batch is re-seeded (its carry set to the sentinel)
+    k4_carry_err = 0.0
+    for b, h, w, n in ((1, 1080, 1920, 4), (8, 400, 600, 4), (2, 33, 47, 2)):
+        base = synth_batch(b, h, w, seed=10)[0]
+        halo, m = learned_halo(cfg0), canvas_margin(cfg0)
+        ck = cp = None
+        for t in range(n):
+            xb = tvideo.pad_video_block(
+                torch.from_numpy(frames_of(base, t)).to(dev), cfg0)
+            rows = xb.shape[-2] - 2 * halo
+            if ck is None:
+                ck = torch.full((b,) + xb.shape[-2:], -1.0, device=dev)
+                cp = ck.clone()
+            if t == 2 and b > 1:
+                ck[1] = -1.0
+                cp[1] = -1.0
+            got, ck = fe.fused_retinex_ema(xb, ck, cfg0, halo, rows, w, 0.3)
+            want, cp = fe.fused_retinex_ema_plain(xb, cp, cfg0, halo, rows,
+                                                  w, 0.3)
+            st = delta_stats(got[..., :h, m:m + w].cpu().numpy(),
+                             want[..., :h, m:m + w].cpu().numpy())
+            check_bar(f"K4 {w}x{h} b{b} frame {t + 1}", st)
+            err["k4"] = max(err["k4"], st["max_abs"])
+            dc = float((ck - cp)[..., m:m + w].abs().max())
+            k4_carry_err = max(k4_carry_err, dc)
+            if dc > 1e-6:
+                raise AssertionError(f"K4 carry off by {dc} at {w}x{h}")
+        del xb, ck, cp, got, want
+    print(f"  K4 new carry max |df32| on the image columns over the cases: "
+          f"{k4_carry_err:.3e}")
+
     def net_case(cfg, lows_np):
         """The fcn/decom net's f32 block, halo, rows and the image size."""
         x = torch.from_numpy(lows_np).to(dev)
@@ -367,7 +555,6 @@ def main() -> int:
     # kernel-only time beside the plain version's at the main-path shape
     lows48 = synth_batch(48, 400, 600, seed=5)[0]
     x48 = torch.from_numpy(lows48).to(dev)
-    cfg0 = llt.PipelineConfig()
     k1_ms, k1_plain_ms = paired_ms(
         torch, lambda: fe.fused_retinex_plain(x48, cfg0),
         lambda: fe.fused_retinex(x48, cfg0), 10)
@@ -389,6 +576,50 @@ def main() -> int:
             (k5_bound(cfg, y, rows, canvas_margin(cfg)),)
         del y
     (k5_t, k5_plain_ms, k5_b) = k5_ms["quality"]
+
+    # the video forms at the video benchmark's 1080p b1 and at 600x400 b8,
+    # in two rounds to show the spread of their times within one run
+    video_ms = {}
+    hybrid4 = hybrid.replace(curve_downsample=4)
+
+    def timed(name, plain, kernel, bnd):
+        video_ms.setdefault(name, []).append(
+            paired_ms(torch, plain, kernel, 10) + (bnd,))
+
+    for _ in range(2):
+        for b, h, w in ((1, 1080, 1920), (8, 400, 600)):
+            lows = synth_batch(b, h, w, seed=11)[0]
+            shape = f"{w}x{h} b{b}"
+            xb, gain, _, halo, rows, iw, m = video_case(cfg0, lows)
+            carry = torch.full_like(gain, -1.0)
+            timed(f"K4 {shape}",
+                  lambda: fe.fused_retinex_ema_plain(xb, carry, cfg0, halo,
+                                                     rows, iw, 0.3),
+                  lambda: fe.fused_retinex_ema(xb, carry, cfg0, halo, rows,
+                                               iw, 0.3),
+                  k4_bound(cfg0, b, xb.shape[-2], xb.shape[-1], rows, m))
+            timed(f"K1 gain form {shape}",
+                  lambda: fe.fused_retinex_gain_plain(xb, gain, cfg0, halo,
+                                                      rows),
+                  lambda: fe.fused_retinex_gain(xb, gain, cfg0, halo, rows),
+                  k1_gain_bound(cfg0, b, rows, m, xb.shape[-1]))
+            xb, gain, maps, halo, rows, iw, m = video_case(hybrid4, lows)
+            timed(f"K3 hybrid ds4 + gain {shape}",
+                  lambda: fe.fused_curve_enhance_plain(xb, maps, hybrid4,
+                                                       halo, rows, iw, 4,
+                                                       gain),
+                  lambda: fe.fused_curve_enhance(xb, maps, hybrid4, halo,
+                                                 rows, iw, ds=4, gain=gain),
+                  k3_bound(hybrid4, xb, maps, halo, rows, m, ds=4,
+                           gain=True))
+            xb, maps, halo, rows, iw, m = curve_case(hybrid4, lows)
+            timed(f"K3 hybrid ds4 (stateless) {shape}",
+                  lambda: fe.fused_curve_enhance_plain(xb, maps, hybrid4,
+                                                       halo, rows, iw, 4),
+                  lambda: fe.fused_curve_enhance(xb, maps, hybrid4, halo,
+                                                 rows, iw, ds=4),
+                  k3_bound(hybrid4, xb, maps, halo, rows, m, ds=4))
+            del xb, gain, maps, carry
     print(f"  600x400 b48 on {card}: K1 {k1_ms:.3f} ms (plain "
           f"{k1_plain_ms:.3f} ms, bound {k1_b[0]:.4f} ms by {k1_b[1]}); "
           f"K3 hybrid {k3_ms:.3f} ms (plain {k3_plain_ms:.3f} ms, bound "
@@ -396,13 +627,34 @@ def main() -> int:
     for name, (t, tp, bd) in k5_ms.items():
         print(f"  600x400 b48 on {card}: K5 {name} block {t:.3f} ms (plain "
               f"{tp:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]})")
+    for name, rounds in video_ms.items():
+        t = " / ".join(f"{r[0]:.4f}" for r in rounds)
+        tp = " / ".join(f"{r[1]:.3f}" for r in rounds)
+        bd = rounds[-1][2]
+        print(f"  {name} on {card}: {t} ms in rounds 1 / 2 (plain {tp} ms, "
+              f"bound {bd[0]:.4f} ms by {bd[1]})")
 
     # the main path: each path's launch counts, reset to 0 just before it
     # runs and read just after
     paths = [("retinex", cfg0, ("k1",)), ("hybrid", hybrid, ("k3",)),
              ("quality", quality, ("k5",)),
              ("quality_fast", quality_fast, ("k5",))]
-    launches = {name: {k: 0 for k in wrappers} for name, _, _ in paths}
+    # stateless curve/hybrid at curve_downsample 2, 4 (maps upsampled in
+    # K3) and 8 (upsampled eagerly, then K3 at ds 1)
+    paths += [(f"{c.method} ds{ds}", c.replace(curve_downsample=ds), ("k3",))
+              for c, ds in ((curve, 2), (hybrid, 4), (hybrid, 8))]
+    # the video benchmark's arms: (name, config, ema_in_kernel, kernels it
+    # launches, kernels it must not launch)
+    video_paths = [
+        ("video retinex", cfg0, True, ("k4",), ("k1", "k3")),
+        ("video retinex_extgain", cfg0, False, ("k1",), ("k4", "k3")),
+        ("video curve_ds4", curve.replace(curve_downsample=4), True,
+         ("k3",), ("k1", "k4")),
+        ("video hybrid_ds4", hybrid.replace(curve_downsample=4), True,
+         ("k3",), ("k1", "k4")),
+    ]
+    launches = {name: {k: 0 for k in wrappers}
+                for name, *_ in paths + video_paths}
 
     def counted(name, run):
         for wr in wrappers.values():
@@ -477,6 +729,88 @@ def main() -> int:
                 f"{name} eval-15 outside {EVAL_BAR_DB} dB / "
                 f"{EVAL_BAR_SSIM} SSIM of the JAX package: {got} vs {want}")
 
+    print("[4c] VideoEnhancer(device='cuda'): the 1080p video benchmark's "
+          "arms, alpha 0.3")
+    clip96 = synth_batch(1, 64, 96, seed=12)[0][0]
+    frame1080 = synth_batch(1, 1080, 1920, seed=13)[0][0]
+    n_chain = 20
+
+    def run_clip(ve, clip):
+        """The frames through one enhancer, reset before the third."""
+        outs = []
+        for t, f in enumerate(clip):
+            if t == 2:
+                ve.reset()
+            outs.append(ve.process(f))
+        return np.stack(outs)
+
+    def chained_ms(ve, frames):
+        """ms per step of the step chained on the card, the state fed
+        forward, alternating the frames and the frames XOR 1."""
+        ve.process(frames)  # builds the step and starts the state
+        x = torch.from_numpy(frames).to(dev)
+        two, state = (x, torch.bitwise_xor(x, 1)), [ve._state]
+
+        def chain():
+            st = state[0]
+            for k in range(n_chain):
+                st, _ = ve._step(st, two[k % 2])
+            state[0] = st
+
+        return cuda_ms(torch, chain, 3) / n_chain
+
+    def phase4c(name, cfg, ema_in_kernel):
+        clip = np.stack([frames_of(clip96, t) for t in range(4)])
+
+        def pair(c):
+            ve = tvideo.VideoEnhancer(c, device="cuda",
+                                      ema_in_kernel=ema_in_kernel)
+            cpu = tvideo.VideoEnhancer(c, device="cpu",
+                                       ema_in_kernel=ema_in_kernel,
+                                       model_params=ve.model_params)
+            return run_clip(ve, clip), run_clip(cpu, clip)
+
+        got, want = pair(cfg)
+        if got.shape != clip.shape or got.dtype != np.uint8:
+            raise AssertionError(f"{name}: output {got.shape} {got.dtype}")
+        if cfg.method == "retinex":
+            check_bar(f"{name} cuda vs cpu 96x64, 4 frames",
+                      delta_stats(got, want))
+        else:
+            p = psnr(got, want)
+            print(f"  {name} (bf16) cuda vs cpu 96x64, 4 frames: PSNR "
+                  f"{p:.2f} dB")
+            if p < 40.0:
+                raise AssertionError(f"{name} PSNR {p:.2f} < 40 dB")
+            got, want = pair(cfg.replace(compute_dtype="float32"))
+            check_bar(f"{name} (f32) cuda vs cpu 96x64, 4 frames",
+                      delta_stats(got, want))
+        ms = chained_ms(tvideo.VideoEnhancer(cfg, device="cuda",
+                                             ema_in_kernel=ema_in_kernel),
+                        frame1080)
+        print(f"  {name} 1080p on {card}: {1e3 / ms:.1f} frames/s "
+              f"({ms:.3f} ms/step, {n_chain} chained steps, CUDA events)")
+        if cfg.method == "retinex":
+            return
+        s8 = np.stack([frames_of(frame1080, i) for i in range(8)])
+        mv = tvideo.MultiStreamVideoEnhancer(8, cfg, device="cuda")
+        lone = tvideo.VideoEnhancer(cfg, device="cuda",
+                                    model_params=mv.model_params)
+        for t in range(2):
+            frames = np.stack([frames_of(f, t) for f in s8])
+            st = delta_stats(mv.process(frames)[0], lone.process(frames[0]))
+            print(f"  {name} stream 0 under 8 streams vs alone, frame "
+                  f"{t + 1} (bf16, measured, not a bar): max|du8|="
+                  f"{st['max_abs']} changed={st['changed_share']:.3e}")
+        ms = chained_ms(tvideo.MultiStreamVideoEnhancer(8, cfg, device="cuda"),
+                        s8)
+        print(f"  {name} x8 streams 1080p on {card}: {8e3 / ms:.1f} "
+              f"frames/s summed ({ms:.3f} ms/step)")
+
+    for name, cfg, ema_in_kernel, _, _ in video_paths:
+        counted(name, lambda: phase4c(name, cfg, ema_in_kernel))
+    del clip96, frame1080
+
     print("[5] EnhanceServer(device='cuda'), 4 threads x 4 requests")
     reqs = [synth_batch(1, 400, 600, seed=7, start=i)[0][0] for i in range(8)]
     reqs += [synth_batch(1, 480, 640, seed=7, start=i)[0][0]
@@ -519,12 +853,18 @@ def main() -> int:
     for name, cfg, _ in paths[:3]:
         counted(name, lambda: phase5(name, cfg))
 
-    print(f"[6] launches per path (phases 4-5): {launches}")
-    for name, _, kernels in paths:
+    print(f"[6] launches per path (phases 4-5, 4c): {launches}")
+    expected = [(name, kernels, ()) for name, _, kernels in paths]
+    expected += [(name, kernels, never)
+                 for name, _, _, kernels, never in video_paths]
+    for name, kernels, never in expected:
         if min(launches[name][k] for k in kernels) < 1:
             raise AssertionError(f"path {name} never launched one of "
                                  f"{kernels}: {launches[name]}")
-    total = {k: sum(launches[name][k] for name, _, kernels in paths
+        if any(launches[name][k] for k in never):
+            raise AssertionError(f"path {name} launched one of {never}: "
+                                 f"{launches[name]}")
+    total = {k: sum(launches[name][k] for name, kernels, _ in expected
                     if k in kernels) for k in wrappers}
 
     src = "low_light_image_enhancement_tpu_torch/kernels/csrc/"
@@ -542,6 +882,8 @@ def main() -> int:
             "fused_enhance.py:476", k1_ms, k1_plain_ms, k1_b),
         row("fused_curve_enhance (K3)", "k3", "fused_enhance.cu",
             "fused_enhance.py:257", k3_ms, k3_plain_ms, k3_b),
+        row("fused_retinex_ema (K4)", "k4", "fused_enhance.cu",
+            "fused_enhance.py:350", *video_ms["K4 1920x1080 b1"][-1]),
         row("tiled_denoise (K5)", "k5", "tiled_denoise.cu",
             "tiled_denoise.py:42", k5_t, k5_plain_ms, k5_b),
     ]}))

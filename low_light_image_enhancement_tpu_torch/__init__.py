@@ -11,9 +11,13 @@ Public API::
                                device="cuda")
     best = llt.EnhancePipeline(llt.PRESETS["quality"], device="cuda")
     server = llt.EnhanceServer(device="cuda")    # micro-batching server
+    ve = llt.VideoEnhancer(llt.PipelineConfig(), alpha=0.3, device="cuda")
+    out = ve.process(frame_u8_hwc)               # temporally smoothed
 
 Methods: retinex (kernel K1), curve and hybrid (the curve CNN, then K3),
 fcn and decom (their net, then K5, the bilateral or guided denoise tail).
+Video (``VideoEnhancer``, ``MultiStreamVideoEnhancer``): retinex as one
+kernel K4 per frame (or K1's gain form), curve and hybrid through K3.
 ``eval.metrics`` has PSNR, SSIM and CIE76 delta-E on tensors.
 """
 
@@ -30,6 +34,10 @@ from low_light_image_enhancement_tpu_torch.serving import (
     EnhanceServer,
     ServerSaturated,
 )
+from low_light_image_enhancement_tpu_torch.video import (
+    MultiStreamVideoEnhancer,
+    VideoEnhancer,
+)
 
 __version__ = "0.1.0"
 
@@ -39,6 +47,8 @@ __all__ = [
     "EnhancePipeline",
     "EnhanceServer",
     "ServerSaturated",
+    "VideoEnhancer",
+    "MultiStreamVideoEnhancer",
     "enhance",
     "enhance_batch",
     "__version__",

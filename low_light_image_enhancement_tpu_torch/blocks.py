@@ -1,14 +1,17 @@
-"""Block-form graph of the learned methods: curve and hybrid (at
-``curve_downsample`` 1), fcn and decom.
+"""Block-form graph of the learned methods: curve and hybrid (at every
+``curve_downsample``), fcn and decom.
 
 The net consumes the image extended by ``canvas_margin`` replicate
 rows/cols on each side and zeros beyond (``_mask_extent``); conv SAME
 zero padding at the block edge coincides with that mask, so alignment
 padding never reaches a consumed pixel. The curve/hybrid tail (curves,
 denoise, quantize) runs as K3, ``kernels.fused_enhance.fused_curve_enhance``,
-which takes the contract of the JAX package's ``blocks._fused_curve_tail``;
-the fcn/decom tail (denoise) as K5, ``kernels.tiled_denoise.tiled_denoise``,
-and the quantize after it.
+which takes the contract of the JAX package's ``blocks._fused_curve_tail``:
+at ``curve_downsample`` 2 and 4 it takes the CNN's 1/ds maps and upsamples
+them itself, at 1 and 8 it takes full-resolution maps (ds 8 is upsampled
+here first, with ``ops.filters.upsample_maps``). The fcn/decom tail
+(denoise) runs as K5, ``kernels.tiled_denoise.tiled_denoise``, and the
+quantize after it.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from low_light_image_enhancement_tpu_torch.config import (
     PipelineConfig,
@@ -48,10 +52,13 @@ from low_light_image_enhancement_tpu_torch.ops.colorspace import (
     normalize_u8,
     quantize_u8,
 )
+from low_light_image_enhancement_tpu_torch.ops.filters import upsample_maps
 
 __all__ = ["cnn_radius", "learned_halo", "single_block_halo",
            "block_geometry", "resolve_conv_impl", "replicate_margin_cols",
-           "block_curve_maps", "block_net_image", "enhance_learned_block"]
+           "kernel_maps_ds", "maps_at_kernel_ds", "curve_maps_for_kernel",
+           "block_curve_maps",
+           "block_net_image", "enhance_learned_block"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -146,16 +153,50 @@ def _mask_extent(y: torch.Tensor, row0: int, h: int, w: int,
                        torch.zeros((), dtype=y.dtype, device=y.device))
 
 
-def _curve_maps(cnn_in: torch.Tensor, cfg: PipelineConfig,
-                params: Dict[str, Any]) -> torch.Tensor:
-    """Full-resolution LE-curve maps (B, n_iter, 3, HB, WB), float32."""
-    if cfg.curve_downsample != 1:
-        raise NotImplementedError(
-            f"curve_downsample={cfg.curve_downsample} is not ported yet "
-            "(ROADMAP Queue 1: K3's ds 2/4 variants)"
-        )
+def _curve_maps_lowres(cnn_in: torch.Tensor, cfg: PipelineConfig,
+                       params: Dict[str, Any]) -> torch.Tensor:
+    """LE-curve maps (B, n_iter, 3, HB/ds, WB/ds) of the CNN run on the
+    block downsampled by ``ds = curve_downsample``, float32, not
+    upsampled. The downsample antialiases, as ``jax.image.resize(method=
+    "bilinear")`` does when it shrinks (the two agree within 1.2e-7)."""
+    ds = cfg.curve_downsample
+    if ds > 1:
+        hb, wb = cnn_in.shape[-2:]
+        if hb % ds or wb % ds:
+            raise ValueError(
+                f"block {hb}x{wb} not divisible by curve_downsample={ds}")
+        cnn_in = F.interpolate(cnn_in, size=(hb // ds, wb // ds),
+                               mode="bilinear", antialias=True,
+                               align_corners=False)
     return apply_curve_cnn(params, cnn_in, n_iter=cfg.curve_iters,
                            compute_dtype=cfg.compute_dtype)
+
+
+def _curve_maps(cnn_in: torch.Tensor, cfg: PipelineConfig,
+                params: Dict[str, Any]) -> torch.Tensor:
+    """Full-resolution LE-curve maps (B, n_iter, 3, HB, WB): the low-res
+    maps, then the upsample of record, columns first, then rows."""
+    return upsample_maps(_curve_maps_lowres(cnn_in, cfg, params),
+                         cfg.curve_downsample)
+
+
+def kernel_maps_ds(cfg: PipelineConfig) -> int:
+    """The resolution factor of the maps K3 takes for ``cfg``: 2 and 4 go
+    in low-res and K3 upsamples them; 1 and 8 go in full-res."""
+    return cfg.curve_downsample if cfg.curve_downsample in (2, 4) else 1
+
+
+def maps_at_kernel_ds(maps: torch.Tensor, cfg: PipelineConfig
+                      ) -> torch.Tensor:
+    """Maps at 1/``curve_downsample`` brought to ``kernel_maps_ds(cfg)``:
+    ds 8 upsampled here to full resolution, the others as they are."""
+    return upsample_maps(maps, cfg.curve_downsample // kernel_maps_ds(cfg))
+
+
+def curve_maps_for_kernel(cnn_in: torch.Tensor, cfg: PipelineConfig,
+                          params: Dict[str, Any]) -> torch.Tensor:
+    """The maps of a masked CNN input at ``kernel_maps_ds(cfg)``."""
+    return maps_at_kernel_ds(_curve_maps_lowres(cnn_in, cfg, params), cfg)
 
 
 def block_curve_maps(
@@ -166,8 +207,9 @@ def block_curve_maps(
     h: int,
     w: int,
 ) -> torch.Tensor:
-    """Curve maps (B, n_iter, 3, HB, WB) of a u8 block: the CNN runs on the
-    normalized block (hybrid: boosted, margin cols re-replicated, so the
+    """Curve maps of a u8 block as K3 takes them, (B, n_iter, 3, HB/k,
+    WB/k) with ``k = kernel_maps_ds(cfg)``: the CNN runs on the normalized
+    block (hybrid: boosted, margin cols re-replicated, so the
     CNN never sees the wrap shifts' opposite-edge content), zeroed beyond
     image + margin."""
     cfg = resolve_conv_impl(cfg)
@@ -181,7 +223,8 @@ def block_curve_maps(
     y = normalize_u8(xb)
     if cfg.method == "hybrid":
         y = replicate_margin_cols(illumination_boost(y, cfg), w, m)
-    return _curve_maps(_mask_extent(y, row0, h, w, m), cfg, model_params)
+    return curve_maps_for_kernel(_mask_extent(y, row0, h, w, m), cfg,
+                                 model_params)
 
 
 def block_net_image(
@@ -237,7 +280,8 @@ def enhance_learned_block(
     rows = xb.shape[-2] - 2 * halo
     if cfg.method in ("curve", "hybrid"):
         maps = block_curve_maps(xb, cfg, model_params, row0, h, w)
-        return fused_curve_enhance(xb, maps, cfg, halo, rows, img_w=w)
+        return fused_curve_enhance(xb, maps, cfg, halo, rows, img_w=w,
+                                   ds=kernel_maps_ds(cfg))
     y = block_net_image(xb, cfg, model_params, row0, h, w)
     if cfg.denoise_strength <= 0.0:
         return quantize_u8(y[..., halo:halo + rows, :])

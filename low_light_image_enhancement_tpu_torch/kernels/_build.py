@@ -44,9 +44,26 @@ _SIGNATURES = {
         _P,                          # kind, joint, sep; stream
     ],
     "llie_fused_curve_u8": [
-        _P, _P, _P, _I, _I, _I,      # in, maps, out, B, HB, WB
+        _P, _P, _P, _P,              # in, maps, gain (or NULL), out
+        _I, _I, _I,                  # B, HB, WB
         _I, _I, _I, _I, _I, _I,      # halo, rows, n_iter, boost, margin, img_w
+        _I, _FP,                     # ds, the 8 upsample phase weights
         _I, _FP, _F, _F,             # radius, taps, gamma - 1, eps
+        _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
+        _P,                          # kind, joint, sep; stream
+    ],
+    "llie_fused_retinex_gain_u8": [
+        _P, _P, _P, _I, _I, _I,      # in, gain, out, B, HB, WB
+        _I, _I,                      # halo, rows
+        _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
+        _P,                          # kind, joint, sep; stream
+    ],
+    "llie_fused_retinex_ema_u8": [
+        _P, _P, _P, _P,              # in, carry, out, new carry
+        _I, _I, _I,                  # B, HB, WB
+        _I, _I, _I, _I,              # halo, rows, margin, img_w
+        _F, _F, _F,                  # alpha, 1 - alpha, gamma
+        _I, _FP, _F,                 # radius, taps, eps
         _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
         _P,                          # kind, joint, sep; stream
     ],

@@ -1,6 +1,7 @@
-// Device code shared by the fused retinex kernel (K1) and the fused curve
-// tail (K3): the illumination boost and the bilateral denoise tail, on a
-// 2-D output tile of TILE_H x TILE_W pixels, one thread per output pixel.
+// Device code shared by the fused retinex kernel (K1), the fused curve
+// tail (K3) and the fused video step (K4): the illumination blur and boost
+// and the bilateral denoise tail, on a 2-D output tile of TILE_H x TILE_W
+// pixels, one thread per output pixel.
 //
 // The arithmetic repeats the plain PyTorch versions (ops/filters.py,
 // ops/denoise.py, core.py) operation for operation: the same tap order,
@@ -37,6 +38,21 @@ struct BoostParams {
   float taps[2 * MAX_BLUR_RADIUS + 1];     // gaussian_kernel_1d, as float
   float gm1;                               // gamma - 1
   float eps;                               // illumination floor
+};
+
+// Curve maps at 1/ds (K3; ds is the kernel's template argument):
+// upsample_int's phase weights by index mod ds, each rounded once from
+// double on the host.
+struct UpParams {
+  float f[8];
+};
+
+// The EMA of the video step (K4): l_mix = alpha * l_now + beta * carry
+// with beta = 1 - alpha, and the gain's exponent gamma.
+struct EmaParams {
+  float alpha;
+  float beta;
+  float gamma;
 };
 
 struct TailParams {
@@ -78,14 +94,17 @@ __device__ __forceinline__ float spatial(int k) {
   return k == 1 ? 0.5f : 0.25f;
 }
 
-// Illumination gain on the YH x YW ring tile: blur(L0) clipped to
-// [eps, 1], then exp((gamma-1) * log L). sL0 holds max(R,G,B) on
+// Blurred illumination on the YH x YW ring tile: the separable blur of
+// L0 = max(R,G,B), handed to `epi(e, l)` for each ring position e (the
+// caller's epilogue writes what it needs from it). sL0 holds L0 on
 // (YH + 2R) x (YW + 2R) positions; sV is scratch of YH x (YW + 2R).
-// Position (i, j) of the ring tile is (i + R, j + R) of sL0.
-__device__ inline void gain_tile(const float* __restrict__ sL0,
+// Position (i, j) of the ring tile is (i + R, j + R) of sL0. Every thread
+// of the block calls it; it synchronises after each pass.
+template <class Epilogue>
+__device__ inline void blur_tile(const float* __restrict__ sL0,
                                  float* __restrict__ sV,
-                                 float* __restrict__ sG,
-                                 const BoostParams& bp, int tid) {
+                                 const BoostParams& bp, int tid,
+                                 Epilogue epi) {
   const int R = bp.radius;
   const int LW = YW + 2 * R;
   // Vertical taps first: term k reads row y + R - k, k ascending.
@@ -102,10 +121,21 @@ __device__ inline void gain_tile(const float* __restrict__ sL0,
     float l = bp.taps[0] * sV[i * LW + j + 2 * R];
     for (int k = 1; k <= 2 * R; ++k)
       l = l + bp.taps[k] * sV[i * LW + j + 2 * R - k];
-    l = fminf(fmaxf(l, bp.eps), 1.0f);
-    sG[e] = expf(bp.gm1 * logf(l));
+    epi(e, l);
   }
   __syncthreads();
+}
+
+// Illumination gain on the ring tile: blur(L0) clipped to [eps, 1], then
+// exp((gamma-1) * log L), into sG.
+__device__ inline void gain_tile(const float* __restrict__ sL0,
+                                 float* __restrict__ sV,
+                                 float* __restrict__ sG,
+                                 const BoostParams& bp, int tid) {
+  blur_tile(sL0, sV, bp, tid, [&](int e, float l) {
+    l = fminf(fmaxf(l, bp.eps), 1.0f);
+    sG[e] = expf(bp.gm1 * logf(l));
+  });
 }
 
 // Denoise tail for the thread's pixel (ty, tx) of the tile. sY holds three

@@ -2,9 +2,9 @@
 
 u8 HWC in, u8 HWC out. ``device`` is explicit: a pipeline on ``"cuda"``
 runs the CUDA kernels (K1 for retinex; the curve CNN through ``F.conv2d``
-and K3 for curve/hybrid; the fcn or decom net through ``F.conv2d`` and K5
-for their denoise tail), one on ``"cpu"`` their plain versions. There is
-no fallback from one to the other.
+and K3 for curve/hybrid, at every ``curve_downsample``; the fcn or decom
+net through ``F.conv2d`` and K5 for their denoise tail), one on ``"cpu"``
+their plain versions. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     resolve_weights,
 )
 
-__all__ = ["pad_planar", "pad_block", "EnhancePipeline", "enhance",
-           "enhance_batch"]
+__all__ = ["pad_planar", "pad_block", "resolve_device", "params_on",
+           "EnhancePipeline", "enhance", "enhance_batch"]
 
 
 def check_ported(cfg: PipelineConfig) -> None:
@@ -52,12 +52,28 @@ def check_ported(cfg: PipelineConfig) -> None:
     if cfg.denoise_taps == "guided" and cfg.method not in ("fcn", "decom"):
         raise NotImplementedError(
             f"denoise_taps='guided' on method={cfg.method!r} is not ported "
-            "yet (ROADMAP Queue 1: K1's and K3's guided tails); fcn and "
-            "decom run it")
-    if cfg.method != "retinex" and cfg.curve_downsample != 1:
-        raise NotImplementedError(
-            f"curve_downsample={cfg.curve_downsample} is not ported yet "
-            "(ROADMAP Queue 1: K3's ds 2/4 variants)")
+            "yet (ROADMAP Queue 1: K1's, K3's and K4's guided tails); fcn "
+            "and decom run it")
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``"cuda"`` or ``"cpu"`` as a ``torch.device``; a CUDA device that is
+    not there raises."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}(device='cuda'): CUDA is not available")
+    elif device.type != "cpu":
+        raise ValueError(f"device must be cuda or cpu: {device!r}")
+    return device
+
+
+def params_on(model_params: Optional[Dict[str, Any]], device):
+    """The net's parameters moved to ``device`` (None stays None)."""
+    if model_params is None:
+        return None
+    return {name: {k: t.to(device) for k, t in layer.items()}
+            for name, layer in model_params.items()}
 
 
 def pad_block(imgs_u8: torch.Tensor, cfg: PipelineConfig):
@@ -124,21 +140,12 @@ class EnhancePipeline:
         ``bucket``: optional size granularity. ``enhance_batch`` edge-pads
         inputs up to multiples of it and crops the output back."""
         check_ported(config)
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "EnhancePipeline(device='cuda'): CUDA is not available")
-        elif self.device.type != "cpu":
-            raise ValueError(f"device must be cuda or cpu: {device!r}")
+        self.device = resolve_device(device, "EnhancePipeline")
         self.config = config
         self.bucket = bucket
         if model_params is None:
             model_params = self._default_params(config, rng_seed)
-        self.model_params = None if model_params is None else {
-            name: {k: t.to(self.device) for k, t in layer.items()}
-            for name, layer in model_params.items()
-        }
+        self.model_params = params_on(model_params, self.device)
 
     @staticmethod
     def _default_params(config: PipelineConfig, rng_seed: int):

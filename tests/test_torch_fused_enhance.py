@@ -1,5 +1,5 @@
-"""K1 and K3's plain versions against the JAX package's Pallas kernels in
-interpret mode, on the same inputs; and the wrappers' contracts.
+"""K1's, K3's and K4's plain versions against the JAX package's Pallas
+kernels in interpret mode, on the same inputs; and the wrappers' contracts.
 
 Bar: max |du8| <= 1 with a changed share < 1e-3, the JAX package's own bar
 between its kernels and its jnp path (tests/kernels/test_fused_curve.py):
@@ -18,6 +18,7 @@ import torch
 
 from low_light_image_enhancement_tpu import blocks as jblocks
 from low_light_image_enhancement_tpu import pipeline as jpipe
+from low_light_image_enhancement_tpu import video as jvideo
 from low_light_image_enhancement_tpu.config import PipelineConfig as JConfig
 from low_light_image_enhancement_tpu.config import canvas_margin
 from low_light_image_enhancement_tpu.kernels.fused_enhance import (
@@ -68,18 +69,20 @@ def test_k1_plain_variants_match_jax_kernel(kw):
     _assert_u8_close(got.numpy(), _jax_retinex(lows, kw))
 
 
-def _curve_block(method, h, w, seed):
-    """A u8 block as the pipeline pads it, and random maps on it."""
-    cfg = JConfig(method=method)
+def _curve_block(method, h, w, seed, ds=1, halo_fn=jblocks.single_block_halo):
+    """A u8 block as the pipeline (or, with ``learned_halo``, the video
+    step) pads it, and random maps on it at 1/ds."""
+    cfg = JConfig(method=method, curve_downsample=ds)
     m = canvas_margin(cfg)
-    halo = jblocks.single_block_halo(cfg)
+    halo = halo_fn(cfg)
     h_core, wp = jblocks.block_geometry(cfg, h, w)
     lows, _ = synth_batch(2, h, w, seed=seed)
     xb = np.pad(lows.transpose(0, 3, 1, 2),
                 ((0, 0), (0, 0), (halo, halo + h_core - h), (m, wp - w - m)),
                 mode="edge")
+    hb, wb = xb.shape[-2:]
     maps = np.random.default_rng(seed).uniform(
-        -1.0, 1.0, (2, 8, 3) + xb.shape[-2:]).astype(np.float32)
+        -1.0, 1.0, (2, 8, 3, hb // ds, wb // ds)).astype(np.float32)
     return xb, maps, halo, h_core, m
 
 
@@ -110,20 +113,96 @@ def test_k3_plain_perchannel_full_matches_jax_kernel():
     _assert_u8_close(got.numpy()[..., m:m + 72], want[..., m:m + 72])
 
 
+def _gain(xb, seed):
+    """A positive f32 gain plane (B, HB, WB) for a block."""
+    b, _, hb, wb = xb.shape
+    return np.random.default_rng(seed).uniform(
+        0.5, 3.0, (b, hb, wb)).astype(np.float32)
+
+
+@pytest.mark.parametrize("method,ds,with_gain", [
+    ("curve", 2, False), ("hybrid", 4, True), ("hybrid", 1, True),
+])
+def test_k3_lowres_maps_and_gain_match_jax_kernel(method, ds, with_gain):
+    """Maps at 1/ds, upsampled in the kernel (the plain version upsamples
+    them first), and the external gain plane of the hybrid video step."""
+    xb, maps, halo, rows, m = _curve_block(method, 40, 72, seed=6, ds=ds)
+    gain = _gain(xb, 7) if with_gain else None
+    cfg = dict(method=method, curve_downsample=ds)
+    want = np.asarray(jblocks._fused_curve_tail(
+        jnp.asarray(xb), jnp.asarray(maps), JConfig(**cfg), halo, rows,
+        interpret=True, ds=ds, img_w=72,
+        gain=None if gain is None else jnp.asarray(gain)))
+    got = fe.fused_curve_enhance(
+        torch.from_numpy(xb), torch.from_numpy(maps), PipelineConfig(**cfg),
+        halo, rows, 72, ds=ds,
+        gain=None if gain is None else torch.from_numpy(gain))
+    assert got.shape == (2, 3, rows, xb.shape[-1])
+    _assert_u8_close(got.numpy()[..., m:m + 72], want[..., m:m + 72])
+
+
+def test_k1_gain_form_plain_matches_jax_kernel():
+    xb, _, halo, rows, m = _curve_block("curve", 40, 72, seed=8,
+                                        halo_fn=jblocks.learned_halo)
+    gain = _gain(xb, 9)
+    want = np.asarray(jvideo._fused_gain_tail(
+        jnp.asarray(xb), jnp.asarray(gain), JConfig(), halo, rows,
+        interpret=True))
+    got = fe.fused_retinex_gain(torch.from_numpy(xb), torch.from_numpy(gain),
+                                PipelineConfig(), halo, rows)
+    assert got.shape == (2, 3, rows, xb.shape[-1])
+    _assert_u8_close(got.numpy()[..., m:m + 72], want[..., m:m + 72])
+
+
+@pytest.mark.parametrize("carry_mode", ["init", "sentinel", "half"])
+def test_k4_plain_matches_jax_kernel(carry_mode):
+    """K4 against the JAX video step's fused tail (the kernel in interpret
+    mode, then the band's edge rows): outputs on the consumed columns, the
+    new carry on the image's columns within 1e-6 (found: equal)."""
+    cfg = JConfig()
+    xb, _, halo, rows, m = _curve_block("curve", 40, 72, seed=10,
+                                        halo_fn=jblocks.learned_halo)
+    rng = np.random.default_rng(11)
+    carry = rng.uniform(0.05, 0.55, (2,) + xb.shape[-2:]).astype(np.float32)
+    if carry_mode == "sentinel":
+        carry[:] = -1.0
+    elif carry_mode == "half":
+        carry[0][rng.random(carry[0].shape) < 0.5] = -1.0
+    want, want_carry = jvideo._fused_ema_tail(
+        jnp.asarray(xb), jnp.asarray(carry), cfg, halo, rows, 72, 0.3,
+        interpret=True)
+    got, got_carry = fe.fused_retinex_ema(
+        torch.from_numpy(xb), torch.from_numpy(carry), PipelineConfig(),
+        halo, rows, 72, 0.3)
+    assert got.shape == (2, 3, rows, xb.shape[-1])
+    assert got_carry.shape == carry.shape
+    _assert_u8_close(got.numpy()[..., m:m + 72],
+                     np.asarray(want)[..., m:m + 72])
+    np.testing.assert_allclose(got_carry.numpy()[..., m:m + 72],
+                               np.asarray(want_carry)[..., m:m + 72],
+                               atol=1e-6, rtol=0)
+
+
 def test_cpu_calls_launch_nothing():
-    before = (fe.fused_retinex.launches, fe.fused_curve_enhance.launches)
+    wrappers = (fe.fused_retinex, fe.fused_curve_enhance,
+                fe.fused_retinex_ema)
+    before = [wr.launches for wr in wrappers]
     lows, _ = synth_batch(1, 16, 24)
     fe.fused_retinex(torch.from_numpy(lows), PipelineConfig())
     xb, maps, halo, rows, _ = _curve_block("curve", 16, 24, seed=4)
-    fe.fused_curve_enhance(torch.from_numpy(xb), torch.from_numpy(maps),
-                           PipelineConfig(method="curve"), halo, rows, 24)
-    assert (fe.fused_retinex.launches,
-            fe.fused_curve_enhance.launches) == before
+    xb, maps = torch.from_numpy(xb), torch.from_numpy(maps)
+    fe.fused_curve_enhance(xb, maps, PipelineConfig(method="curve"), halo,
+                           rows, 24)
+    plane = torch.ones_like(maps[:, 0, 0])
+    fe.fused_retinex_gain(xb, plane, PipelineConfig(), halo, rows)
+    fe.fused_retinex_ema(xb, -plane, PipelineConfig(), halo, rows, 24, 0.3)
+    assert [wr.launches for wr in wrappers] == before
 
 
 @pytest.mark.parametrize("call", [
     lambda x: fe.fused_retinex(x, PipelineConfig(denoise_taps="guided")),
-    lambda x: fe.fused_retinex(x, PipelineConfig(), gain=x),
+    lambda x: fe.fused_retinex(x, PipelineConfig(
+        denoise_taps="guided", denoise_guide="perchannel")),
     lambda x: fe.fused_retinex(x, PipelineConfig(), stages=("blur",)),
     lambda x: fe.fused_retinex(x.float() / 255, PipelineConfig()),
 ])
@@ -137,13 +216,29 @@ def test_unported_k3_options_and_bad_inputs_raise():
     xb, maps, halo, rows, _ = _curve_block("hybrid", 16, 24, seed=5)
     xb, maps = torch.from_numpy(xb), torch.from_numpy(maps)
     cfg = PipelineConfig(method="hybrid")
+    plane = torch.ones_like(maps[:, 0, 0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fe.fused_curve_enhance(xb, maps, cfg.replace(curve_downsample=2),
+        fe.fused_curve_enhance(xb, maps, cfg.replace(denoise_taps="guided"),
                                halo, rows, 24)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fe.fused_curve_enhance(xb, maps, cfg, halo, rows, 24, gain=maps)
+        fe.fused_retinex_ema(xb, plane, PipelineConfig(denoise_taps="guided"),
+                             halo, rows, 24, 0.3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fe.fused_curve_enhance(xb.float(), maps, cfg, halo, rows, 24)
+    # maps at a resolution the ds does not name, ds 8, a gain of the wrong
+    # shape, a traced (tensor) alpha
+    with pytest.raises(ValueError):
+        fe.fused_curve_enhance(xb, maps, cfg, halo, rows, 24, ds=2)
+    with pytest.raises(ValueError):
+        fe.fused_curve_enhance(xb, maps[..., ::8, ::8], cfg, halo, rows, 24,
+                               ds=8)
+    with pytest.raises(ValueError):
+        fe.fused_curve_enhance(xb, maps, cfg, halo, rows, 24, gain=maps)
+    with pytest.raises(ValueError):
+        fe.fused_retinex_gain(xb, plane[:, 1:], PipelineConfig(), halo, rows)
+    with pytest.raises(TypeError):
+        fe.fused_retinex_ema(xb, plane, PipelineConfig(), halo, rows, 24,
+                             torch.tensor(0.3))
     with pytest.raises(ValueError):
         fe.fused_curve_enhance(xb, maps[:, :, :, 1:], cfg, halo, rows, 24)
     with pytest.raises(ValueError):

@@ -1,5 +1,6 @@
 """The port imports no jax and no module of the JAX package: in a fresh
-interpreter where both are blocked, it imports and runs a CPU pipeline."""
+interpreter where both are blocked, it imports and runs a CPU pipeline and
+CPU video enhancers."""
 
 import subprocess
 import sys
@@ -31,6 +32,12 @@ for cfg in (llt.PipelineConfig(), llt.PipelineConfig(method="hybrid"),
     out = llt.EnhancePipeline(cfg, device="cpu").enhance_batch(lows)
     assert out.shape == lows.shape and out.dtype == np.uint8
     assert float(psnr_u8(torch.from_numpy(out), torch.from_numpy(lows))) > 0
+for cfg in (llt.PipelineConfig(),
+            llt.PipelineConfig(method="curve", curve_downsample=4)):
+    ve = llt.VideoEnhancer(cfg, device="cpu")
+    for frame in (lows[0], lows[0]):
+        out = ve.process(frame)
+        assert out.shape == frame.shape and out.dtype == np.uint8
 loaded = sorted(m for m in set(sys.modules) - preloaded
                 if m.startswith(("jax", "low_light_image_enhancement_tpu."))
                 and sys.modules[m] is not None)
@@ -65,18 +72,32 @@ def test_cuda_tensors_go_to_the_kernels_or_raise():
         xb = torch.empty((1, 3, 24, 128), dtype=torch.uint8, device="cuda")
         maps = torch.empty((1, 8, 3, 24, 128), device="cuda")
         yb = torch.empty((1, 3, 48, 128), device="cuda")
+        lowres = torch.empty((1, 8, 3, 6, 32), device="cuda")
+        plane = torch.empty((1, 24, 128), device="cuda")
     assert x.device.type == "cuda"
-    before = (fe.fused_retinex.launches, fe.fused_curve_enhance.launches,
-              td.tiled_denoise.launches)
+    wrappers = (fe.fused_retinex, fe.fused_curve_enhance,
+                fe.fused_retinex_ema, td.tiled_denoise)
+    before = [wr.launches for wr in wrappers]
     with pytest.raises(RuntimeError, match="nvcc"):
         fe.fused_retinex(x, PipelineConfig())
     with pytest.raises(RuntimeError, match="nvcc"):
         fe.fused_curve_enhance(xb, maps, PipelineConfig(method="hybrid"),
                                8, 8, 8)
+    # K3 with maps at 1/4 and with the video's gain plane, K1's gain form
+    # and K4
+    hybrid4 = PipelineConfig(method="hybrid", curve_downsample=4)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_curve_enhance(xb, lowres, hybrid4, 8, 8, 8, ds=4)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_curve_enhance(xb, lowres, hybrid4, 8, 8, 8, ds=4,
+                               gain=plane)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_retinex_gain(xb, plane, PipelineConfig(), 8, 8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_retinex_ema(xb, plane, PipelineConfig(), 8, 8, 8, 0.3)
     for cfg in (PipelineConfig(method="fcn"),
                 PipelineConfig(method="decom", denoise_taps="guided",
                                guided_radius=4)):
         with pytest.raises(RuntimeError, match="nvcc"):
             td.tiled_denoise(yb, cfg, 16, 16)
-    assert (fe.fused_retinex.launches, fe.fused_curve_enhance.launches,
-            td.tiled_denoise.launches) == before
+    assert [wr.launches for wr in wrappers] == before

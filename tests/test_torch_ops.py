@@ -2,6 +2,7 @@
 inputs (numpy, seeded). Bar: atol 1e-6, as the JAX kernel tests hold their
 kernels to the jnp path."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,6 +117,62 @@ def test_guided_taps_raise_not_ported():
                                               denoise_taps="guided"))
     with pytest.raises(ValueError):
         tdn.plane_cores("luma", "box")
+
+
+@pytest.mark.parametrize("ds", [2, 4, 8])
+def test_upsample_int_matches_bit_for_bit(ds):
+    x = np.random.default_rng(10).uniform(-1, 1, (2, 8, 3, 6, 10)) \
+        .astype(np.float32)
+    for axis in (-1, -2):
+        for tshift, jshift in ((tf.shift2d, jf.shift2d),
+                               (tf.roll2d, jf.roll2d)):
+            np.testing.assert_array_equal(
+                tf.upsample_int(torch.from_numpy(x), ds, axis,
+                                tshift).numpy(),
+                np.asarray(jf.upsample_int(jnp.asarray(x), ds, axis,
+                                           jshift)))
+        np.testing.assert_array_equal(
+            tf.upsample_phase((12, 16), ds, axis + 2).numpy(),
+            np.asarray(jf.upsample_phase((12, 16), ds, axis + 2,
+                                         jnp.float32)))
+
+
+def test_lowres_downsample_matches_jax_resize():
+    """The curve CNN's input at 1/ds: F.interpolate(antialias=True) against
+    jax.image.resize(method="bilinear"), which antialiases when it shrinks.
+    The two sum the same weights in another order: within 2.4e-7 (found
+    1.2e-7)."""
+    x = _planes((2, 3, 32, 64), seed=11)
+    for ds in (2, 4, 8):
+        cfg = PipelineConfig(method="curve", curve_downsample=ds)
+        got = tblocks.F.interpolate(
+            torch.from_numpy(x), size=(32 // ds, 64 // ds), mode="bilinear",
+            antialias=True, align_corners=False)
+        want = jax.image.resize(jnp.asarray(x), (2, 3, 32 // ds, 64 // ds),
+                                method="bilinear")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2.4e-7,
+                                   rtol=0)
+        params = {f"c{i}": {"w": torch.zeros(o, c, 3, 3),
+                            "b": torch.zeros(o)}
+                  for i, (c, o) in enumerate([(3, 4), (4, 4), (4, 4), (4, 4),
+                                              (8, 4), (8, 4), (8, 24)], 1)}
+        maps = tblocks._curve_maps_lowres(torch.from_numpy(x), cfg, params)
+        assert maps.shape == (2, 8, 3, 32 // ds, 64 // ds)
+        full = tblocks._curve_maps(torch.from_numpy(x), cfg, params)
+        assert full.shape == (2, 8, 3, 32, 64)
+
+
+@pytest.mark.parametrize("method", ["curve", "hybrid", "retinex", "fcn"])
+def test_block_geometry_matches_jax_at_every_downsample(method):
+    for ds in (1, 2, 4, 8):
+        kw = dict(method=method, curve_downsample=ds)
+        t, j = PipelineConfig(**kw), JConfig(**kw)
+        assert tblocks.cnn_radius(t) == jblocks.cnn_radius(j)
+        assert tblocks.learned_halo(t) == jblocks.learned_halo(j)
+        assert tblocks.single_block_halo(t) == jblocks.single_block_halo(j)
+        for h, w in ((40, 72), (33, 47), (1080, 1920)):
+            assert tblocks.block_geometry(t, h, w) == \
+                jblocks.block_geometry(j, h, w)
 
 
 def test_apply_curves_matches():

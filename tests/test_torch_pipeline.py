@@ -59,6 +59,17 @@ def test_pipeline_matches_jax(kw, size):
     assert dmax <= 1 and share < 1e-3, (dmax, share)
 
 
+@pytest.mark.parametrize("method", ["curve", "hybrid"])
+def test_lowres_maps_pipeline_matches_jax(method):
+    """curve_downsample 4: the CNN at 1/4 (the antialiased downsample),
+    K3 upsampling the maps (found: max |du8| 0 at 40x72 b2)."""
+    lows, _ = synth_batch(2, 40, 72, seed=3)
+    port, ref = _pair(dict(method=method, curve_downsample=4,
+                           compute_dtype="float32"))
+    dmax, share = _delta(port.enhance_batch(lows), ref.enhance_batch(lows))
+    assert dmax <= 1 and share < 1e-3, (dmax, share)
+
+
 @pytest.mark.parametrize("size", [(64, 96), (33, 47)])
 def test_hybrid_bf16_psnr_vs_jax(size):
     lows, _ = synth_batch(2, *size, seed=1)
@@ -106,7 +117,7 @@ def test_default_params_are_the_shipped_weights():
     dict(method="hybrid", denoise_taps="guided"),
     dict(method="curve", denoise_taps="guided"), dict(spatial_shards=2),
     dict(data_shards=2), dict(denoise_taps="guided"),
-    dict(method="hybrid", curve_downsample=4),
+    dict(method="hybrid", curve_downsample=4, denoise_taps="guided"),
 ])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

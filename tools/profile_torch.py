@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the device time of the PyTorch/CUDA port goes, by kernel.
 
-For each named path, ``EnhancePipeline(device="cuda").enhance_batch_device``
-runs at 600x400 batch 48 (synthetic LOL-shaped images) under
-``torch.profiler`` for a few calls after a warm-up. It prints, per call,
-the wall time, the device-busy time (the sum of the CUDA kernels' and
+For each named image path, ``EnhancePipeline(device="cuda")
+.enhance_batch_device`` runs at 600x400 batch 48 (synthetic LOL-shaped
+images); for each video path (``video_*``, the arms of the JAX package's
+1080p video benchmark), ``VideoEnhancer(device="cuda")``'s frame step runs
+at 1080p with its state fed forward, alternating two frames. Each runs
+under ``torch.profiler`` for a few calls after a warm-up. It prints, per
+call, the wall time, the device-busy time (the sum of the CUDA kernels' and
 copies' own device times), the idle share (1 - busy / wall), and the
 kernels that take the most device time with their shares. Needs a CUDA
 card; run from the repository root:
 
-    python3 tools/profile_torch.py [quality quality_fast retinex hybrid]
+    python3 tools/profile_torch.py [quality quality_fast retinex hybrid
+                                    video_retinex video_retinex_extgain
+                                    video_curve_ds4 video_hybrid_ds4]
 """
 
 from __future__ import annotations
@@ -33,6 +38,15 @@ PATHS = {
     "quality": llt.PRESETS["quality"],
     "quality_fast": llt.PRESETS["quality_fast"],
 }
+# (config, ema_in_kernel) of the video benchmark's arms, alpha 0.3
+VIDEO_PATHS = {
+    "video_retinex": (llt.PipelineConfig(), True),
+    "video_retinex_extgain": (llt.PipelineConfig(), False),
+    "video_curve_ds4": (llt.PipelineConfig(method="curve",
+                                           curve_downsample=4), True),
+    "video_hybrid_ds4": (llt.PipelineConfig(method="hybrid",
+                                            curve_downsample=4), True),
+}
 CALLS, TOP = 3, 12
 
 
@@ -43,25 +57,25 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile(name: str, x: torch.Tensor) -> None:
-    pipe = llt.EnhancePipeline(PATHS[name], device="cuda")
+def _report(what: str, run) -> None:
+    """Profile CALLS calls of ``run`` after two warm-up calls."""
     for _ in range(2):
-        pipe.enhance_batch_device(x)
+        run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(CALLS):
-            pipe.enhance_batch_device(x)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / CALLS
-    print(f"{name}: 600x400 b{x.shape[0]}, {CALLS} calls: wall "
-          f"{wall_ms:.3f} ms/call, device busy {busy_ms:.3f} ms/call, idle "
-          f"share {max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
+    print(f"{what}, {CALLS} calls: wall {wall_ms:.3f} ms/call, device busy "
+          f"{busy_ms:.3f} ms/call, idle share "
+          f"{max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
     kernels.sort(key=_device_us, reverse=True)
     for e in kernels[:TOP]:
         ms = _device_us(e) / 1e3 / CALLS
@@ -69,15 +83,50 @@ def profile(name: str, x: torch.Tensor) -> None:
               f"x{e.count // CALLS:<4d} {e.key[:110]}")
 
 
+def profile(name: str, x: torch.Tensor) -> None:
+    pipe = llt.EnhancePipeline(PATHS[name], device="cuda")
+    _report(f"{name}: 600x400 b{x.shape[0]}",
+            lambda: pipe.enhance_batch_device(x))
+
+
+def profile_video(name: str, frame: torch.Tensor) -> None:
+    """One call is one frame step at 1080p, the state fed forward."""
+    cfg, ema_in_kernel = VIDEO_PATHS[name]
+    ve = llt.VideoEnhancer(cfg, alpha=0.3, device="cuda",
+                           ema_in_kernel=ema_in_kernel)
+    ve.process(frame.cpu().numpy())  # builds the step and the state
+    frames = (frame, torch.bitwise_xor(frame, 1))
+    calls = [0]
+
+    def step():
+        ve._state, _ = ve._step(ve._state, frames[calls[0] % 2])
+        calls[0] += 1
+
+    _report(f"{name}: 1080p step", step)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
-    x = torch.from_numpy(synth_batch(48, 400, 600, seed=5)[0]).cuda()
     print(torch.cuda.get_device_name(0), torch.__version__)
-    for name in argv or list(PATHS):
-        profile(name, x)
+    names = argv or list(PATHS) + list(VIDEO_PATHS)
+    unknown = set(names) - set(PATHS) - set(VIDEO_PATHS)
+    if unknown:
+        print(f"profile_torch: unknown paths {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    if any(n in PATHS for n in names):
+        x = torch.from_numpy(synth_batch(48, 400, 600, seed=5)[0]).cuda()
+    if any(n in VIDEO_PATHS for n in names):
+        frame = torch.from_numpy(synth_batch(1, 1080, 1920, seed=13)[0][0])
+        frame = frame.cuda()
+    for name in names:
+        if name in PATHS:
+            profile(name, x)
+        else:
+            profile_video(name, frame)
     return 0
 
 
