@@ -10,40 +10,55 @@ guided tail r=4) and ``quality_fast`` (fcn, bilateral tail), both through
 the fcn/decom net and K5, and the four arms of the 1080p video benchmark
 (the JAX package's bench config 7): retinex as K4, retinex through K1's
 gain form, curve and hybrid at curve_downsample 4 through K3 with low-res
-maps (hybrid also with the gain plane).
+maps (hybrid also with the gain plane). The nets' own conv kernels: hybrid
+and ``quality`` under conv_impl="pallas" (K6a), ``quality_fast`` under
+"pallas" (K6b) and "cascade" (K7, one launch for c2-c7), and the HWC entry
+point enhance_hwc_u8 (K8) on retinex with the per-channel full-tap tail.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
   2. the kernel build from the sources in the checkout (nvcc, sm_90a);
   3. each kernel (K1 fused_retinex and its gain form, K3
      fused_curve_enhance with maps at 1/1, 1/2, 1/4 and with the gain
-     plane, K4 fused_retinex_ema over chained frames, K5 tiled_denoise)
-     against its plain PyTorch version on the card, on synthetic images:
+     plane, K4 fused_retinex_ema over chained frames, K5 tiled_denoise, K8
+     enhance_hwc_u8) against its plain PyTorch version on the card, on
+     synthetic images:
      max |du8|, changed share and a histogram of du8; bar: max |du8| <= 1
      and changed share < 1e-3 (K4's new carry: max |df32| <= 1e-6 on the
      image's columns; K3 also on the video step's blocks, 1080p b8 among
-     them); then each kernel's time beside its plain version's at 600x400
-     batch 48, and the video forms' at 1080p b1 and 600x400 b8, twice;
-     times are of the device alone, the calls queued behind a spin;
+     them; K8 also equal to EnhancePipeline's K1); the conv kernels K6a
+     (1 and 2 groups, relu and tanh), K6b (each fcn dilation) and K7 (the
+     fcn stack) on random activations, float32 within 1e-5 (TF32 off) and
+     bf16 within one bf16 step, K7 also equal to K6b layer by layer; then
+     each kernel's time beside its plain version's, its bound and (K6) one
+     F.conv2d's at 600x400 batch 48, and the video forms' at 1080p b1 and
+     600x400 b8, twice; times are of the device alone, the calls queued
+     behind a spin;
   4. each path through EnhancePipeline(device="cuda"), and stateless curve
-     ds 2 and hybrid ds 4 and 8: agreement with the CPU pipeline on a small
-     input (float32 max |du8| bar, bf16 PSNR >= 40 dB) and img/s at
-     600x400 batch 48 from CUDA events;
+     ds 2 and hybrid ds 4 and 8, and the conv_impl="pallas"/"cascade"
+     paths: agreement with the CPU pipeline on a small input (float32 max
+     |du8| bar, bf16 PSNR >= 40 dB) and img/s at 600x400 batch 48 from
+     CUDA events; enhance_hwc_u8 likewise;
   4b. the two presets' PSNR/SSIM/dE76 means over the 15 synthetic eval
      pairs on the card, against the JAX package's numbers for the same
      pairs (tools/jax_eval15_reference.py): bar 0.1 dB and 0.005 SSIM;
+     also ``quality`` under "pallas" and ``quality_fast`` under "cascade";
   4c. each video arm through VideoEnhancer(device="cuda"): agreement with
      device="cpu" over 4 frames at 96x64 with a reset (float32 max |du8|
      bar, bf16 PSNR >= 40 dB), the 1080p frame rate of the step chained on
      the card with its state fed forward (CUDA events), and for curve and
      hybrid MultiStreamVideoEnhancer(8)'s summed rate and whether a
      stream's output equals its lone output on the card;
-  5. an EnhanceServer per path (retinex, hybrid, quality), 16 requests of
+  5. an EnhanceServer per path (retinex, hybrid, quality, quality_fast
+     under "cascade"), 16 requests of
      two shapes from 4 threads per round, each answer equal to
      pipeline.enhance, p50/p99 latency;
   6. each path's launch counts, reset to 0 just before it runs (phases
      4-5, 4c) and read just after: every path launched its kernels, and
-     the retinex video path launched K4 and no K1.
+     the retinex video path launched K4 and no K1; the conv paths K6a 6
+     times (hybrid) or 3 times (decom) a K3 or K5 launch, K6b 6 times,
+     K7 once and no K6b (cascade); enhance_hwc_u8 K8 and no K1; the
+     default paths no conv kernel.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -74,10 +89,18 @@ JAX_EVAL15 = {
 }
 EVAL_BAR_DB, EVAL_BAR_SSIM = 0.1, 0.005
 
-# H100 SXM data sheet: HBM rate and the float32 rate outside the tensor
-# cores. Every kernel here computes in float32 on the CUDA cores.
+# H100 SXM data sheet: HBM rate, the float32 rate outside the tensor cores
+# and the dense bf16 tensor-core rate. K1-K5 and K8 compute in float32; a
+# conv's least time on bf16 data is set by the tensor cores' rate (K6 and
+# K7 run on the CUDA cores, so they stand far above that bound).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+# the conv kernels against their plain versions: float32 (TF32 off), sums
+# in another order
+CONV_F32_BAR = 1e-5
+FCN_DILATIONS = (2, 4, 8, 16, 32, 1)   # fcn c2-c7
 
 
 def card_line() -> str:
@@ -89,11 +112,15 @@ def card_line() -> str:
 
 
 def delta_stats(got: np.ndarray, want: np.ndarray) -> dict:
+    """max |du8|, the changed share and the histogram of du8 of two u8
+    arrays (counted in one pass: sorting tens of millions of values for
+    np.unique took seconds a case)."""
     d = got.astype(np.int32) - want.astype(np.int32)
-    vals, counts = np.unique(d, return_counts=True)
+    counts = np.bincount((d + 255).ravel(), minlength=511)
     return {"max_abs": int(np.abs(d).max()),
             "changed_share": float((d != 0).mean()),
-            "hist": {int(v): int(c) for v, c in zip(vals, counts)}}
+            "hist": {int(v) - 255: int(counts[v])
+                     for v in np.flatnonzero(counts)}}
 
 
 def check_bar(what: str, st: dict) -> None:
@@ -196,9 +223,9 @@ QUANTIZE_OPS = 18   # per channel: clip 2, *255, rint, clip 2
 NORMALIZE_OPS = 3   # u8 -> f32, * 1/255
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -256,6 +283,19 @@ def k4_bound(cfg, b, hb, wb, rows, m):
     return bound_ms(nbytes, band * per_band + b * rows * wb * per_out)
 
 
+def conv_bound(px, cin, cout, itemsize, layers=1):
+    """``layers`` 3x3 convs of cin -> cout channels (K7: cin == cout) over
+    ``px`` pixels: the input read once and the output written once (what a
+    kernel keeping the activations between layers on chip would move), and
+    per layer and output value 9 * cin multiply-adds (2 operations each),
+    the bias and the activation; bf16 at the tensor cores' rate, float32
+    at the CUDA cores'."""
+    nbytes = px * (cin + cout) * itemsize
+    ops = layers * px * cout * (2 * 9 * cin + 2)
+    return bound_ms(nbytes, ops,
+                    BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S)
+
+
 def k5_bound(cfg, y, rows, m):
     b, _, _, wb = y.shape
     nbytes = b * (rows + 2 * m) * wb * 12 + b * rows * wb * 12
@@ -263,7 +303,9 @@ def k5_bound(cfg, y, rows, m):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -292,8 +334,15 @@ def main() -> int:
     from low_light_image_enhancement_tpu_torch.eval import metrics
     from low_light_image_enhancement_tpu_torch.kernels import _build
     from low_light_image_enhancement_tpu_torch.kernels import (
+        fcn_cascade as fc,
+    )
+    from low_light_image_enhancement_tpu_torch.kernels import (
         fused_enhance as fe,
     )
+    from low_light_image_enhancement_tpu_torch.kernels import (
+        fused_enhance_hwc as hw,
+    )
+    from low_light_image_enhancement_tpu_torch.kernels import mxu_conv as mx
     from low_light_image_enhancement_tpu_torch.kernels import (
         tiled_denoise as td,
     )
@@ -329,10 +378,16 @@ def main() -> int:
               for name, c in (("hybrid", hybrid), ("curve", curve),
                               ("decom", quality), ("fcn", quality_fast))}
     wrappers = {"k1": fe.fused_retinex, "k3": fe.fused_curve_enhance,
-                "k4": fe.fused_retinex_ema, "k5": td.tiled_denoise}
-    err = {"k1": 0, "k3": 0, "k4": 0, "k5": 0.0}
+                "k4": fe.fused_retinex_ema, "k5": td.tiled_denoise,
+                "k6a": mx.conv2d_patch_mxu, "k6b": mx.conv2d_dense9_mxu,
+                "k7": fc.fcn_cascade_mxu, "k8": hw.enhance_hwc_u8}
+    err = {"k1": 0, "k3": 0, "k4": 0, "k5": 0.0, "k6a": 0.0, "k6b": 0.0,
+           "k7": 0.0, "k8": 0}
+    hwc_cfg = llt.PipelineConfig(denoise_guide="perchannel",
+                                 denoise_taps="full")
 
-    print("[3] kernels against their plain versions on the card")
+    print(f"[3] kernels against their plain versions on the card "
+          f"({time.perf_counter() - t_start:.0f} s)")
     k1_cases = [
         ("default 600x400 b8", llt.PipelineConfig(), (8, 400, 600)),
         ("default 1080p b1", llt.PipelineConfig(), (1, 1080, 1920)),
@@ -552,9 +607,105 @@ def main() -> int:
     print(f"  K5 max |f32 delta| over the cases: {err['k5']:.3e}")
     torch.cuda.synchronize()
 
-    # kernel-only time beside the plain version's at the main-path shape
+    # K8: K1's kernel in the per-channel full-tap form, against its plain
+    # version and against EnhancePipeline (whose retinex is K1)
+    hwc_pipe = llt.EnhancePipeline(hwc_cfg, device="cuda")
+    for b, h, w in ((2, 33, 47), (8, 400, 600), (1, 1080, 1920)):
+        x = torch.from_numpy(synth_batch(b, h, w, seed=14)[0]).to(dev)
+        got = hw.enhance_hwc_u8(x, hwc_cfg).cpu().numpy()
+        for what, want in (
+                ("plain", hw.enhance_hwc_u8_plain(x, hwc_cfg)),
+                ("EnhancePipeline", hwc_pipe.enhance_batch_device(x))):
+            st = delta_stats(got, want.cpu().numpy())
+            print(f"  K8 {w}x{h} b{b} vs {what}: max|du8|={st['max_abs']} "
+                  f"hist={st['hist']}")
+            err["k8"] = max(err["k8"], st["max_abs"])
+            if st["max_abs"]:
+                raise AssertionError(f"K8 differs from {what}: {st}")
+        del x
+
+    # the conv kernels on unit-scale random activations and He-scaled
+    # weights, at small odd shapes and on the nets' own blocks
     lows48 = synth_batch(48, 400, 600, seed=5)[0]
     x48 = torch.from_numpy(lows48).to(dev)
+    blk = {name: tuple(pad_block(x48, c)[0].shape[-2:])
+           for name, c in (("hybrid", hybrid), ("decom", quality),
+                           ("fcn", quality_fast))}
+    cgen = torch.Generator(device="cuda").manual_seed(21)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def urand(shape, dtype):
+        return torch.rand(shape, generator=cgen, device=dev).to(dtype)
+
+    def conv_params(cin, cout):
+        w = torch.randn((cout, cin, 3, 3), generator=cgen, device=dev)
+        return (w * (2.0 / (9 * cin)) ** 0.5,
+                0.1 * torch.randn((cout,), generator=cgen, device=dev))
+
+    def conv_check(what, got, want):
+        """float32: max |d| <= CONV_F32_BAR; bf16: one bf16 step of the
+        value, or CONV_F32_BAR where the sum cancels to near 0."""
+        g, wv = got.float(), want.float()
+        d = (g - wv).abs()
+        if got.dtype == torch.float32:
+            bar = torch.full_like(d, CONV_F32_BAR)
+        else:
+            mag = torch.maximum(g.abs(), wv.abs()).clamp_min(1e-30)
+            bar = torch.exp2(torch.floor(torch.log2(mag)) - 7) \
+                .clamp_min(CONV_F32_BAR)
+        dmax = float(d.max())
+        over = int((d > bar).sum())
+        print(f"  {what}: max|d|={dmax:.3e} differing share="
+              f"{float((d > 0).float().mean()):.3e}")
+        if over:
+            raise AssertionError(f"{what}: {over} values outside the bar")
+        return dmax
+
+    f = 32
+    for dn, dt in dtypes.items():
+        # the curve CNN's c2-c4 (and decom's), c5/c6 and c7
+        for lname, groups, cout, act in (
+                ("32->32 relu", (f,), f, "relu"),
+                ("32+32->32 relu", (f, f), f, "relu"),
+                ("32+32->24 tanh", (f, f), 24, "tanh")):
+            w, b = conv_params(sum(groups), cout)
+            for shape in ((2, 37, 45), (4,) + blk["hybrid"]):
+                xs = [urand(shape + (c,), dt) for c in groups]
+                got = mx.conv2d_patch_mxu(xs, w, b, act=act)
+                err["k6a"] = max(err["k6a"], conv_check(
+                    f"K6a {lname} {dn} {shape}", got,
+                    mx.conv3x3_plain(xs, w, b, act)))
+        # the fcn stack's c2-c7, one layer at a time, then as K7
+        ws, bs = zip(*[conv_params(24, 24) for _ in FCN_DILATIONS])
+        for shape in ((2, 70, 72), (4,) + blk["fcn"]):
+            x = urand(shape + (24,), dt)
+            chain = x
+            for w, b, d in zip(ws, bs, FCN_DILATIONS):
+                want = mx.conv3x3_plain((chain,), w, b, "leaky", d)
+                chain = mx.conv2d_dense9_mxu(chain, w, b, act="leaky",
+                                             dilation=d)
+                err["k6b"] = max(err["k6b"], conv_check(
+                    f"K6b d{d} {dn} {shape}", chain, want))
+            got = fc.fcn_cascade_mxu(x, ws, bs, FCN_DILATIONS)
+            if not torch.equal(got, chain):
+                raise AssertionError(f"K7 {dn} {shape} differs from K6b "
+                                     "layer by layer")
+            want = fc.fcn_cascade_plain(x, ws, bs, FCN_DILATIONS)
+            if dt == torch.float32:
+                err["k7"] = max(err["k7"], conv_check(
+                    f"K7 {dn} {shape} (equal to K6b layer by layer)", got,
+                    want))
+            else:
+                # a one-step difference of a layer feeds the next: bf16 is
+                # held layer by layer (K6b above) and by the equality
+                d = (got.float() - want.float()).abs()
+                print(f"  K7 {dn} {shape}: equal to K6b layer by layer; "
+                      f"against the plain stack max|d|={float(d.max()):.3e}"
+                      f" differing share={float((d > 0).float().mean()):.3e}")
+            del x, chain, got, want
+    torch.cuda.synchronize()
+
+    # kernel-only time beside the plain version's at the main-path shape
     k1_ms, k1_plain_ms = paired_ms(
         torch, lambda: fe.fused_retinex_plain(x48, cfg0),
         lambda: fe.fused_retinex(x48, cfg0), 10)
@@ -576,6 +727,45 @@ def main() -> int:
             (k5_bound(cfg, y, rows, canvas_margin(cfg)),)
         del y
     (k5_t, k5_plain_ms, k5_b) = k5_ms["quality"]
+
+    # the conv kernels at the 600x400 b48 blocks, bf16 (the compute dtype):
+    # K6a as the curve CNN's c5 on hybrid's block, K6b as fcn's c2 and K7
+    # as its c2-c7 on fcn's block; the yardstick is one cuDNN call
+    bf = torch.bfloat16
+    hbh, wbh = blk["hybrid"]
+    xs = [urand((48, hbh, wbh, f), bf) for _ in range(2)]
+    w, b = conv_params(2 * f, f)
+    xcat = torch.cat(xs, -1).permute(0, 3, 1, 2)   # channels_last NCHW
+    wl = w.to(bf).contiguous(memory_format=torch.channels_last)
+    k6a_ms, k6a_plain_ms = paired_ms(
+        torch, lambda: mx.conv3x3_plain(xs, w, b, "relu"),
+        lambda: mx.conv2d_patch_mxu(xs, w, b, act="relu"), 3)
+    k6a_lib_ms = cuda_ms(torch, lambda: F.conv2d(xcat, wl, b.to(bf),
+                                                 padding=1), 5, prefill=True)
+    k6a_b = conv_bound(48 * hbh * wbh, 2 * f, f, 2)
+    del xs, xcat
+    hbf, wbf = blk["fcn"]
+    x = urand((48, hbf, wbf, 24), bf)
+    ws, bs = zip(*[conv_params(24, 24) for _ in FCN_DILATIONS])
+    k6b_ms, k6b_plain_ms = paired_ms(
+        torch, lambda: mx.conv3x3_plain((x,), ws[0], bs[0], "leaky", 2),
+        lambda: mx.conv2d_dense9_mxu(x, ws[0], bs[0], act="leaky",
+                                     dilation=2), 3)
+    xn = x.permute(0, 3, 1, 2)
+    wl = ws[0].to(bf).contiguous(memory_format=torch.channels_last)
+    k6b_lib_ms = cuda_ms(torch, lambda: F.conv2d(xn, wl, bs[0].to(bf),
+                                                 padding=2, dilation=2), 5,
+                         prefill=True)
+    k6b_b = conv_bound(48 * hbf * wbf, 24, 24, 2)
+    k7_ms, k7_plain_ms = paired_ms(
+        torch, lambda: fc.fcn_cascade_plain(x, ws, bs, FCN_DILATIONS),
+        lambda: fc.fcn_cascade_mxu(x, ws, bs, FCN_DILATIONS), 2)
+    k7_b = conv_bound(48 * hbf * wbf, 24, 24, 2, layers=len(FCN_DILATIONS))
+    del x, xn
+    k8_ms, k8_plain_ms = paired_ms(
+        torch, lambda: hw.enhance_hwc_u8_plain(x48, hwc_cfg),
+        lambda: hw.enhance_hwc_u8(x48, hwc_cfg), 10)
+    k8_b = k1_bound(hwc_cfg, 48, 400, 600)
 
     # the video forms at the video benchmark's 1080p b1 and at 600x400 b8,
     # in two rounds to show the spread of their times within one run
@@ -627,6 +817,17 @@ def main() -> int:
     for name, (t, tp, bd) in k5_ms.items():
         print(f"  600x400 b48 on {card}: K5 {name} block {t:.3f} ms (plain "
               f"{tp:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]})")
+    for name, t, tp, tl, bd in (
+            (f"K6a c5 64->32 relu bf16 on hybrid's block {hbh}x{wbh}",
+             k6a_ms, k6a_plain_ms, k6a_lib_ms, k6a_b),
+            (f"K6b c2 24->24 d2 leaky bf16 on fcn's block {hbf}x{wbf}",
+             k6b_ms, k6b_plain_ms, k6b_lib_ms, k6b_b),
+            (f"K7 c2-c7 bf16 on fcn's block {hbf}x{wbf}", k7_ms, k7_plain_ms,
+             None, k7_b),
+            ("K8 perchannel/full", k8_ms, k8_plain_ms, None, k8_b)):
+        lib = "" if tl is None else f", one F.conv2d {tl:.3f} ms"
+        print(f"  600x400 b48 on {card}: {name} {t:.3f} ms (plain {tp:.3f} "
+              f"ms{lib}, bound {bd[0]:.4f} ms by {bd[1]})")
     for name, rounds in video_ms.items():
         t = " / ".join(f"{r[0]:.4f}" for r in rounds)
         tp = " / ".join(f"{r[1]:.3f}" for r in rounds)
@@ -643,6 +844,29 @@ def main() -> int:
     # K3) and 8 (upsampled eagerly, then K3 at ds 1)
     paths += [(f"{c.method} ds{ds}", c.replace(curve_downsample=ds), ("k3",))
               for c, ds in ((curve, 2), (hybrid, 4), (hybrid, 8))]
+    # the nets' own conv kernels: (name, config, kernels it launches)
+    conv_paths = [
+        ("hybrid pallas", hybrid.replace(conv_impl="pallas"), ("k6a", "k3")),
+        ("quality pallas", quality.replace(conv_impl="pallas"),
+         ("k6a", "k5")),
+        ("quality_fast pallas", quality_fast.replace(conv_impl="pallas"),
+         ("k6b", "k5")),
+        ("quality_fast cascade", quality_fast.replace(conv_impl="cascade"),
+         ("k7", "k5")),
+    ]
+    paths += conv_paths
+    conv_kernels = ("k6a", "k6b", "k7", "k8")
+    # kernels a path must not launch: the default arms no conv kernel, the
+    # conv arms none of the others', and the HWC entry point no K1
+    never = {name: tuple(k for k in conv_kernels if k not in kernels)
+             for name, _, kernels in paths}
+    never["hwc"] = ("k1",) + tuple(k for k in conv_kernels if k != "k8")
+    # launches per block: K6a 6 (hybrid's c2-c7) or 3 (decom's c2-c4) per
+    # K3 / K5 launch, K6b 6 (fcn's c2-c7), K7 1 (all six)
+    per_block = {"hybrid pallas": ("k6a", 6, "k3"),
+                 "quality pallas": ("k6a", 3, "k5"),
+                 "quality_fast pallas": ("k6b", 6, "k5"),
+                 "quality_fast cascade": ("k7", 1, "k5")}
     # the video benchmark's arms: (name, config, ema_in_kernel, kernels it
     # launches, kernels it must not launch)
     video_paths = [
@@ -654,7 +878,7 @@ def main() -> int:
          ("k3",), ("k1", "k4")),
     ]
     launches = {name: {k: 0 for k in wrappers}
-                for name, *_ in paths + video_paths}
+                for name, *_ in paths + video_paths + [("hwc",)]}
 
     def counted(name, run):
         for wr in wrappers.values():
@@ -664,7 +888,8 @@ def main() -> int:
             launches[name][k] += wr.launches
         return out
 
-    print("[4] EnhancePipeline(device='cuda')")
+    print(f"[4] EnhancePipeline(device='cuda') "
+          f"({time.perf_counter() - t_start:.0f} s)")
     small = synth_batch(2, 64, 96, seed=6)[0]
 
     def phase4(name, cfg):
@@ -698,7 +923,23 @@ def main() -> int:
     for name, cfg, _ in paths:
         counted(name, lambda: phase4(name, cfg))
 
-    print("[4b] synthetic eval-15 on the card against the JAX package's "
+    def phase4_hwc():
+        """enhance_hwc_u8 on a CUDA tensor against the CPU, and its rate."""
+        got = hw.enhance_hwc_u8(torch.from_numpy(small).to(dev), hwc_cfg)
+        want = hw.enhance_hwc_u8(torch.from_numpy(small), hwc_cfg)
+        check_bar("enhance_hwc_u8 cuda vs cpu 96x64 b2",
+                  delta_stats(got.cpu().numpy(), want.numpy()))
+        dev_ms = cuda_ms(torch, lambda: hw.enhance_hwc_u8(x48, hwc_cfg), 5)
+        host_ms = cuda_ms(torch, lambda: hw.enhance_hwc_u8(
+            torch.from_numpy(lows48).to(dev), hwc_cfg).cpu().numpy(), 5)
+        print(f"  enhance_hwc_u8 600x400 b48 on {card}: {48e3 / host_ms:.1f}"
+              f" img/s host u8 in/out ({host_ms:.2f} ms), "
+              f"{48e3 / dev_ms:.1f} img/s on the card ({dev_ms:.2f} ms)")
+
+    counted("hwc", phase4_hwc)
+
+    print(f"[4b] ({time.perf_counter() - t_start:.0f} s) synthetic eval-15 "
+          "on the card against the JAX package's "
           "numbers (tools/jax_eval15_reference.py, CPU)")
     pairs = [synth_pair(i, 400, 600, seed=0) for i in range(15)]
 
@@ -716,9 +957,15 @@ def main() -> int:
                 vals[key] += fn(out, highs).cpu().tolist()
         return {k: float(np.mean(v)) for k, v in vals.items()}
 
-    for name in ("quality", "quality_fast"):
-        got = counted(name, lambda: eval15(llt.PRESETS[name]))
-        want = JAX_EVAL15[name]
+    eval_paths = [("quality", "quality", quality),
+                  ("quality_fast", "quality_fast", quality_fast),
+                  ("quality pallas", "quality",
+                   quality.replace(conv_impl="pallas")),
+                  ("quality_fast cascade", "quality_fast",
+                   quality_fast.replace(conv_impl="cascade"))]
+    for name, preset, cfg in eval_paths:
+        got = counted(name, lambda: eval15(cfg))
+        want = JAX_EVAL15[preset]
         print(f"  {name} on {card}: PSNR {got['psnr']:.4f} dB (JAX CPU "
               f"{want['psnr']:.4f}), SSIM {got['ssim']:.5f} "
               f"({want['ssim']:.5f}), dE76 {got['delta_e76']:.4f} "
@@ -729,7 +976,8 @@ def main() -> int:
                 f"{name} eval-15 outside {EVAL_BAR_DB} dB / "
                 f"{EVAL_BAR_SSIM} SSIM of the JAX package: {got} vs {want}")
 
-    print("[4c] VideoEnhancer(device='cuda'): the 1080p video benchmark's "
+    print(f"[4c] ({time.perf_counter() - t_start:.0f} s) "
+          "VideoEnhancer(device='cuda'): the 1080p video benchmark's "
           "arms, alpha 0.3")
     clip96 = synth_batch(1, 64, 96, seed=12)[0][0]
     frame1080 = synth_batch(1, 1080, 1920, seed=13)[0][0]
@@ -811,7 +1059,8 @@ def main() -> int:
         counted(name, lambda: phase4c(name, cfg, ema_in_kernel))
     del clip96, frame1080
 
-    print("[5] EnhanceServer(device='cuda'), 4 threads x 4 requests")
+    print(f"[5] ({time.perf_counter() - t_start:.0f} s) "
+          "EnhanceServer(device='cuda'), 4 threads x 4 requests")
     reqs = [synth_batch(1, 400, 600, seed=7, start=i)[0][0] for i in range(8)]
     reqs += [synth_batch(1, 480, 640, seed=7, start=i)[0][0]
              for i in range(8)]
@@ -850,32 +1099,43 @@ def main() -> int:
                       f"{np.percentile(lat, 50):.2f} ms p99 "
                       f"{np.percentile(lat, 99):.2f} ms on {card}")
 
-    for name, cfg, _ in paths[:3]:
+    for name, cfg, _ in paths[:3] + conv_paths[3:]:
         counted(name, lambda: phase5(name, cfg))
 
-    print(f"[6] launches per path (phases 4-5, 4c): {launches}")
-    expected = [(name, kernels, ()) for name, _, kernels in paths]
-    expected += [(name, kernels, never)
-                 for name, _, _, kernels, never in video_paths]
-    for name, kernels, never in expected:
+    print(f"[6] ({time.perf_counter() - t_start:.0f} s) launches per path "
+          f"(phases 4-5, 4c): {launches}")
+    expected = [(name, kernels, never[name]) for name, _, kernels in paths]
+    expected += [(name, kernels, nv)
+                 for name, _, _, kernels, nv in video_paths]
+    expected += [("hwc", ("k8",), never["hwc"])]
+    for name, kernels, nv in expected:
         if min(launches[name][k] for k in kernels) < 1:
             raise AssertionError(f"path {name} never launched one of "
                                  f"{kernels}: {launches[name]}")
-        if any(launches[name][k] for k in never):
-            raise AssertionError(f"path {name} launched one of {never}: "
+        if any(launches[name][k] for k in nv):
+            raise AssertionError(f"path {name} launched one of {nv}: "
                                  f"{launches[name]}")
+    for name, (k, n, ref) in per_block.items():
+        if launches[name][k] != n * launches[name][ref]:
+            raise AssertionError(f"path {name}: {launches[name][k]} {k} "
+                                 f"launches, not {n} per {ref} launch "
+                                 f"({launches[name][ref]})")
+    print("  the conv paths launched their kernel per block as expected: "
+          + ", ".join(f"{name} {n} {k} per {ref}"
+                      for name, (k, n, ref) in per_block.items()))
     total = {k: sum(launches[name][k] for name, kernels, _ in expected
                     if k in kernels) for k in wrappers}
 
     src = "low_light_image_enhancement_tpu_torch/kernels/csrc/"
     tpu = "low_light_image_enhancement_tpu/kernels/"
 
-    def row(name, k, source, replaces, t, plain, bnd):
-        # no single PyTorch call computes any of these functions
+    def row(name, k, source, replaces, t, plain, bnd, library=None):
+        # library: one PyTorch call computing the same function, where one
+        # exists (F.conv2d for K6); none does for the others
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": tpu + replaces, "launches": total[k],
                 "max_abs_err": err[k], "ms": t, "plain_ms": plain,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library}
 
     print(json.dumps({"kernels": [
         row("fused_retinex (K1)", "k1", "fused_enhance.cu",
@@ -886,6 +1146,14 @@ def main() -> int:
             "fused_enhance.py:350", *video_ms["K4 1920x1080 b1"][-1]),
         row("tiled_denoise (K5)", "k5", "tiled_denoise.cu",
             "tiled_denoise.py:42", k5_t, k5_plain_ms, k5_b),
+        row("conv2d_patch_mxu (K6a)", "k6a", "mxu_conv.cu",
+            "mxu_conv.py:205", k6a_ms, k6a_plain_ms, k6a_b, k6a_lib_ms),
+        row("conv2d_dense9_mxu (K6b)", "k6b", "mxu_conv.cu",
+            "mxu_conv.py:288", k6b_ms, k6b_plain_ms, k6b_b, k6b_lib_ms),
+        row("fcn_cascade_mxu (K7)", "k7", "fcn_cascade.cu",
+            "fcn_cascade.py:169", k7_ms, k7_plain_ms, k7_b),
+        row("enhance_hwc_u8 (K8)", "k8", "fused_enhance.cu",
+            "fused_enhance_hwc.py:178", k8_ms, k8_plain_ms, k8_b),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,9 @@ Public API::
 
 Methods: retinex (kernel K1), curve and hybrid (the curve CNN, then K3),
 fcn and decom (their net, then K5, the bilateral or guided denoise tail).
+The nets' convs run as cuDNN or, under ``conv_impl="pallas"``, as kernels
+K6a/K6b, and fcn's dilated stack under ``"cascade"`` as one K7 launch;
+``kernels.fused_enhance_hwc.enhance_hwc_u8`` is retinex on u8 HWC (K8).
 Video (``VideoEnhancer``, ``MultiStreamVideoEnhancer``): retinex as one
 kernel K4 per frame (or K1's gain form), curve and hybrid through K3.
 ``eval.metrics`` has PSNR, SSIM and CIE76 delta-E on tensors.

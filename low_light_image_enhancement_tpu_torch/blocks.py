@@ -1,5 +1,7 @@
 """Block-form graph of the learned methods: curve and hybrid (at every
-``curve_downsample``), fcn and decom.
+``curve_downsample``), fcn and decom, each net under ``conv_impl`` "xla"
+(``F.conv2d``) or "pallas" (K6; fcn also "cascade", K7; see
+``resolve_conv_impl``).
 
 The net consumes the image extended by ``canvas_margin`` replicate
 rows/cols on each side and zeros beyond (``_mask_extent``); conv SAME
@@ -32,6 +34,9 @@ from low_light_image_enhancement_tpu_torch.core import (
     illumination_boost,
     replicate_margin_cols,
 )
+from low_light_image_enhancement_tpu_torch.kernels.fcn_cascade import (
+    apply_fcn_cascade,
+)
 from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
     fused_curve_enhance,
 )
@@ -40,13 +45,16 @@ from low_light_image_enhancement_tpu_torch.kernels.tiled_denoise import (
 )
 from low_light_image_enhancement_tpu_torch.models.curve_cnn import (
     apply_curve_cnn,
+    apply_curve_cnn_pallas,
 )
 from low_light_image_enhancement_tpu_torch.models.decom import (
     apply_decom_net,
+    apply_decom_net_pallas,
 )
 from low_light_image_enhancement_tpu_torch.models.fcn import (
     _dilations,
     apply_fcn,
+    apply_fcn_pallas,
 )
 from low_light_image_enhancement_tpu_torch.ops.colorspace import (
     normalize_u8,
@@ -129,14 +137,29 @@ def block_geometry(cfg: PipelineConfig, h: int, w: int, n_shards: int = 1):
 
 
 def resolve_conv_impl(cfg: PipelineConfig) -> PipelineConfig:
-    """``auto`` and ``xla`` both resolve to ``xla``, which this package runs
-    as ``F.conv2d``; the packed, GEMM and Pallas conv stacks are not
-    ported."""
-    if cfg.conv_impl in ("auto", "xla"):
+    """The conv arm the nets run, as the JAX package resolves it:
+
+    - ``auto`` and ``xla`` -> ``xla``, the nets' convs as ``F.conv2d``.
+      ``auto`` never picks another arm here: the JAX package's TPU batch
+      bands (``blocks.AUTO_CONV_BANDS``) were measured on a TPU.
+    - ``pallas`` stays: every net's 3x3 convs past the stem run as K6
+      (``kernels/mxu_conv.py``), K6a for curve, hybrid and decom, K6b for
+      fcn.
+    - ``cascade`` stays on fcn (its c2-c7 as one K7 launch,
+      ``kernels/fcn_cascade.py``) and is ``xla`` on the other methods.
+    - ``gemm``, ``packed`` and ``packed12`` raise: they are XLA-only arms
+      of the JAX package's ``ops/patch_conv.py`` and not ported.
+
+    The device of the tensors picks a kernel or its plain version, as for
+    every kernel of this package; ``use_pallas`` has no effect."""
+    if cfg.conv_impl in ("auto", "xla") or (
+            cfg.conv_impl == "cascade" and cfg.method != "fcn"):
         return cfg.replace(conv_impl="xla")
+    if cfg.conv_impl in ("pallas", "cascade"):
+        return cfg
     raise NotImplementedError(
-        f"conv_impl={cfg.conv_impl!r} is not ported yet (ROADMAP Queue 1, "
-        "conv-stack alternatives K6/K7)"
+        f"conv_impl={cfg.conv_impl!r} is not ported yet (ROADMAP Queue 1: "
+        "the XLA-only arms of ops/patch_conv.py)"
     )
 
 
@@ -168,8 +191,10 @@ def _curve_maps_lowres(cnn_in: torch.Tensor, cfg: PipelineConfig,
         cnn_in = F.interpolate(cnn_in, size=(hb // ds, wb // ds),
                                mode="bilinear", antialias=True,
                                align_corners=False)
-    return apply_curve_cnn(params, cnn_in, n_iter=cfg.curve_iters,
-                           compute_dtype=cfg.compute_dtype)
+    apply = (apply_curve_cnn_pallas if cfg.conv_impl == "pallas"
+             else apply_curve_cnn)
+    return apply(params, cnn_in, n_iter=cfg.curve_iters,
+                 compute_dtype=cfg.compute_dtype)
 
 
 def _curve_maps(cnn_in: torch.Tensor, cfg: PipelineConfig,
@@ -247,10 +272,13 @@ def block_net_image(
             "float blocks are not ported yet (ROADMAP Queue 1: f32 I/O)")
     cnn_in = _mask_extent(normalize_u8(xb), row0, h, w, canvas_margin(cfg))
     if cfg.method == "fcn":
-        y = apply_fcn(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
+        apply = {"pallas": apply_fcn_pallas,
+                 "cascade": apply_fcn_cascade}.get(cfg.conv_impl, apply_fcn)
+        y = apply(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
         return torch.clamp(y, 0.0, 1.0)
-    r, l = apply_decom_net(model_params, cnn_in,
-                           compute_dtype=cfg.compute_dtype)
+    apply = (apply_decom_net_pallas if cfg.conv_impl == "pallas"
+             else apply_decom_net)
+    r, l = apply(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
     l_boost = torch.clamp(l, cfg.illum_eps, 1.0) ** cfg.decom_gamma
     return torch.clamp(r * l_boost, 0.0, 1.0)
 

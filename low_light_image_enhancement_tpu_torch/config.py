@@ -80,7 +80,7 @@ class PipelineConfig:
     # --- curve CNN -----------------------------------------------------------
     curve_iters: int = 8         # LE-curve iterations (Zero-DCE uses 8)
     curve_features: int = 32     # conv width of the curve estimator
-    curve_downsample: int = 1    # CNN at 1/N resolution (only 1 is ported)
+    curve_downsample: int = 1    # CNN at 1/N resolution (1, 2, 4 or 8)
 
     # --- execution -----------------------------------------------------------
     # use_pallas, stripe_rows and stripe_windowed steer the TPU kernels'
@@ -92,8 +92,10 @@ class PipelineConfig:
     stripe_windowed: Optional[bool] = None
     compute_dtype: str = "bfloat16"  # CNN conv compute dtype; the per-pixel
                                      # tail math is float32 regardless
-    conv_impl: str = "auto"      # conv lowering: "auto" and "xla" both run
-                                 # F.conv2d; the other values raise
+    conv_impl: str = "auto"      # the nets' conv arm: "auto" and "xla" run
+                                 # F.conv2d, "pallas" the K6 kernels,
+                                 # "cascade" K7 on fcn (xla elsewhere);
+                                 # "gemm", "packed", "packed12" raise
 
     # --- sharding ------------------------------------------------------------
     spatial_shards: int = 1      # >1 is not yet ported (raises)

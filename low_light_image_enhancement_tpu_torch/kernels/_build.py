@@ -75,6 +75,18 @@ _SIGNATURES = {
         _I, _I, _F, _F,              # guided, radius, 1/(2r+1), eps
         _P,                          # stream
     ],
+    "llie_conv3x3": [
+        _P, _I, _P, _I,              # xa, ca, xb (or NULL), cb
+        _P, _P, _P, _I,              # packed w, bias, out, cout
+        _I, _I, _I, _I, _I, _I,      # B, H, W, dilation, act, bf16
+        _P,                          # stream
+    ],
+    "llie_fcn_cascade": [
+        _P, _P, _P, _P, _P,          # x, scratch, out, packed w, biases
+        ctypes.POINTER(_I), _I, _I,  # dilations, layers, channels
+        _I, _I, _I, _I,              # B, H, W, bf16
+        _P,                          # stream
+    ],
     "llie_max_blur_radius": [],
 }
 

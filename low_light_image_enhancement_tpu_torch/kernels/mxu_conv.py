@@ -1,0 +1,191 @@
+"""K6 (one 3x3 conv layer of the learned nets): wrappers, plain PyTorch
+version, weight packing and launch counts.
+
+- K6a ``conv2d_patch_mxu`` replaces the JAX package's
+  ``kernels/mxu_conv.py::conv2d_patch_mxu`` (``_patch_kernel``): dilation
+  1, the input a concat of 1-2 groups, relu or tanh (the curve CNN's c2-c7,
+  the decom net's c2-c4 under ``conv_impl="pallas"``).
+- K6b ``conv2d_dense9_mxu`` replaces its ``conv2d_dense9_mxu``
+  (``_conv_kernel``): dilation 1 or even, leaky 0.2 (the fcn stack's c2-c7).
+
+Both run the one CUDA kernel of ``csrc/mxu_conv.cu`` and count their
+launches apart. They take unpacked NHWC activations: the JAX kernels'
+space-to-depth packing fills the TPU's 128-lane matrix unit and has no use
+on the card. The arithmetic is the Pallas arm's: the activations and the
+weights in bf16 (or f32), an f32 accumulator, the bias added in f32, the
+activation in f32, one cast to the input dtype. Each wrapper dispatches on
+the device of its input alone: a CPU tensor goes to ``conv3x3_plain``, a
+CUDA tensor to the kernel (or the call raises).
+"""
+
+from __future__ import annotations
+
+import threading
+import weakref
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from low_light_image_enhancement_tpu_torch.kernels import _build
+from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
+    _check_cuda_tensor,
+    _raise_on,
+)
+
+ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "none": lambda y: y,
+    "relu": torch.relu,
+    "leaky": lambda y: torch.where(y >= 0, y, y * 0.2),
+    "tanh": torch.tanh,
+}
+_ACT_CODE = {"none": 0, "relu": 1, "leaky": 2, "tanh": 3}
+# the kernel's output widths and its channel step (one 16-byte bf16 read)
+KERNEL_COUTS = (8, 16, 24, 32)
+CIN_STEP = 8
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def conv3x3_plain(xs: Sequence[torch.Tensor], w: torch.Tensor,
+                  b: torch.Tensor, act: str,
+                  dilation: int = 1) -> torch.Tensor:
+    """Plain version of K6: the NHWC groups ``xs`` concatenated, ``w``
+    (Cout, Cin, 3, 3) rounded to their dtype, both upcast to f32, a SAME
+    conv in f32, + the f32 bias, the activation, one cast back."""
+    x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
+    dt = x.dtype
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), w.to(dt).float(),
+                 padding=dilation, dilation=dilation)
+    y = ACTS[act](y + b.float()[:, None, None])
+    return y.to(dt).permute(0, 2, 3, 1).contiguous()
+
+
+# (ids of the source tensors, dtype) -> (weak references, their versions,
+# the packed tensors); an entry goes when a source tensor is freed
+_PACKED: Dict[Tuple, Tuple] = {}
+_PACKED_LOCK = threading.Lock()
+
+
+def packed_params(sources: Sequence[torch.Tensor], dtype: torch.dtype,
+                  pack: Callable[[], Tuple[torch.Tensor, ...]]):
+    """``pack()``'s tensors, built once per parameter set and dtype: the
+    cache is keyed on the source tensors themselves and refreshed if one of
+    them was changed in place."""
+    key = (tuple(id(t) for t in sources), dtype)
+    versions = tuple(t._version for t in sources)
+    with _PACKED_LOCK:
+        hit = _PACKED.get(key)
+        if hit is not None and hit[1] == versions \
+                and all(r() is t for r, t in zip(hit[0], sources)):
+            return hit[2]
+        refs = tuple(weakref.ref(t, lambda _, k=key: _PACKED.pop(k, None))
+                     for t in sources)
+        packed = pack()
+        _PACKED[key] = (refs, versions, packed)
+        return packed
+
+
+def pack_conv_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> the kernel's f32 (9, Cin, Cout), tap-major
+    (dy, dx), each value rounded to ``dtype`` first."""
+    cout, cin = w.shape[:2]
+    return w.detach().to(dtype).float().permute(2, 3, 1, 0) \
+        .reshape(9, cin, cout).contiguous()
+
+
+def _check_layer(xs: Sequence[torch.Tensor], w: torch.Tensor,
+                 b: torch.Tensor, act: str, dilation: int) -> None:
+    if not 1 <= len(xs) <= 2:
+        raise ValueError(f"one or two input groups, got {len(xs)}")
+    x0 = xs[0]
+    if x0.ndim != 4 or 0 in x0.shape:
+        raise ValueError(f"expected NHWC (B,H,W,C), got {tuple(x0.shape)}")
+    for x in xs[1:]:
+        if x.shape[:3] != x0.shape[:3] or x.dtype != x0.dtype \
+                or x.device != x0.device:
+            raise ValueError("the input groups differ in shape, dtype or "
+                             "device")
+    if x0.dtype not in _DTYPES:
+        raise ValueError(f"activations are bf16 or f32, got {x0.dtype}")
+    cin = sum(x.shape[-1] for x in xs)
+    if w.ndim != 4 or w.shape[1:] != (cin, 3, 3) \
+            or tuple(b.shape) != (w.shape[0],):
+        raise ValueError(f"expected w (Cout,{cin},3,3) and b (Cout,), got "
+                         f"{tuple(w.shape)} {tuple(b.shape)}")
+    if w.device != x0.device or b.device != x0.device:
+        raise ValueError("activations and parameters lie on different "
+                         "devices")
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {tuple(ACTS)}: {act!r}")
+    if dilation < 1:
+        raise ValueError(f"dilation must be >= 1: {dilation}")
+
+
+def _check_kernel_shapes(cins: Sequence[int], cout: int) -> None:
+    if cout not in KERNEL_COUTS or any(c % CIN_STEP for c in cins):
+        raise ValueError(
+            f"the conv kernel takes groups of a multiple of {CIN_STEP} "
+            f"channels and Cout in {KERNEL_COUTS}, got {tuple(cins)} -> "
+            f"{cout}")
+
+
+def _check_aligned(t: torch.Tensor) -> None:
+    _check_cuda_tensor(t)
+    if t.data_ptr() % 16:
+        raise ValueError("the conv kernel reads 16-byte aligned tensors")
+
+
+def _conv3x3(xs, w, b, act, dilation, counter):
+    """The layer on the input's device; a launch counts on ``counter``, the
+    wrapper that was called."""
+    if xs[0].device.type == "cpu":
+        return conv3x3_plain(xs, w, b, act, dilation)
+    lib = _build.load_library()
+    for x in xs:
+        _check_aligned(x)
+    _check_kernel_shapes([x.shape[-1] for x in xs], w.shape[0])
+    x0 = xs[0]
+    dt = x0.dtype
+    wk, bk = packed_params(
+        (w, b), dt, lambda: (pack_conv_weights(w, dt),
+                             b.detach().float().contiguous()))
+    bsz, h, wd, ca = x0.shape
+    xb, cb = (xs[1], xs[1].shape[-1]) if len(xs) > 1 else (None, 0)
+    cout = w.shape[0]
+    out = torch.empty((bsz, h, wd, cout), dtype=dt, device=x0.device)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.llie_conv3x3(
+            x0.data_ptr(), ca, None if xb is None else xb.data_ptr(), cb,
+            wk.data_ptr(), bk.data_ptr(), out.data_ptr(), cout, bsz, h, wd,
+            dilation, _ACT_CODE[act], int(dt == torch.bfloat16), stream)
+    _raise_on(rc, lib, "conv3x3")
+    counter.launches += 1
+    return out
+
+
+def conv2d_patch_mxu(xs: Sequence[torch.Tensor], w: torch.Tensor,
+                     b: torch.Tensor, *, act: str = "none") -> torch.Tensor:
+    """K6a: one dilation-1 3x3 SAME conv layer on NHWC groups ``xs`` (one
+    tensor, or two read as their channel concat) -> (B, H, W, Cout) in
+    their dtype. ``w`` (Cout, Cin, 3, 3) and ``b`` (Cout,) are the net's
+    parameters; their packed form is cached per parameter set."""
+    xs = tuple(xs)
+    _check_layer(xs, w, b, act, 1)
+    return _conv3x3(xs, w, b, act, 1, conv2d_patch_mxu)
+
+
+conv2d_patch_mxu.launches = 0
+
+
+def conv2d_dense9_mxu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                      act: str = "none", dilation: int = 1) -> torch.Tensor:
+    """K6b: one 3x3 SAME conv layer at ``dilation`` (1 or even, as the fcn
+    stack has them) on NHWC ``x`` -> (B, H, W, Cout) in its dtype."""
+    if dilation != 1 and dilation % 2:
+        raise ValueError(f"dilation must be 1 or even, got {dilation}")
+    _check_layer((x,), w, b, act, dilation)
+    return _conv3x3((x,), w, b, act, dilation, conv2d_dense9_mxu)
+
+
+conv2d_dense9_mxu.launches = 0

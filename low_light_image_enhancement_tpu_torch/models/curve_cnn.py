@@ -4,6 +4,8 @@ Seven 3x3 convs with U-style skip concatenations; the head emits
 ``3 * n_iter`` tanh-bounded per-pixel curve maps for ``ops.curves``.
 Parameters are a dict ``{"c1": {"w": (Cout, Cin, 3, 3), "b": (Cout,)}, ...}``
 (``models.weights.params_from_numpy`` converts the JAX package's HWIO).
+``apply_curve_cnn`` is the ``conv_impl="xla"`` arm (``F.conv2d``),
+``apply_curve_cnn_pallas`` the ``"pallas"`` arm (c2-c7 as K6a).
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ from typing import Dict
 
 import torch
 
-from low_light_image_enhancement_tpu_torch.models.layers import conv2d
+from low_light_image_enhancement_tpu_torch.kernels.mxu_conv import (
+    conv2d_patch_mxu,
+)
+from low_light_image_enhancement_tpu_torch.models.layers import conv2d, nhwc
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -65,5 +70,40 @@ def apply_curve_cnn(
     x6 = torch.relu(cv("c6", torch.cat([x2, x5], dim=1)))
     a = torch.tanh(cv("c7", torch.cat([x1, x6], dim=1))).to(torch.float32)
     b, _, h, w = a.shape
+    a = a.reshape(b, n_iter, 3, h, w)
+    return a if batched else a[0]
+
+
+def apply_curve_cnn_pallas(
+    params: Params,
+    x: torch.Tensor,
+    n_iter: int = 8,
+    compute_dtype="bfloat16",
+) -> torch.Tensor:
+    """:func:`apply_curve_cnn` with c2-c7 as K6a
+    (``kernels.mxu_conv.conv2d_patch_mxu``: the skip concats read in place,
+    bias and relu/tanh in f32 in the kernel), on NHWC from the stem to the
+    head; the JAX package's ``apply_curve_cnn_pallas``. The 3-channel stem
+    is ``layers.conv2d`` and relu, as there."""
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    p1 = params["c1"]
+    xc = x.contiguous(memory_format=torch.channels_last)
+    x1 = nhwc(torch.relu(conv2d(xc, p1["w"], p1["b"], compute_dtype)))
+
+    def cv(name, hs, act="relu"):
+        p = params[name]
+        return conv2d_patch_mxu(hs, p["w"], p["b"], act=act)
+
+    x2 = cv("c2", (x1,))
+    x3 = cv("c3", (x2,))
+    x4 = cv("c4", (x3,))
+    x5 = cv("c5", (x3, x4))
+    x6 = cv("c6", (x2, x5))
+    a = cv("c7", (x1, x6), act="tanh")
+    b, h, w, _ = a.shape
+    a = a.permute(0, 3, 1, 2).to(
+        torch.float32, memory_format=torch.contiguous_format)
     a = a.reshape(b, n_iter, 3, h, w)
     return a if batched else a[0]

@@ -3,7 +3,9 @@
 Maps an RGB image to reflectance R in [0,1]^3 and illumination L in [0,1]:
 five 3x3 convs at 32 features on RGB plus its channel max (4 channels in),
 ReLU after the first four, a sigmoid head of 4 channels split into R and L.
-Parameters as in ``models/curve_cnn.py``.
+Parameters as in ``models/curve_cnn.py``. ``apply_decom_net`` is the
+``conv_impl="xla"`` arm (``F.conv2d``), ``apply_decom_net_pallas`` the
+``"pallas"`` arm (c2-c4 as K6a).
 """
 
 from __future__ import annotations
@@ -13,8 +15,12 @@ from typing import Dict
 
 import torch
 
+from low_light_image_enhancement_tpu_torch.kernels.mxu_conv import (
+    conv2d_patch_mxu,
+)
 from low_light_image_enhancement_tpu_torch.models.layers import (
     conv2d,
+    nhwc,
     sigmoid,
 )
 
@@ -49,5 +55,31 @@ def apply_decom_net(params: Params, x: torch.Tensor,
     p = params["c5"]
     out = sigmoid(conv2d(h, p["w"], p["b"], compute_dtype)) \
         .to(torch.float32)
+    r, l = out[:, :3], out[:, 3:4]
+    return (r, l) if batched else (r[0], l[0])
+
+
+def apply_decom_net_pallas(params: Params, x: torch.Tensor,
+                           compute_dtype="bfloat16"):
+    """:func:`apply_decom_net` with c2-c4 as K6a
+    (``kernels.mxu_conv.conv2d_patch_mxu``, bias and relu in f32 in the
+    kernel), on NHWC from the stem to the head; the JAX package's
+    ``apply_decom_net_pallas``. The 4-channel stem and head are
+    ``layers.conv2d``, the head's sigmoid in the compute dtype, as
+    there."""
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    h = torch.cat([x, torch.amax(x, dim=1, keepdim=True)], dim=1) \
+        .contiguous(memory_format=torch.channels_last)
+    p = params["c1"]
+    h = nhwc(torch.relu(conv2d(h, p["w"], p["b"], compute_dtype)))
+    for i in range(2, 5):
+        p = params[f"c{i}"]
+        h = conv2d_patch_mxu((h,), p["w"], p["b"], act="relu")
+    p = params["c5"]
+    out = sigmoid(conv2d(h.permute(0, 3, 1, 2), p["w"], p["b"],
+                         compute_dtype)).to(
+        torch.float32, memory_format=torch.contiguous_format)
     r, l = out[:, :3], out[:, 3:4]
     return (r, l) if batched else (r[0], l[0])

@@ -4,6 +4,10 @@ A stack of 3x3 convs with exponentially growing dilation (1, 2, 4, ..., 1)
 at 24 features, then a 1x1 sigmoid head to RGB. Parameters are a dict
 ``{"c1": {"w": (Cout, Cin, 3, 3), "b": (Cout,)}, ..., "out": {...}}``
 (``models.weights.params_from_numpy`` converts the JAX package's HWIO).
+
+``apply_fcn`` is the ``conv_impl="xla"`` arm (``F.conv2d``);
+``apply_fcn_pallas`` runs c2-c7 as K6b, one launch a layer, and
+``kernels.fcn_cascade.apply_fcn_cascade`` all six as one K7 launch.
 """
 
 from __future__ import annotations
@@ -12,10 +16,15 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from low_light_image_enhancement_tpu_torch.kernels.mxu_conv import (
+    conv2d_dense9_mxu,
+)
 from low_light_image_enhancement_tpu_torch.models.layers import (
     as_dtype,
     conv2d,
+    nhwc,
     sigmoid,
 )
 
@@ -63,4 +72,48 @@ def apply_fcn(params: Params, x: torch.Tensor,
         h = torch.where(h >= 0, h, h * slope)
     out = sigmoid(conv2d(h, params["out"]["w"], params["out"]["b"],
                                cd)).to(torch.float32)
+    return out if batched else out[0]
+
+
+def fcn_stem_nhwc(params: Params, x: torch.Tensor, cd: torch.dtype
+                  ) -> torch.Tensor:
+    """The kernel arms' stem: NCHW (B, 3, H, W) in -> NHWC c1 activations
+    in ``cd``. The JAX package's ``conv2d_im2col_gemm``: an f32 sum of the
+    ``cd`` products, + the f32 bias, one cast; then leaky in ``cd``. The
+    input is transposed to NHWC once, here."""
+    p = params["c1"]
+    dil = _dilations(sum(1 for k in params if k.startswith("c")))[0]
+    xc = x.to(cd).contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(xc.float(), p["w"].to(cd).float(), padding=dil,
+                 dilation=dil)
+    y = (y + p["b"].float()[:, None, None]).to(cd)
+    return nhwc(torch.where(y >= 0, y, y * torch.tensor(0.2, dtype=cd)))
+
+
+def fcn_head_nhwc(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """The kernel arms' head on NHWC activations: the 1x1 conv as an f32
+    sum of the compute-dtype products, + the f32 bias, the sigmoid in f32
+    -> NCHW (B, 3, H, W) float32 (the transpose back, once)."""
+    po = params["out"]
+    w = po["w"][:, :, 0, 0].to(h.dtype).float()            # (3, C)
+    y = torch.matmul(h.float(), w.t()) + po["b"].float()
+    return sigmoid(y).permute(0, 3, 1, 2).contiguous()
+
+
+def apply_fcn_pallas(params: Params, x: torch.Tensor,
+                     compute_dtype="bfloat16") -> torch.Tensor:
+    """:func:`apply_fcn` with the dilated stack c2-c7 as K6b
+    (``kernels.mxu_conv.conv2d_dense9_mxu``, bias and leaky in f32 in the
+    kernel), on NHWC from the stem to the head; the JAX package's
+    ``apply_fcn_pallas``."""
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    cd = as_dtype(compute_dtype)
+    depth = sum(1 for k in params if k.startswith("c"))
+    h = fcn_stem_nhwc(params, x, cd)
+    for i, dil in enumerate(_dilations(depth)[1:], start=2):
+        p = params[f"c{i}"]
+        h = conv2d_dense9_mxu(h, p["w"], p["b"], act="leaky", dilation=dil)
+    out = fcn_head_nhwc(params, h)
     return out if batched else out[0]

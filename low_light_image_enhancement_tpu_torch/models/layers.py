@@ -1,5 +1,6 @@
 """Shared primitives of the nets: NCHW (optionally dilated) SAME conv of
-any odd kernel size, and the sigmoid as the JAX package computes it."""
+any odd kernel size, the NHWC layout of the kernel arms, and the sigmoid as
+the JAX package computes it."""
 
 from __future__ import annotations
 
@@ -31,6 +32,13 @@ def conv2d(x, w, b, compute_dtype, dilation: int = 1):
     y = F.conv2d(x.to(cd), w.to(cd), None, padding=dilation * (kh - 1) // 2,
                  dilation=dilation)
     return y + b.to(cd)[:, None, None]
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW (B, C, H, W) -> a contiguous NHWC (B, H, W, C) tensor; free
+    when ``x`` is already channels_last, as a conv of a channels_last input
+    returns."""
+    return x.permute(0, 2, 3, 1).contiguous()
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Pipeline assembly: the public ``enhance`` API over the enhancement graph.
 
 u8 HWC in, u8 HWC out. ``device`` is explicit: a pipeline on ``"cuda"``
-runs the CUDA kernels (K1 for retinex; the curve CNN through ``F.conv2d``
-and K3 for curve/hybrid, at every ``curve_downsample``; the fcn or decom
-net through ``F.conv2d`` and K5 for their denoise tail), one on ``"cpu"``
-their plain versions. There is no fallback from one to the other.
+runs the CUDA kernels (K1 for retinex; the curve CNN and K3 for
+curve/hybrid, at every ``curve_downsample``; the fcn or decom net and K5
+for their denoise tail; the nets' convs through ``F.conv2d``, or under
+``conv_impl="pallas"`` through K6 and ``"cascade"`` through K7), one on
+``"cpu"`` their plain versions. There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from low_light_image_enhancement_tpu_torch.blocks import (
     block_geometry,
     enhance_learned_block,
+    resolve_conv_impl,
     single_block_halo,
 )
 from low_light_image_enhancement_tpu_torch.config import (
@@ -49,6 +52,8 @@ def check_ported(cfg: PipelineConfig) -> None:
         raise NotImplementedError(
             "spatial_shards/data_shards > 1 are not ported yet (ROADMAP "
             "Queue 1: parallel)")
+    if cfg.method != "retinex":
+        resolve_conv_impl(cfg)  # raises for the conv arms not ported
     if cfg.denoise_taps == "guided" and cfg.method not in ("fcn", "decom"):
         raise NotImplementedError(
             f"denoise_taps='guided' on method={cfg.method!r} is not ported "

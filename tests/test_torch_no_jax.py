@@ -1,6 +1,7 @@
 """The port imports no jax and no module of the JAX package: in a fresh
-interpreter where both are blocked, it imports and runs a CPU pipeline and
-CPU video enhancers."""
+interpreter where both are blocked, it imports and runs CPU pipelines
+(with the nets' pallas and cascade arms among them), CPU video enhancers
+and the HWC entry point; chip_smoke.py names neither."""
 
 import subprocess
 import sys
@@ -11,7 +12,12 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+from low_light_image_enhancement_tpu_torch.kernels import fcn_cascade as fc
 from low_light_image_enhancement_tpu_torch.kernels import fused_enhance as fe
+from low_light_image_enhancement_tpu_torch.kernels import (
+    fused_enhance_hwc as hwc,
+)
+from low_light_image_enhancement_tpu_torch.kernels import mxu_conv as mx
 from low_light_image_enhancement_tpu_torch.kernels import tiled_denoise as td
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -28,7 +34,10 @@ from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
 lows, _ = synth_batch(1, 24, 40)
 from low_light_image_enhancement_tpu_torch.eval.metrics import psnr_u8
 for cfg in (llt.PipelineConfig(), llt.PipelineConfig(method="hybrid"),
-            llt.PRESETS["quality"], llt.PRESETS["quality_fast"]):
+            llt.PRESETS["quality"], llt.PRESETS["quality_fast"],
+            llt.PipelineConfig(method="hybrid", conv_impl="pallas"),
+            llt.PRESETS["quality"].replace(conv_impl="pallas"),
+            llt.PRESETS["quality_fast"].replace(conv_impl="cascade")):
     out = llt.EnhancePipeline(cfg, device="cpu").enhance_batch(lows)
     assert out.shape == lows.shape and out.dtype == np.uint8
     assert float(psnr_u8(torch.from_numpy(out), torch.from_numpy(lows))) > 0
@@ -38,6 +47,11 @@ for cfg in (llt.PipelineConfig(),
     for frame in (lows[0], lows[0]):
         out = ve.process(frame)
         assert out.shape == frame.shape and out.dtype == np.uint8
+from low_light_image_enhancement_tpu_torch.kernels.fused_enhance_hwc import (
+    enhance_hwc_u8)
+out = enhance_hwc_u8(torch.from_numpy(lows), llt.PipelineConfig(
+    denoise_guide="perchannel", denoise_taps="full"))
+assert out.shape == lows.shape and out.dtype == torch.uint8
 loaded = sorted(m for m in set(sys.modules) - preloaded
                 if m.startswith(("jax", "low_light_image_enhancement_tpu."))
                 and sys.modules[m] is not None)
@@ -100,4 +114,41 @@ def test_cuda_tensors_go_to_the_kernels_or_raise():
                                guided_radius=4)):
         with pytest.raises(RuntimeError, match="nvcc"):
             td.tiled_denoise(yb, cfg, 16, 16)
+    assert [wr.launches for wr in wrappers] == before
+
+
+def test_chip_smoke_names_no_jax():
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in text and "from jax" not in text
+    assert "low_light_image_enhancement_tpu." not in text
+    assert "import low_light_image_enhancement_tpu\n" not in text
+
+
+def test_conv_and_hwc_cuda_tensors_go_to_the_kernels_or_raise():
+    """K6a, K6b, K7 and K8 as the no-fallback test above: a CUDA tensor
+    on a host without nvcc and a card raises, and nothing counts."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is there: chip_smoke.py runs the kernels")
+    with FakeTensorMode():
+        act = torch.empty((1, 8, 16, 32), dtype=torch.bfloat16,
+                          device="cuda")
+        act24 = torch.empty((1, 8, 16, 24), dtype=torch.bfloat16,
+                            device="cuda")
+        w = torch.empty((32, 64, 3, 3), device="cuda")
+        w24 = torch.empty((24, 24, 3, 3), device="cuda")
+        b, b24 = (torch.empty((32,), device="cuda"),
+                  torch.empty((24,), device="cuda"))
+        img = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="cuda")
+    wrappers = (mx.conv2d_patch_mxu, mx.conv2d_dense9_mxu,
+                fc.fcn_cascade_mxu, hwc.enhance_hwc_u8, fe.fused_retinex)
+    before = [wr.launches for wr in wrappers]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        mx.conv2d_patch_mxu((act, act), w, b, act="relu")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        mx.conv2d_dense9_mxu(act24, w24, b24, act="leaky", dilation=32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fc.fcn_cascade_mxu(act24, [w24] * 6, [b24] * 6, (2, 4, 8, 16, 32, 1))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        hwc.enhance_hwc_u8(img, PipelineConfig(denoise_guide="perchannel",
+                                               denoise_taps="full"))
     assert [wr.launches for wr in wrappers] == before

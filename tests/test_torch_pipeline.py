@@ -118,6 +118,8 @@ def test_default_params_are_the_shipped_weights():
     dict(method="curve", denoise_taps="guided"), dict(spatial_shards=2),
     dict(data_shards=2), dict(denoise_taps="guided"),
     dict(method="hybrid", curve_downsample=4, denoise_taps="guided"),
+    dict(method="fcn", conv_impl="gemm"),
+    dict(method="hybrid", conv_impl="packed12"),
 ])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

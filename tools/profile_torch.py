@@ -13,6 +13,8 @@ kernels that take the most device time with their shares. Needs a CUDA
 card; run from the repository root:
 
     python3 tools/profile_torch.py [quality quality_fast retinex hybrid
+                                    hybrid_pallas quality_pallas
+                                    quality_fast_pallas quality_fast_cascade
                                     video_retinex video_retinex_extgain
                                     video_curve_ds4 video_hybrid_ds4]
 """
@@ -37,6 +39,13 @@ PATHS = {
     "hybrid": llt.PipelineConfig(method="hybrid"),
     "quality": llt.PRESETS["quality"],
     "quality_fast": llt.PRESETS["quality_fast"],
+    # the nets' convs as the port's kernels (K6a, K6b, K7)
+    "hybrid_pallas": llt.PipelineConfig(method="hybrid", conv_impl="pallas"),
+    "quality_pallas": llt.PRESETS["quality"].replace(conv_impl="pallas"),
+    "quality_fast_pallas": llt.PRESETS["quality_fast"].replace(
+        conv_impl="pallas"),
+    "quality_fast_cascade": llt.PRESETS["quality_fast"].replace(
+        conv_impl="cascade"),
 }
 # (config, ema_in_kernel) of the video benchmark's arms, alpha 0.3
 VIDEO_PATHS = {
