@@ -29,9 +29,14 @@ Phases (each raises on failure, so the script exits non-zero):
      them; K8 also equal to EnhancePipeline's K1); the conv kernels K6a
      (1 and 2 groups, relu and tanh), K6b (each fcn dilation) and K7 (the
      fcn stack) on random activations, float32 within 1e-5 (TF32 off) and
-     bf16 within one bf16 step, K7 also equal to K6b layer by layer; then
+     bf16 within one bf16 step (bf16 K6 runs on the tensor cores, f32 K6
+     and K7 on the CUDA cores), K7 also launched one layer at a time
+     against the plain layer, its six-layer launch equal to the chain of
+     its one-layer launches, and in float32 equal to K6b layer by layer;
+     then
      each kernel's time beside its plain version's, its bound and (K6) one
-     F.conv2d's at 600x400 batch 48, and the video forms' at 1080p b1 and
+     F.conv2d's at 600x400 batch 48 (K6a also 32->32, K6b also at d 32),
+     and the video forms' at 1080p b1 and
      600x400 b8, twice; times are of the device alone, the calls queued
      behind a spin;
   4. each path through EnhancePipeline(device="cuda"), and stateless curve
@@ -91,8 +96,9 @@ EVAL_BAR_DB, EVAL_BAR_SSIM = 0.1, 0.005
 
 # H100 SXM data sheet: HBM rate, the float32 rate outside the tensor cores
 # and the dense bf16 tensor-core rate. K1-K5 and K8 compute in float32; a
-# conv's least time on bf16 data is set by the tensor cores' rate (K6 and
-# K7 run on the CUDA cores, so they stand far above that bound).
+# conv's least time on bf16 data is set by the tensor cores' rate (bf16 K6
+# runs there; K7 runs on the CUDA cores, so it stands far above that
+# bound).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
@@ -675,34 +681,46 @@ def main() -> int:
                 err["k6a"] = max(err["k6a"], conv_check(
                     f"K6a {lname} {dn} {shape}", got,
                     mx.conv3x3_plain(xs, w, b, act)))
-        # the fcn stack's c2-c7, one layer at a time, then as K7
+        # the fcn stack's c2-c7, one layer at a time as K6b and as K7, then
+        # as one K7 launch
         ws, bs = zip(*[conv_params(24, 24) for _ in FCN_DILATIONS])
         for shape in ((2, 70, 72), (4,) + blk["fcn"]):
             x = urand(shape + (24,), dt)
-            chain = x
+            chain, chain7 = x, x
             for w, b, d in zip(ws, bs, FCN_DILATIONS):
                 want = mx.conv3x3_plain((chain,), w, b, "leaky", d)
                 chain = mx.conv2d_dense9_mxu(chain, w, b, act="leaky",
                                              dilation=d)
                 err["k6b"] = max(err["k6b"], conv_check(
                     f"K6b d{d} {dn} {shape}", chain, want))
+                want = mx.conv3x3_plain((chain7,), w, b, "leaky", d)
+                chain7 = fc.fcn_cascade_mxu(chain7, (w,), (b,), (d,))
+                err["k7"] = max(err["k7"], conv_check(
+                    f"K7 one layer d{d} {dn} {shape}", chain7, want))
             got = fc.fcn_cascade_mxu(x, ws, bs, FCN_DILATIONS)
-            if not torch.equal(got, chain):
+            if not torch.equal(got, chain7):
+                raise AssertionError(f"K7 {dn} {shape}: the six-layer launch "
+                                     "differs from its one-layer launches")
+            # float32: K6b and K7 both run the CUDA-core layer, so the same
+            # sums in the same order; bf16 K6b runs on the tensor cores
+            if dt == torch.float32 and not torch.equal(got, chain):
                 raise AssertionError(f"K7 {dn} {shape} differs from K6b "
                                      "layer by layer")
             want = fc.fcn_cascade_plain(x, ws, bs, FCN_DILATIONS)
+            same = ("equal to its one-layer launches and to K6b layer by "
+                    "layer" if dt == torch.float32 else
+                    "equal to its one-layer launches")
             if dt == torch.float32:
                 err["k7"] = max(err["k7"], conv_check(
-                    f"K7 {dn} {shape} (equal to K6b layer by layer)", got,
-                    want))
+                    f"K7 {dn} {shape} ({same})", got, want))
             else:
                 # a one-step difference of a layer feeds the next: bf16 is
-                # held layer by layer (K6b above) and by the equality
+                # held layer by layer (above) and by the equality
                 d = (got.float() - want.float()).abs()
-                print(f"  K7 {dn} {shape}: equal to K6b layer by layer; "
-                      f"against the plain stack max|d|={float(d.max()):.3e}"
-                      f" differing share={float((d > 0).float().mean()):.3e}")
-            del x, chain, got, want
+                print(f"  K7 {dn} {shape}: {same}; against the plain stack "
+                      f"max|d|={float(d.max()):.3e} differing share="
+                      f"{float((d > 0).float().mean()):.3e}")
+            del x, chain, chain7, got, want
     torch.cuda.synchronize()
 
     # kernel-only time beside the plain version's at the main-path shape
@@ -743,7 +761,18 @@ def main() -> int:
     k6a_lib_ms = cuda_ms(torch, lambda: F.conv2d(xcat, wl, b.to(bf),
                                                  padding=1), 5, prefill=True)
     k6a_b = conv_bound(48 * hbh * wbh, 2 * f, f, 2)
-    del xs, xcat
+    # K6a as the curve CNN's c2-c4 (and decom's), its most frequent layer
+    x = xs[0]
+    w, b = conv_params(f, f)
+    wl = w.to(bf).contiguous(memory_format=torch.channels_last)
+    xn = x.permute(0, 3, 1, 2)
+    k6a32 = (cuda_ms(torch, lambda: mx.conv2d_patch_mxu((x,), w, b,
+                                                        act="relu"), 3,
+                     prefill=True),
+             cuda_ms(torch, lambda: F.conv2d(xn, wl, b.to(bf), padding=1),
+                     3, prefill=True),
+             conv_bound(48 * hbh * wbh, f, f, 2))
+    del xs, xcat, x, xn
     hbf, wbf = blk["fcn"]
     x = urand((48, hbf, wbf, 24), bf)
     ws, bs = zip(*[conv_params(24, 24) for _ in FCN_DILATIONS])
@@ -757,6 +786,15 @@ def main() -> int:
                                                  padding=2, dilation=2), 5,
                          prefill=True)
     k6b_b = conv_bound(48 * hbf * wbf, 24, 24, 2)
+    # K6b as fcn's c6, at d 32
+    wl = ws[4].to(bf).contiguous(memory_format=torch.channels_last)
+    k6b32 = (cuda_ms(torch, lambda: mx.conv2d_dense9_mxu(
+                 x, ws[4], bs[4], act="leaky", dilation=32), 3,
+                 prefill=True),
+             cuda_ms(torch, lambda: F.conv2d(xn, wl, bs[4].to(bf),
+                                             padding=32, dilation=32), 3,
+                     prefill=True),
+             k6b_b)
     k7_ms, k7_plain_ms = paired_ms(
         torch, lambda: fc.fcn_cascade_plain(x, ws, bs, FCN_DILATIONS),
         lambda: fc.fcn_cascade_mxu(x, ws, bs, FCN_DILATIONS), 2)
@@ -817,6 +855,12 @@ def main() -> int:
     for name, (t, tp, bd) in k5_ms.items():
         print(f"  600x400 b48 on {card}: K5 {name} block {t:.3f} ms (plain "
               f"{tp:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]})")
+    for name, (t, tl, bd) in (
+            (f"K6a 32->32 relu bf16 on hybrid's block {hbh}x{wbh}", k6a32),
+            (f"K6b 24->24 d32 leaky bf16 on fcn's block {hbf}x{wbf}",
+             k6b32)):
+        print(f"  600x400 b48 on {card}: {name} {t:.3f} ms (one F.conv2d "
+              f"{tl:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]})")
     for name, t, tp, tl, bd in (
             (f"K6a c5 64->32 relu bf16 on hybrid's block {hbh}x{wbh}",
              k6a_ms, k6a_plain_ms, k6a_lib_ms, k6a_b),

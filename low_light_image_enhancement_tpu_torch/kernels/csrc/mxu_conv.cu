@@ -9,76 +9,67 @@
 // the fcn stack's c2-c7). Both compute the same function: a SAME-padded 3x3
 // conv with bias and activation in f32 on bf16 (or f32) activations, cast
 // once to the input type. Their space-to-depth packing fills the TPU's
-// 128-lane matrix unit at 24-32 channels; it has no use here, and this
-// kernel takes unpacked NHWC.
+// 128-lane matrix unit at 24-32 channels; it has no use here, and these
+// kernels take unpacked NHWC.
 //
 // What bounds it. At the nets' widths a layer does 2 * 9 * Cin * Cout
 // operations a pixel (36,864 at 64 -> 32, 18,432 at 32 -> 32, 10,368 at
 // 24 -> 24) on 2 * (Cin + Cout) bytes of bf16 in and out: 108 to 192
 // operations a byte, below the ~295 at which the bf16 tensor cores (989
 // TFLOP/s) rather than device memory (3.35 TB/s) would set the pace, so a
-// layer's bound is its bytes. This kernel multiplies and adds on the CUDA
-// cores in f32 (67 TFLOP/s), where the operations alone need 5-10x that
-// bound even at the peak rate.
+// layer's bound is its bytes.
 //
-// What the design does about it (conv3x3.cuh). Right and simple first: one
-// thread per 2 pixels and all output channels, so each weight read from
-// shared memory (a float4 broadcast) feeds 8 fused multiply-adds and each
-// input value 24-32; weights stay in shared memory for the whole
-// persistent grid. The concat of skip connections is never built: the
-// second input tensor is read in place. The tensor cores (wgmma on bf16
-// tiles) are the redesign for a later PR.
+// What the design does about it. bf16, the compute dtype of every learned
+// path, runs on the tensor cores (conv3x3_wgmma.cuh): an implicit GEMM of
+// wgmma fed by TMA, the halo rows of a tile staged once in shared memory
+// and each tap a shifted descriptor into them, so a layer moves its bytes
+// about once from device memory. f32, the parity dtype, stays on the CUDA
+// cores (conv3x3.cuh: f32 multiply-adds, one thread per 2 pixels and all
+// output channels, weights in shared memory for a persistent grid); TF32
+// would not hold the f32 bar of 1e-5. The concat of skip connections is
+// never built: the second input tensor is read in place.
 #include "conv3x3.cuh"
+#include "conv3x3_wgmma.cuh"
 
 using namespace llie::conv;
 
 namespace {
 
-template <typename T, int COUT>
+template <int COUT>
 __global__ void __launch_bounds__(CONV_THREADS)
-conv3x3_kernel(const T* xa, int ca, const T* xb, int cb, const float* w,
-               const float* bias, T* out, int B, int H, int W, int dil,
-               int act) {
+conv3x3_kernel(const float* xa, int ca, const float* xb, int cb,
+               const float* w, const float* bias, float* out, int B, int H,
+               int W, int dil, int act) {
   extern __shared__ float sw[];
-  conv3x3_layer<T, COUT, false>(xa, ca, xb, cb, w, bias, out, B, H, W, dil,
-                                act, sw);
+  conv3x3_layer<float, COUT, false>(xa, ca, xb, cb, w, bias, out, B, H, W,
+                                    dil, act, sw);
 }
 
-template <typename T, int COUT>
-int launch(const void* xa, int ca, const void* xb, int cb, const float* w,
-           const float* bias, void* out, int B, int H, int W, int dil,
-           int act, cudaStream_t stream) {
-  const void* kern = (const void*)conv3x3_kernel<T, COUT>;
+template <int COUT>
+int launch_direct(const void* xa, int ca, const void* xb, int cb,
+                  const float* w, const float* bias, void* out, int B, int H,
+                  int W, int dil, int act, cudaStream_t stream) {
+  const void* kern = (const void*)conv3x3_kernel<COUT>;
   const int smem = (int)sizeof(float) * layer_smem_floats(ca + cb, COUT);
   int grid = 0;
   const int rc = persistent_grid(kern, smem, (long long)B * H * W, &grid);
   if (rc != 0) return rc;
-  conv3x3_kernel<T, COUT><<<grid, CONV_THREADS, smem, stream>>>(
-      (const T*)xa, ca, (const T*)xb, cb, w, bias, (T*)out, B, H, W, dil,
-      act);
+  conv3x3_kernel<COUT><<<grid, CONV_THREADS, smem, stream>>>(
+      (const float*)xa, ca, (const float*)xb, cb, w, bias, (float*)out, B, H,
+      W, dil, act);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_cout(int cout, const void* xa, int ca, const void* xb, int cb,
-                const float* w, const float* bias, void* out, int B, int H,
-                int W, int dil, int act, cudaStream_t stream) {
-  switch (cout) {
-    case 8:
-      return launch<T, 8>(xa, ca, xb, cb, w, bias, out, B, H, W, dil, act,
-                          stream);
-    case 16:
-      return launch<T, 16>(xa, ca, xb, cb, w, bias, out, B, H, W, dil, act,
-                           stream);
-    case 24:
-      return launch<T, 24>(xa, ca, xb, cb, w, bias, out, B, H, W, dil, act,
-                           stream);
-    case 32:
-      return launch<T, 32>(xa, ca, xb, cb, w, bias, out, B, H, W, dil, act,
-                           stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+// One layer at Cout N: bf16 on the tensor cores, f32 on the CUDA cores.
+template <int N>
+int launch(int bf16, const void* xa, int ca, const void* xb, int cb,
+           const void* w, const float* bias, void* out, int B, int H, int W,
+           int dil, int act, cudaStream_t stream) {
+  if (bf16)
+    return llie::wgmma_conv::launch<N>(xa, ca, xb, cb, w, bias, out, B, H, W,
+                                       dil, act, stream);
+  return launch_direct<N>(xa, ca, xb, cb, (const float*)w, bias, out, B, H,
+                          W, dil, act, stream);
 }
 
 }  // namespace
@@ -86,10 +77,13 @@ int launch_cout(int cout, const void* xa, int ca, const void* xb, int cb,
 extern "C" {
 
 // NHWC (B, H, W, ca) [+ (B, H, W, cb)] -> (B, H, W, cout), all bf16 (`bf16`
-// 1) or all f32; w is the packed f32 (9, ca + cb, cout), bias f32 (cout).
-// ca, cb multiples of 8 (cb may be 0, xb then unused), cout one of 8, 16,
-// 24, 32, dil >= 1, act an Act. Returns cudaGetLastError() after the
-// launch (0 when it was accepted).
+// 1) or all f32; w is the packed bf16 of mxu_conv.py
+// pack_conv_weights_wgmma (bf16: per tap and piece a swizzled Cout x CP
+// matrix) or the packed f32 (9, ca + cb, cout) of pack_conv_weights (f32),
+// bias f32 (cout). ca, cb multiples of 8
+// (cb may be 0, xb then unused), cout one of 8, 16, 24, 32, dil >= 1, act
+// an Act. Returns cudaGetLastError() after the launch (0 when it was
+// accepted), or the error that kept it from launching.
 int llie_conv3x3(const void* xa, int ca, const void* xb, int cb,
                  const void* w, const void* bias, void* out, int cout, int B,
                  int H, int W, int dil, int act, int bf16, void* stream) {
@@ -98,12 +92,22 @@ int llie_conv3x3(const void* xa, int ca, const void* xb, int cb,
       act > ACT_TANH)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch_cout<__nv_bfloat16>(cout, xa, ca, xb, cb, (const float*)w,
-                                      (const float*)bias, out, B, H, W, dil,
-                                      act, s);
-  return launch_cout<float>(cout, xa, ca, xb, cb, (const float*)w,
-                            (const float*)bias, out, B, H, W, dil, act, s);
+  const float* bs = (const float*)bias;
+  switch (cout) {
+    case 8:
+      return launch<8>(bf16, xa, ca, xb, cb, w, bs, out, B, H, W, dil, act, s);
+    case 16:
+      return launch<16>(bf16, xa, ca, xb, cb, w, bs, out, B, H, W, dil, act,
+                        s);
+    case 24:
+      return launch<24>(bf16, xa, ca, xb, cb, w, bs, out, B, H, W, dil, act,
+                        s);
+    case 32:
+      return launch<32>(bf16, xa, ca, xb, cb, w, bs, out, B, H, W, dil, act,
+                        s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

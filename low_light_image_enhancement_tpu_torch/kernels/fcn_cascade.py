@@ -80,7 +80,8 @@ def fcn_cascade_mxu(x: torch.Tensor, ws: Sequence[torch.Tensor],
     wk, bk = packed_params(
         ws + bs, dt,
         lambda: (torch.stack([pack_conv_weights(w, dt) for w in ws]),
-                 torch.stack([b.detach().float() for b in bs])))
+                 torch.stack([b.detach().float() for b in bs])),
+        form="cascade")
     out = torch.empty_like(x)
     scratch = torch.empty_like(x)
     bsz, h, w, _ = x.shape

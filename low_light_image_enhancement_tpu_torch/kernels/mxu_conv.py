@@ -8,14 +8,17 @@ version, weight packing and launch counts.
 - K6b ``conv2d_dense9_mxu`` replaces its ``conv2d_dense9_mxu``
   (``_conv_kernel``): dilation 1 or even, leaky 0.2 (the fcn stack's c2-c7).
 
-Both run the one CUDA kernel of ``csrc/mxu_conv.cu`` and count their
-launches apart. They take unpacked NHWC activations: the JAX kernels'
-space-to-depth packing fills the TPU's 128-lane matrix unit and has no use
-on the card. The arithmetic is the Pallas arm's: the activations and the
-weights in bf16 (or f32), an f32 accumulator, the bias added in f32, the
-activation in f32, one cast to the input dtype. Each wrapper dispatches on
-the device of its input alone: a CPU tensor goes to ``conv3x3_plain``, a
-CUDA tensor to the kernel (or the call raises).
+Both run the CUDA kernels of ``csrc/mxu_conv.cu`` and count their
+launches apart: bf16 on the tensor cores (``csrc/conv3x3_wgmma.cuh``, an
+implicit GEMM of wgmma fed by TMA, weights from
+``pack_conv_weights_wgmma``), f32 on the CUDA cores (``csrc/conv3x3.cuh``,
+weights from ``pack_conv_weights``). They take unpacked NHWC activations:
+the JAX kernels' space-to-depth packing fills the TPU's 128-lane matrix
+unit and has no use on the card. The arithmetic is the Pallas arm's: the
+activations and the weights in bf16 (or f32), an f32 accumulator, the bias
+added in f32, the activation in f32, one cast to the input dtype. Each
+wrapper dispatches on the device of its input alone: a CPU tensor goes to
+``conv3x3_plain``, a CUDA tensor to the kernel (or the call raises).
 """
 
 from __future__ import annotations
@@ -60,18 +63,21 @@ def conv3x3_plain(xs: Sequence[torch.Tensor], w: torch.Tensor,
     return y.to(dt).permute(0, 2, 3, 1).contiguous()
 
 
-# (ids of the source tensors, dtype) -> (weak references, their versions,
-# the packed tensors); an entry goes when a source tensor is freed
+# (ids of the source tensors, dtype, form) -> (weak references, their
+# versions, the packed tensors); an entry goes when a source tensor is freed
 _PACKED: Dict[Tuple, Tuple] = {}
 _PACKED_LOCK = threading.Lock()
 
 
 def packed_params(sources: Sequence[torch.Tensor], dtype: torch.dtype,
-                  pack: Callable[[], Tuple[torch.Tensor, ...]]):
-    """``pack()``'s tensors, built once per parameter set and dtype: the
-    cache is keyed on the source tensors themselves and refreshed if one of
-    them was changed in place."""
-    key = (tuple(id(t) for t in sources), dtype)
+                  pack: Callable[[], Tuple[torch.Tensor, ...]],
+                  form: str = "direct"):
+    """``pack()``'s tensors, built once per parameter set, dtype and
+    ``form`` (the layout a kernel reads: ``"direct"`` for the CUDA-core
+    layer, ``"wgmma (groups)"`` for the tensor-core one, ``"cascade"`` for
+    K7): the cache is keyed on the source tensors themselves and refreshed
+    if one of them was changed in place."""
+    key = (tuple(id(t) for t in sources), dtype, form)
     versions = tuple(t._version for t in sources)
     with _PACKED_LOCK:
         hit = _PACKED.get(key)
@@ -91,6 +97,45 @@ def pack_conv_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     cout, cin = w.shape[:2]
     return w.detach().to(dtype).float().permute(2, 3, 1, 0) \
         .reshape(9, cin, cout).contiguous()
+
+
+def piece_channels(c: int) -> int:
+    """The channels of one piece of a c-channel input group in the
+    tensor-core kernel: the narrowest swizzle row (32, 64 or 128 bytes of
+    bf16) that holds the group, 64 channels at most."""
+    return 16 if c <= 16 else 32 if c <= 32 else 64
+
+
+def pack_conv_weights_wgmma(w: torch.Tensor,
+                            groups: Sequence[int]) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) with Cin the concat of ``groups`` -> the
+    tensor-core kernel's bf16 B operand, flat (9, ...): for each tap (dy,
+    dx) and each piece of each group (``piece_channels`` wide, zeros past
+    the group's width), a Cout x CP K-major matrix, an output channel's CP
+    inputs one row of 2 * CP bytes, its 16-byte chunks XORed with bits 7-9
+    of their byte offset (the 32/64/128-byte swizzle the kernel's
+    descriptors name), each matrix starting on a 1024-byte boundary
+    (csrc/conv3x3_wgmma.cuh plan())."""
+    cout = w.shape[0]
+    wt = w.detach().to(torch.bfloat16)
+    mats = []
+    start = 0
+    for c in groups:
+        cp = piece_channels(c)
+        for c0 in range(0, c, cp):
+            cw = min(cp, c - c0)
+            m = F.pad(wt[:, start + c0:start + c0 + cw],
+                      (0, 0, 0, 0, 0, cp - cw))
+            m = m.permute(2, 3, 0, 1).reshape(9, cout * cp)
+            # element e of the row-major (Cout, CP) matrix lies at byte 2e:
+            # its 16-byte chunk is XORed with bits 7.. of the byte offset
+            e = torch.arange(cout * cp, device=w.device)
+            flat = torch.empty_like(m)
+            flat[:, e ^ (((e >> 6) & (cp // 8 - 1)) << 3)] = m
+            span = -(-cout * cp // 512) * 512  # 1024 bytes
+            mats.append(F.pad(flat, (0, span - cout * cp)))
+        start += c
+    return torch.cat(mats, 1).contiguous()
 
 
 def _check_layer(xs: Sequence[torch.Tensor], w: torch.Tensor,
@@ -146,11 +191,16 @@ def _conv3x3(xs, w, b, act, dilation, counter):
     _check_kernel_shapes([x.shape[-1] for x in xs], w.shape[0])
     x0 = xs[0]
     dt = x0.dtype
-    wk, bk = packed_params(
-        (w, b), dt, lambda: (pack_conv_weights(w, dt),
-                             b.detach().float().contiguous()))
+    bf16 = dt == torch.bfloat16
     bsz, h, wd, ca = x0.shape
     xb, cb = (xs[1], xs[1].shape[-1]) if len(xs) > 1 else (None, 0)
+    groups = (ca, cb) if cb else (ca,)
+    wk, bk = packed_params(
+        (w, b), dt,
+        lambda: (pack_conv_weights_wgmma(w, groups) if bf16
+                 else pack_conv_weights(w, dt),
+                 b.detach().float().contiguous()),
+        form=f"wgmma {groups}" if bf16 else "direct")
     cout = w.shape[0]
     out = torch.empty((bsz, h, wd, cout), dtype=dt, device=x0.device)
     with torch.cuda.device(x0.device):
@@ -158,7 +208,7 @@ def _conv3x3(xs, w, b, act, dilation, counter):
         rc = lib.llie_conv3x3(
             x0.data_ptr(), ca, None if xb is None else xb.data_ptr(), cb,
             wk.data_ptr(), bk.data_ptr(), out.data_ptr(), cout, bsz, h, wd,
-            dilation, _ACT_CODE[act], int(dt == torch.bfloat16), stream)
+            dilation, _ACT_CODE[act], int(bf16), stream)
     _raise_on(rc, lib, "conv3x3")
     counter.launches += 1
     return out
