@@ -12,8 +12,11 @@ the fcn/decom net and K5, and the four arms of the 1080p video benchmark
 gain form, curve and hybrid at curve_downsample 4 through K3 with low-res
 maps (hybrid also with the gain plane). The nets' own conv kernels: hybrid
 and ``quality`` under conv_impl="pallas" (K6a), ``quality_fast`` under
-"pallas" (K6b) and "cascade" (K7, one launch for c2-c7), and the HWC entry
-point enhance_hwc_u8 (K8) on retinex with the per-channel full-tap tail.
+"pallas" (K6b) and "cascade" (K7, one launch for c2-c7), hybrid under
+"pallas" at the other widths its configs reach (curve_features 64 and
+160, curve_iters 4 and 16, random weights from the port's initialiser),
+and the HWC entry point enhance_hwc_u8 (K8) on retinex with the
+per-channel full-tap tail.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -27,12 +30,14 @@ Phases (each raises on failure, so the script exits non-zero):
      and changed share < 1e-3 (K4's new carry: max |df32| <= 1e-6 on the
      image's columns; K3 also on the video step's blocks, 1080p b8 among
      them; K8 also equal to EnhancePipeline's K1); the conv kernels K6a
-     (1 and 2 groups, relu and tanh), K6b (each fcn dilation) and K7 (the
-     fcn stack) on random activations, float32 within 1e-5 (TF32 off) and
-     bf16 within one bf16 step (bf16 K6 runs on the tensor cores, f32 K6
-     and K7 on the CUDA cores), K7 also launched one layer at a time
+     (1 and 2 groups, relu and tanh, and the widths other configs reach:
+     64->64, 64+64->64, Cout 12 and 48, and 160+160->160, whose halo rows
+     the kernel loads in groups of pieces), K6b (each fcn dilation) and K7
+     (the fcn stack) on random activations, float32 within 1e-5 (TF32 off)
+     and bf16 within one bf16 step (bf16 K6 and K7 run on the tensor
+     cores, f32 on the CUDA cores), K7 also launched one layer at a time
      against the plain layer, its six-layer launch equal to the chain of
-     its one-layer launches, and in float32 equal to K6b layer by layer;
+     its one-layer launches and, in both dtypes, to K6b layer by layer;
      then
      each kernel's time beside its plain version's, its bound and (K6) one
      F.conv2d's at 600x400 batch 48 (K6a also 32->32, K6b also at d 32),
@@ -41,7 +46,9 @@ Phases (each raises on failure, so the script exits non-zero):
      behind a spin;
   4. each path through EnhancePipeline(device="cuda"), and stateless curve
      ds 2 and hybrid ds 4 and 8, and the conv_impl="pallas"/"cascade"
-     paths: agreement with the CPU pipeline on a small input (float32 max
+     paths (hybrid also at curve_features 64 and 160, curve_iters 4 and
+     16):
+     agreement with the CPU pipeline on a small input (float32 max
      |du8| bar, bf16 PSNR >= 40 dB) and img/s at 600x400 batch 48 from
      CUDA events; enhance_hwc_u8 likewise;
   4b. the two presets' PSNR/SSIM/dE76 means over the 15 synthetic eval
@@ -61,9 +68,9 @@ Phases (each raises on failure, so the script exits non-zero):
   6. each path's launch counts, reset to 0 just before it runs (phases
      4-5, 4c) and read just after: every path launched its kernels, and
      the retinex video path launched K4 and no K1; the conv paths K6a 6
-     times (hybrid) or 3 times (decom) a K3 or K5 launch, K6b 6 times,
-     K7 once and no K6b (cascade); enhance_hwc_u8 K8 and no K1; the
-     default paths no conv kernel.
+     times (hybrid, at every width) or 3 times (decom) a K3 or K5 launch,
+     K6b 6 times, K7 once and no K6b (cascade); enhance_hwc_u8 K8 and no
+     K1; the default paths no conv kernel.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -670,10 +677,24 @@ def main() -> int:
     f = 32
     for dn, dt in dtypes.items():
         # the curve CNN's c2-c4 (and decom's), c5/c6 and c7
+        # and the widths the other configs reach: curve_features 64's
+        # c2-c4 and c5/c6 (two 64-channel groups), curve_iters 4's and
+        # 16's heads (Cout 12, padded to 16, and 48), curve_features 160's
+        # c5/c6 (six pieces: piece groups)
         for lname, groups, cout, act in (
                 ("32->32 relu", (f,), f, "relu"),
                 ("32+32->32 relu", (f, f), f, "relu"),
-                ("32+32->24 tanh", (f, f), 24, "tanh")):
+                ("32+32->24 tanh", (f, f), 24, "tanh"),
+                ("64->64 relu", (64,), 64, "relu"),
+                ("64+64->64 relu", (64, 64), 64, "relu"),
+                ("32+32->12 tanh", (f, f), 12, "tanh"),
+                ("32+32->48 tanh", (f, f), 48, "tanh"),
+                ("160+160->160 relu", (160, 160), 160, "relu")):
+            if dt == torch.float32 and sum(groups) > 128:
+                # piece groups are the bf16 form's; the f32 form sums 2,880
+                # products a value at Cin 320, ~1.1e-5 from cuDNN's order
+                # (tools/probe_conv.py), past the bar set at the nets' widths
+                continue
             w, b = conv_params(sum(groups), cout)
             for shape in ((2, 37, 45), (4,) + blk["hybrid"]):
                 xs = [urand(shape + (c,), dt) for c in groups]
@@ -701,15 +722,13 @@ def main() -> int:
             if not torch.equal(got, chain7):
                 raise AssertionError(f"K7 {dn} {shape}: the six-layer launch "
                                      "differs from its one-layer launches")
-            # float32: K6b and K7 both run the CUDA-core layer, so the same
-            # sums in the same order; bf16 K6b runs on the tensor cores
-            if dt == torch.float32 and not torch.equal(got, chain):
+            # K6b and K7 run the same layer (bf16: the tensor-core one, f32
+            # the CUDA-core one), so the same sums in the same order
+            if not torch.equal(got, chain):
                 raise AssertionError(f"K7 {dn} {shape} differs from K6b "
                                      "layer by layer")
+            same = "equal to its one-layer launches and to K6b layer by layer"
             want = fc.fcn_cascade_plain(x, ws, bs, FCN_DILATIONS)
-            same = ("equal to its one-layer launches and to K6b layer by "
-                    "layer" if dt == torch.float32 else
-                    "equal to its one-layer launches")
             if dt == torch.float32:
                 err["k7"] = max(err["k7"], conv_check(
                     f"K7 {dn} {shape} ({same})", got, want))
@@ -897,6 +916,17 @@ def main() -> int:
          ("k6b", "k5")),
         ("quality_fast cascade", quality_fast.replace(conv_impl="cascade"),
          ("k7", "k5")),
+        # the widths of the other configs, random weights
+        ("hybrid pallas f64",
+         hybrid.replace(conv_impl="pallas", curve_features=64),
+         ("k6a", "k3")),
+        ("hybrid pallas f160",
+         hybrid.replace(conv_impl="pallas", curve_features=160),
+         ("k6a", "k3")),
+        ("hybrid pallas i4", hybrid.replace(conv_impl="pallas",
+                                            curve_iters=4), ("k6a", "k3")),
+        ("hybrid pallas i16", hybrid.replace(conv_impl="pallas",
+                                             curve_iters=16), ("k6a", "k3")),
     ]
     paths += conv_paths
     conv_kernels = ("k6a", "k6b", "k7", "k8")
@@ -908,6 +938,10 @@ def main() -> int:
     # launches per block: K6a 6 (hybrid's c2-c7) or 3 (decom's c2-c4) per
     # K3 / K5 launch, K6b 6 (fcn's c2-c7), K7 1 (all six)
     per_block = {"hybrid pallas": ("k6a", 6, "k3"),
+                 "hybrid pallas f64": ("k6a", 6, "k3"),
+                 "hybrid pallas f160": ("k6a", 6, "k3"),
+                 "hybrid pallas i4": ("k6a", 6, "k3"),
+                 "hybrid pallas i16": ("k6a", 6, "k3"),
                  "quality pallas": ("k6a", 3, "k5"),
                  "quality_fast pallas": ("k6b", 6, "k5"),
                  "quality_fast cascade": ("k7", 1, "k5")}
@@ -1143,7 +1177,7 @@ def main() -> int:
                       f"{np.percentile(lat, 50):.2f} ms p99 "
                       f"{np.percentile(lat, 99):.2f} ms on {card}")
 
-    for name, cfg, _ in paths[:3] + conv_paths[3:]:
+    for name, cfg, _ in paths[:3] + conv_paths[3:4]:
         counted(name, lambda: phase5(name, cfg))
 
     print(f"[6] ({time.perf_counter() - t_start:.0f} s) launches per path "

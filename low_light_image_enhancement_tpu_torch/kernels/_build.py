@@ -77,10 +77,11 @@ _SIGNATURES = {
     ],
     "llie_conv3x3": [
         _P, _I, _P, _I,              # xa, ca, xb (or NULL), cb
-        _P, _P, _P, _I,              # packed w, bias, out, cout
+        _P, _P, _P, _I, _I,          # packed w, bias, out, cout, chunk
         _I, _I, _I, _I, _I, _I,      # B, H, W, dilation, act, bf16
         _P,                          # stream
     ],
+    "llie_conv_plan": [_I, _I, _I, _I],  # ca, cb, cout, dilation
     "llie_fcn_cascade": [
         _P, _P, _P, _P, _P,          # x, scratch, out, packed w, biases
         ctypes.POINTER(_I), _I, _I,  # dilations, layers, channels

@@ -6,14 +6,18 @@
 // tensor, an f32 accumulator, + bias in f32, the activation in f32, one
 // cast to the activation type (bf16 or f32). Each thread owns CONV_PPT
 // output pixels of a tile of CONV_TILE consecutive pixels (b, y, x
-// flattened) and all COUT output channels; the blocks walk the tiles with a
-// grid stride, so a persistent grid loads the layer's weights into shared
-// memory once. The weights are the wrapper's packed f32 (9, Cin, COUT)
-// (values rounded to the activation type first), read four output
-// channels at a time as broadcasts; the input is read per tap as 8-channel
-// vectors (16 bytes of bf16) straight from device memory, each pixel's 9
-// taps shared between neighbouring threads through the L1 cache (K6) or the
-// L2 (K7, whose inputs were written by other blocks during the launch).
+// flattened) and, chunk by chunk, NC output channels at a time (the layer's
+// Cout padded to a multiple of NC with zero weights, the padding never
+// stored); the blocks walk the tiles with a grid stride, so a persistent
+// grid loads the layer's weights into shared memory once (or reads them
+// through the L1 where they do not fit). The weights are the wrapper's
+// packed f32 (9, Cin, Coutp) (values rounded to the activation type first),
+// read four output channels at a time as broadcasts; the input is read per
+// tap as 8-channel vectors (16 bytes of bf16) straight from device memory,
+// each pixel's 9 taps shared between neighbouring threads through the L1
+// cache (K6) or the L2 (K7, whose inputs were written by other blocks
+// during the launch). Each output channel sums its taps in the same order
+// whatever the chunk width, so K7 and K6 agree bit for bit.
 //
 // Every product is accumulated with __fmaf_rn, which stays a fused
 // multiply-add under --fmad=false: the plain version sums in another
@@ -93,26 +97,43 @@ inline __device__ void store_pixel(__nv_bfloat16* p, const float v[COUT]) {
   }
 }
 
-// Shared memory of one layer: the packed weights and the bias, in floats.
-inline __host__ __device__ int layer_smem_floats(int cin, int cout) {
-  return 9 * cin * cout + cout;
+inline __device__ void store_one(float* p, float v) { *p = v; }
+inline __device__ void store_one(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
+
+// Shared memory of one layer: the packed weights and the bias, in floats.
+inline __host__ __device__ int layer_smem_floats(int cin, int coutp) {
+  return 9 * cin * coutp + coutp;
+}
+
+// The most weights and bias a layer keeps in shared memory (floats); a
+// wider layer reads them from device memory through the L1.
+constexpr int MAX_SMEM_FLOATS = 48 * 1024;
 
 // One layer over every tile, with the block's share of the grid stride.
 // xa holds channels [0, ca), xb (if cb > 0) channels [ca, ca + cb) of the
-// concat; out is (B, H, W, COUT). Starts by loading the weights and bias
-// into `sw` and ends with a __syncthreads, so a caller may reload `sw`.
-template <typename T, int COUT, bool L2ONLY>
+// concat; out is (B, H, W, cout), w the packed (9, ca + cb, coutp), bias
+// (coutp), coutp a multiple of NC. With `sw` the weights and bias are
+// loaded into it first (and the function ends with a __syncthreads, so a
+// caller may reload `sw`); with nullptr they are read where they lie.
+template <typename T, int NC, bool L2ONLY>
 inline __device__ void conv3x3_layer(const T* xa, int ca, const T* xb, int cb,
                                      const float* w, const float* bias, T* out,
-                                     int B, int H, int W, int dil, int act,
-                                     float* sw) {
+                                     int cout, int coutp, int B, int H, int W,
+                                     int dil, int act, float* sw) {
   const int cin = ca + cb;
-  const int nw = 9 * cin * COUT;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) sw[i] = w[i];
-  for (int i = threadIdx.x; i < COUT; i += blockDim.x) sw[nw + i] = bias[i];
-  __syncthreads();
-  const float* sb = sw + nw;
+  const int nw = 9 * cin * coutp;
+  const float* wsrc = w;
+  const float* sb = bias;
+  if (sw != nullptr) {
+    for (int i = threadIdx.x; i < nw; i += blockDim.x) sw[i] = w[i];
+    for (int i = threadIdx.x; i < coutp; i += blockDim.x)
+      sw[nw + i] = bias[i];
+    __syncthreads();
+    wsrc = sw;
+    sb = sw + nw;
+  }
   const long long P = (long long)B * H * W;
   const long long ntiles = (P + CONV_TILE - 1) / CONV_TILE;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -128,69 +149,83 @@ inline __device__ void conv3x3_layer(const T* xa, int ca, const T* xb, int cb,
       py[k] = (int)(t % H);
       pb[k] = (int)(t / H);
     }
-    float acc[CONV_PPT][COUT];
+#pragma unroll 1
+    for (int co0 = 0; co0 < coutp; co0 += NC) {
+      float acc[CONV_PPT][NC];
 #pragma unroll
-    for (int k = 0; k < CONV_PPT; ++k)
+      for (int k = 0; k < CONV_PPT; ++k)
 #pragma unroll
-      for (int c = 0; c < COUT; ++c) acc[k][c] = 0.0f;
+        for (int c = 0; c < NC; ++c) acc[k][c] = 0.0f;
 
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = (tap / 3 - 1) * dil, dx = (tap % 3 - 1) * dil;
-      long long pix[CONV_PPT];
-      bool ok[CONV_PPT];
-#pragma unroll
-      for (int k = 0; k < CONV_PPT; ++k) {
-        const int yy = py[k] + dy, xx = px[k] + dx;
-        ok[k] = live[k] && yy >= 0 && yy < H && xx >= 0 && xx < W;
-        pix[k] = ((long long)pb[k] * H + yy) * W + xx;
-      }
-      const float* wt = sw + tap * cin * COUT;
-#pragma unroll 1
-      for (int c0 = 0; c0 < cin; c0 += CIN_STEP) {
-        const bool in_a = c0 < ca;
-        const T* src = in_a ? xa : xb;
-        const int cs = in_a ? ca : cb;
-        const int off = in_a ? c0 : c0 - ca;
-        float v[CONV_PPT][CIN_STEP];
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = (tap / 3 - 1) * dil, dx = (tap % 3 - 1) * dil;
+        long long pix[CONV_PPT];
+        bool ok[CONV_PPT];
 #pragma unroll
         for (int k = 0; k < CONV_PPT; ++k) {
-          if (ok[k]) {
-            load8<L2ONLY>(src + pix[k] * cs + off, v[k]);
-          } else {
-#pragma unroll
-            for (int j = 0; j < CIN_STEP; ++j) v[k][j] = 0.0f;
-          }
+          const int yy = py[k] + dy, xx = px[k] + dx;
+          ok[k] = live[k] && yy >= 0 && yy < H && xx >= 0 && xx < W;
+          pix[k] = ((long long)pb[k] * H + yy) * W + xx;
         }
+        const float* wt = wsrc + tap * cin * coutp + co0;
+#pragma unroll 1
+        for (int c0 = 0; c0 < cin; c0 += CIN_STEP) {
+          const bool in_a = c0 < ca;
+          const T* src = in_a ? xa : xb;
+          const int cs = in_a ? ca : cb;
+          const int off = in_a ? c0 : c0 - ca;
+          float v[CONV_PPT][CIN_STEP];
 #pragma unroll
-        for (int j = 0; j < CIN_STEP; ++j) {
-          const float4* wr =
-              reinterpret_cast<const float4*>(wt + (c0 + j) * COUT);
+          for (int k = 0; k < CONV_PPT; ++k) {
+            if (ok[k]) {
+              load8<L2ONLY>(src + pix[k] * cs + off, v[k]);
+            } else {
 #pragma unroll
-          for (int q = 0; q < COUT / 4; ++q) {
-            const float4 ww = wr[q];
+              for (int j = 0; j < CIN_STEP; ++j) v[k][j] = 0.0f;
+            }
+          }
 #pragma unroll
-            for (int k = 0; k < CONV_PPT; ++k) {
-              acc[k][4 * q] = __fmaf_rn(v[k][j], ww.x, acc[k][4 * q]);
-              acc[k][4 * q + 1] = __fmaf_rn(v[k][j], ww.y, acc[k][4 * q + 1]);
-              acc[k][4 * q + 2] = __fmaf_rn(v[k][j], ww.z, acc[k][4 * q + 2]);
-              acc[k][4 * q + 3] = __fmaf_rn(v[k][j], ww.w, acc[k][4 * q + 3]);
+          for (int j = 0; j < CIN_STEP; ++j) {
+            const float4* wr =
+                reinterpret_cast<const float4*>(wt + (c0 + j) * coutp);
+#pragma unroll
+            for (int q = 0; q < NC / 4; ++q) {
+              const float4 ww = wr[q];
+#pragma unroll
+              for (int k = 0; k < CONV_PPT; ++k) {
+                acc[k][4 * q] = __fmaf_rn(v[k][j], ww.x, acc[k][4 * q]);
+                acc[k][4 * q + 1] =
+                    __fmaf_rn(v[k][j], ww.y, acc[k][4 * q + 1]);
+                acc[k][4 * q + 2] =
+                    __fmaf_rn(v[k][j], ww.z, acc[k][4 * q + 2]);
+                acc[k][4 * q + 3] =
+                    __fmaf_rn(v[k][j], ww.w, acc[k][4 * q + 3]);
+              }
             }
           }
         }
       }
-    }
 #pragma unroll
-    for (int k = 0; k < CONV_PPT; ++k) {
-      if (!live[k]) continue;
-      float r[COUT];
+      for (int k = 0; k < CONV_PPT; ++k) {
+        if (!live[k]) continue;
+        float r[NC];
 #pragma unroll
-      for (int c = 0; c < COUT; ++c) r[c] = activate(acc[k][c] + sb[c], act);
-      const long long p = tile * CONV_TILE + k * CONV_THREADS + threadIdx.x;
-      store_pixel<COUT>(out + p * COUT, r);
+        for (int c = 0; c < NC; ++c)
+          r[c] = activate(acc[k][c] + sb[co0 + c], act);
+        const long long p = tile * CONV_TILE + k * CONV_THREADS + threadIdx.x;
+        T* o = out + p * cout + co0;
+        if (cout == coutp) {
+          store_pixel<NC>(o, r);
+        } else {
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            if (co0 + c < cout) store_one(o + c, r[c]);
+        }
+      }
     }
   }
-  __syncthreads();
+  if (sw != nullptr) __syncthreads();
 }
 
 // The grid of a persistent launch: as many blocks as fit on the card at

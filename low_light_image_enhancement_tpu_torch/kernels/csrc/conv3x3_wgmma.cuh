@@ -1,13 +1,17 @@
 // K6's bf16 form on the tensor cores: one 3x3 conv layer as an implicit
-// GEMM of wgmma (sm_90a) fed by TMA. mxu_conv.cu launches it for bf16;
-// the f32 form and K7 keep conv3x3.cuh on the CUDA cores.
+// GEMM of wgmma (sm_90a) fed by TMA. mxu_conv.cu launches it for bf16, and
+// K7 (fcn_cascade.cu) runs its producer and consumers layer after layer;
+// the f32 forms keep conv3x3.cuh on the CUDA cores.
 //
 // The GEMM. M = output pixels: one wgmma M tile is 64 consecutive x of
-// one output row. N = Cout (m64nNk16, N = 8, 16, 24 or 32). K = 9 taps x
-// Cin in k16 steps, walked tap-major, then piece by piece (below), 16
-// channels a step. The bf16 products sum in f32 registers; the epilogue
-// adds the f32 bias, applies the activation in f32 and casts once to bf16
-// (the contract of kernels/mxu_conv.py).
+// one output row. N = Cout, padded to a multiple of 8 (zero weights and
+// bias past the layer's channels, which the epilogue does not store) and
+// cut into chunks of NC channels, NC the widest multiple of 8 up to 64
+// that divides it (m64nNCk16; 64 keeps a row group's accumulators at 64
+// registers a thread). K = 9 taps x Cin in k16 steps, walked tap-major,
+// then piece by piece (below), 16 channels a step. The bf16 products sum
+// in f32 registers; the epilogue adds the f32 bias, applies the activation
+// in f32 and casts once to bf16 (the contract of kernels/mxu_conv.py).
 //
 // Pieces. Each input group (the skip concat's two tensors are two groups,
 // each read in place through its own tensor map) is cut into pieces of
@@ -39,9 +43,23 @@
 // per dx.
 //
 // B operand: the packed bf16 weights (mxu_conv.py pack_conv_weights_wgmma),
-// for each tap and piece a Cout x CP K-major matrix in the piece's swizzle,
-// each 1024-byte aligned; copied once into shared memory per persistent
-// block.
+// chunk by chunk, and within a chunk for each tap and piece an NC x CP
+// K-major matrix in the piece's swizzle, each 1024-byte aligned. A block
+// copies the chunks it runs into shared memory once: all of them where
+// they fit beside the ring, else the grid is cut into `nsplit` slices of
+// `npass` chunks each (blockIdx % nsplit), each block walking the strips
+// for its slice, so that a layer of any width is still one launch (each
+// slice reads the input again, from the L2).
+//
+// Piece groups. Where even one chunk's weights and a ring of whole halo
+// rows do not fit (more than five 64-channel pieces at dilation 1:
+// curve_features above 128), a slot holds the rows of `ppg` pieces only
+// and a row group walks the `pgroups` groups of pieces in turn, its
+// accumulators held in registers across them (one chunk a block). A row
+// group then loads its ROWS + 2 rows once per piece group (no row is
+// shared between row groups), and both consumers pass every row in order,
+// the one that does not read it arriving at once, so that a slot is
+// refilled only after both have passed it.
 //
 // The pipeline. One producer thread issues the TMA loads of the halo rows
 // in order; two consumer warpgroups take the row groups in turn, so one's
@@ -49,9 +67,12 @@
 // the accumulators (scale-d 0), and the warp roles are read through a
 // shuffle, so that ptxas sees no register defined outside wgmma and no
 // divergent path between them: otherwise it serializes the wgmma (ptxas
-// C7520). The nets' layers, one or two 64-byte pieces, run a kernel that
-// names its pieces at compile time, every descriptor a base plus a
-// constant; other widths walk their pieces at run time, more slowly.
+// C7520). The nets' layers at 32 features (one or two 64-byte pieces, one
+// chunk of N = Cout) run a kernel that names its pieces at compile time,
+// every descriptor a base plus a constant, with the bias in registers and
+// every store a pair; other widths walk their pieces and chunks at run
+// time, more slowly (the chunk loop and the checked stores alone cost the
+// nets' layers 10-40% on the H100 when they ran that way).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the
@@ -72,34 +93,46 @@ constexpr int CONSUMERS = 2;         // consumer warpgroups
 constexpr int THREADS = CONSUMERS * 128 + 32;  // and one producer warp
 constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory of a block
 constexpr int MAX_BOX_X = 192;       // the widest contiguous halo row
-constexpr int MAX_PIECES = 8;        // Cin <= 512
+constexpr int MAX_PIECES = 16;       // Cin <= 1024
 constexpr int MAX_SLOTS = 16;        // halo rows in the ring
+constexpr int MAX_N = 64;            // the widest chunk of output channels
 constexpr uint32_t ALIGN = 1024;     // the 128-byte swizzle's period
 
 // One piece of an input group: CP channels from channel c0 of group `map`.
 struct Piece {
   int map, c0, ksteps;  // ksteps = CP / 16
   uint32_t sp;          // bytes a pixel: 2 * CP = the swizzle width
-  uint32_t aoff;        // its region in a halo row (per dx box if nseg 3)
+  uint32_t aoff;        // its region in a slot, from the first piece of
+                        // its piece group (per dx box if nseg 3)
   uint32_t areg;        // bytes of one such region
-  uint32_t woff;        // its weights within a tap
+  uint32_t woff;        // its weights within a tap of a chunk
 };
 
-// The layer's geometry, computed on the host (plan()).
-struct Geom {
+// The layer's geometry, computed on the host (plan()), for layers of up to
+// MP pieces (K6: MAX_PIECES; K7's layers have one).
+template <int MP>
+struct GeomT {
+  static constexpr int PIECES = MP;
   int B, H, W, dil, act;
   int phases, chunks, xtiles;  // strips: B * phases * chunks * xtiles
   int nstrips;
   int slots;            // halo rows in the ring
   int nseg, box_x;      // boxes a halo row (1 or 3) and their pixels
   int npieces;
-  Piece pc[MAX_PIECES];
-  uint32_t row;         // bytes of one halo row (all pieces)
-  uint32_t tx_bytes;    // bytes TMA delivers into a halo row
-  uint32_t wtap;        // bytes of one tap's weights
-  uint32_t w_bytes;     // bytes of the packed weights (9 taps)
+  int ppg, pgroups;     // pieces a slot holds, and the groups of them
+  int cout;             // the layer's output channels (the output's stride)
+  int nchunks;          // chunks of NC output channels (Cout padded)
+  int npass;            // chunks a block holds and runs per row group
+  int nsplit;           // slices of npass chunks: nchunks / npass
+  Piece pc[MP];
+  uint32_t row;         // bytes of a slot (the widest piece group)
+  uint32_t tx_bytes;    // bytes TMA delivers into a whole halo row
+  uint32_t wtap;        // bytes of one tap of one chunk's weights
+  uint32_t wchunk;      // bytes of one chunk's weights (9 taps)
+  uint32_t w_bytes;     // bytes of a block's weights (npass chunks)
   int smem;             // dynamic shared memory to ask for
 };
+using Geom = GeomT<MAX_PIECES>;
 
 inline __device__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -214,8 +247,8 @@ struct Mma<24> {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, "
-        "1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, "
+        "p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11])
@@ -230,12 +263,89 @@ struct Mma<32> {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<40> {
+  static __device__ void run(float (&d)[20], uint64_t a, uint64_t b,
+                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19}, %20, %21, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<48> {
+  static __device__ void run(float (&d)[24], uint64_t a, uint64_t b,
+                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, "
+        "p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<56> {
+  static __device__ void run(float (&d)[28], uint64_t a, uint64_t b,
+                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27}, %28, %29, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<64> {
+  static __device__ void run(float (&d)[32], uint64_t a, uint64_t b,
+                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
@@ -253,7 +363,8 @@ struct Strip {
 };
 
 // Strip t, ordered (image, phase, chunk, x tile), x fastest.
-inline __device__ Strip strip_at(const Geom& g, int t) {
+template <class G>
+__device__ __forceinline__ Strip strip_at(const G& g, int t) {
   Strip s;
   const int xt = t % g.xtiles;
   t /= g.xtiles;
@@ -271,26 +382,29 @@ inline __device__ Strip strip_at(const Geom& g, int t) {
 
 // How many of a strip's `groups` row groups read its halo row j (group q
 // reads rows q * ROWS ... q * ROWS + ROWS + 1): 1 or 2.
-inline __device__ uint32_t readers(int j, int groups) {
+__device__ __forceinline__ uint32_t readers(int j, int groups) {
   const int hi = min(groups - 1, j / ROWS);
   const int lo = j <= ROWS + 1 ? 0 : (j - 2) / ROWS;
   return (uint32_t)(hi - lo + 1);
 }
 
-// The wgmma of one row group: 9 taps x the pieces x their k16 steps x
-// ROWS output rows, the first writing the accumulators. SP and NP > 0 name
-// the pieces at compile time (NP pieces of SP bytes a pixel), so that
-// every descriptor is a base plus a constant; 0 reads them from g.
-template <int N, int SP, int NP>
-inline __device__ void group_mma(float (&acc)[ROWS][N / 2], const Geom& g,
-                                 uint32_t ring,
-                                 const uint32_t (&slot)[ROWS + 2],
-                                 uint32_t sw) {
+// The wgmma of one row group and one chunk of N output channels (weights
+// from `sw`): 9 taps x the pieces x their k16 steps x ROWS output rows,
+// the first writing the accumulators (adding to them if `acc_in`). SP and
+// NP > 0 name the pieces at compile time (NP pieces of SP bytes a pixel),
+// so that every descriptor is a base plus a constant; 0 reads pieces p0 ..
+// p1 - 1 from g.
+template <int N, int SP, int NP, class G>
+__device__ __forceinline__ void group_mma(float (&acc)[ROWS][N / 2],
+                                          const G& g, uint32_t ring,
+                                          const uint32_t (&slot)[ROWS + 2],
+                                          uint32_t sw, int p0, int p1,
+                                          int acc_in) {
   if constexpr (NP > 0) {
     constexpr uint32_t WP = (N * SP + ALIGN - 1) / ALIGN * ALIGN;
     constexpr int KS = SP / 32;
     const uint32_t dxb = g.nseg == 1 ? g.dil * SP : g.pc[0].areg;
-    const uint32_t pstep = NP > 1 ? g.pc[1].aoff : 0;
+    const uint32_t pstep = NP > 1 ? g.pc[NP - 1].aoff : 0;
     uint64_t a[ROWS + 2];
 #pragma unroll
     for (int j = 0; j < ROWS + 2; ++j)
@@ -315,7 +429,7 @@ inline __device__ void group_mma(float (&acc)[ROWS][N / 2], const Geom& g,
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
 #pragma unroll 1
-      for (int p = 0; p < g.npieces; ++p) {
+      for (int p = p0; p < p1; ++p) {
         const Piece& pc = g.pc[p];
         const uint32_t a_dx =
             pc.aoff + (g.nseg == 1 ? dx * g.dil * pc.sp : dx * pc.areg);
@@ -328,11 +442,257 @@ inline __device__ void group_mma(float (&acc)[ROWS][N / 2], const Geom& g,
             Mma<N>::run(acc[k],
                         mat_desc(ring + slot[k + dy] * g.row + a_dx + 32 * kk,
                                  pc.sp),
-                        db, (tap | p | kk) != 0);
+                        db, (acc_in | tap | (p - p0) | kk) != 0);
         }
       }
     }
   }
+}
+
+// Shared memory of a block: [weights: w_bytes][ring: slots x row][full
+// barriers][empty barriers][bias: npass * N floats], from the first ALIGN
+// boundary of the dynamic shared memory (`base`).
+struct Smem {
+  uint32_t sw, ring, full0, empty0, bias;
+};
+
+template <class G>
+__device__ __forceinline__ Smem smem_layout(const G& g, uint32_t base) {
+  Smem s;
+  s.sw = base;
+  s.ring = s.sw + g.w_bytes;
+  s.full0 = s.ring + g.slots * g.row;
+  s.empty0 = s.full0 + 8 * g.slots;
+  s.bias = s.empty0 + 8 * g.slots;
+  return s;
+}
+
+// The producer: one thread issues the TMA loads of the halo rows of strips
+// t0, t0 + ts, ... in order; `rc` counts the rows issued (carried from
+// layer to layer by K7). GROUPS (the run-time-piece kernel of K6): a row
+// group with piece groups loads its ROWS + 2 rows once for each piece
+// group, the pieces of one group into a slot.
+template <bool GROUPS, class G>
+__device__ __forceinline__ void produce(const G& g,
+                                        const CUtensorMap* map_a,
+                                        const CUtensorMap* map_b,
+                                        const Smem& sm, int t0, int ts,
+                                        uint32_t& rc) {
+  // input row y, pieces p0 .. p1 - 1 (tx bytes of them), into the next slot
+  auto load = [&](const Strip& sp, int y, int p0, int p1, uint32_t tx) {
+    const uint32_t s = rc % g.slots;
+    mbar_wait(sm.empty0 + 8 * s, ((rc / g.slots) & 1) ^ 1);
+    const uint32_t bar = sm.full0 + 8 * s;
+    mbar_expect_tx(bar, tx);
+#pragma unroll 1
+    for (int p = p0; p < (G::PIECES == 1 ? 1 : p1); ++p) {
+      const Piece& pc = g.pc[G::PIECES == 1 ? 0 : p];
+      const CUtensorMap* map = pc.map ? map_b : map_a;
+#pragma unroll 1
+      for (int k = 0; k < g.nseg; ++k) {
+        const int x = g.nseg == 1 ? sp.x0 - g.dil : sp.x0 + (k - 1) * g.dil;
+        tma_load4(sm.ring + s * g.row + pc.aoff + k * pc.areg, map, bar,
+                  pc.c0, x, y, sp.b);
+      }
+    }
+    ++rc;
+  };
+  for (int t = t0; t < g.nstrips; t += ts) {
+    const Strip sp = strip_at(g, t);
+    if (!sp.live) continue;
+    if (GROUPS && g.pgroups > 1) {
+#pragma unroll 1
+      for (int q = 0; q < sp.groups; ++q)
+#pragma unroll 1
+        for (int p0 = 0; p0 < g.npieces; p0 += g.ppg) {
+          const int p1 = min(p0 + g.ppg, g.npieces);
+          uint32_t tx = 0;
+          for (int p = p0; p < p1; ++p) tx += g.nseg * g.box_x * g.pc[p].sp;
+#pragma unroll 1
+          for (int j = 0; j < ROWS + 2; ++j)
+            load(sp, sp.y0 + (q * ROWS + j - 1) * g.dil, p0, p1, tx);
+        }
+      continue;
+    }
+#pragma unroll 1
+    for (int j = 0; j < ROWS * sp.groups + 2; ++j)
+      load(sp, sp.y0 + (j - 1) * g.dil, 0, g.npieces, g.tx_bytes);
+  }
+}
+
+// The epilogue of row group q of strip sp and chunk ch0 (output channels
+// cb = c_base + ch0 * N + c0 ...): bias `bv`, activation, one cast;
+// d[4j + 2h + e] is row m0 + 8h, channel 8j + c0 + e of the chunk, and
+// channels past cout are padding. ONE: N == cout, every store a pair.
+template <int N, bool ONE, class G>
+__device__ __forceinline__ void store_group(const float (&acc)[ROWS][N / 2],
+                                            const float (&bv)[N / 4],
+                                            const G& g, const Strip& sp,
+                                            int q, int m0, int cb, int cout,
+                                            __nv_bfloat16* __restrict__ out) {
+  const bool pairs = (cout & 1) == 0;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int y = sp.y0 + (q * ROWS + k) * g.dil;
+    if (y >= g.H) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = sp.x0 + m0 + 8 * h;
+      if (x >= g.W) continue;
+      __nv_bfloat16* o =
+          out + (((long long)sp.b * g.H + y) * g.W + x) * cout + cb;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float v0 =
+            conv::activate(acc[k][4 * j + 2 * h] + bv[2 * j], g.act);
+        const float v1 =
+            conv::activate(acc[k][4 * j + 2 * h + 1] + bv[2 * j + 1], g.act);
+        const int ch = cb + 8 * j;
+        if (ONE || (ch + 1 < cout && pairs)) {
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (ch < cout) o[8 * j] = __float2bfloat16_rn(v0);
+          if (ch + 1 < cout) o[8 * j + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+// A consumer warpgroup (wg of CONSUMERS): of the row groups of strips t0,
+// t0 + ts, ... those of its turn (qc counts the block's row groups); for
+// each, the g.npass chunks held at sm.sw, written to output channels
+// c_base, c_base + N, ... of `out` (image b of a strip at out + b * H * W
+// * cout). `rc` follows the producer's row count. The kernels with
+// compile-time pieces (NP > 0) run one chunk of N == cout channels: the
+// bias stays in registers and every store is a pair.
+template <int N, int SP, int NP, class G>
+__device__ __forceinline__ void consume(const G& g, const Smem& sm,
+                                        __nv_bfloat16* __restrict__ out,
+                                        int c_base, int wg, int t0, int ts,
+                                        uint32_t& rc, int& qc) {
+  const int wtid = threadIdx.x % 128;
+  const int m0 = (wtid / 32) * 16 + (wtid % 32) / 4;  // rows m0, m0 + 8
+  const int c0 = 2 * (wtid % 4);  // channels c0, c0 + 1 of each 8
+  constexpr bool ONE = NP > 0;
+  // piece groups: only the run-time-piece kernel of K6 is planned with them
+  constexpr bool GROUPS = NP == 0 && G::PIECES > 1;
+  const int npass = ONE ? 1 : g.npass;
+  const int cout = ONE ? N : g.cout;
+  const float* sbias =
+      reinterpret_cast<const float*>(__cvta_shared_to_generic(sm.bias));
+  float bv[N / 4];
+  auto load_bias = [&](int ch0) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      bv[2 * j] = sbias[ch0 * N + 8 * j + c0];
+      bv[2 * j + 1] = sbias[ch0 * N + 8 * j + c0 + 1];
+    }
+  };
+  load_bias(0);
+  for (int t = t0; t < g.nstrips; t += ts) {
+    const Strip sp = strip_at(g, t);
+    if (!sp.live) continue;
+    if (GROUPS && g.pgroups > 1) {
+      const uint32_t unit = ROWS + 2;  // rows of a row group and piece group
+#pragma unroll 1
+      for (int q = 0; q < sp.groups; ++q, ++qc) {
+        if (qc % CONSUMERS != wg) {
+          // the other consumer's rows: pass each once it has landed
+#pragma unroll 1
+          for (uint32_t j = 0; j < g.pgroups * unit; ++j, ++rc) {
+            const uint32_t s = rc % g.slots;
+            mbar_wait(sm.full0 + 8 * s, (rc / g.slots) & 1);
+            if (wtid == 0) mbar_arrive(sm.empty0 + 8 * s, 1);
+          }
+          continue;
+        }
+        float acc[ROWS][N / 2];
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i) fence_reg(acc[k][i]);
+#pragma unroll 1
+        for (int pg = 0; pg < g.pgroups; ++pg, rc += unit) {
+          uint32_t slot[ROWS + 2];
+#pragma unroll
+          for (int j = 0; j < ROWS + 2; ++j) {
+            const uint32_t r = rc + j;
+            slot[j] = r % g.slots;
+            mbar_wait(sm.full0 + 8 * slot[j], (r / g.slots) & 1);
+          }
+          const int p0 = pg * g.ppg;
+          wgmma_fence();
+          group_mma<N, SP, NP>(acc, g, sm.ring, slot, sm.sw, p0,
+                               min(p0 + g.ppg, g.npieces), pg);
+          wgmma_commit();
+          wgmma_wait_all();
+#pragma unroll
+          for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+            for (int i = 0; i < N / 2; ++i) fence_reg(acc[k][i]);
+          if (wtid == 0) {
+#pragma unroll
+            for (int j = 0; j < ROWS + 2; ++j)
+              mbar_arrive(sm.empty0 + 8 * slot[j], 1);
+          }
+        }
+        store_group<N, false>(acc, bv, g, sp, q, m0, c_base + c0, cout, out);
+      }
+      continue;
+    }
+#pragma unroll 1
+    for (int q = 0; q < sp.groups; ++q, ++qc) {
+      if (qc % CONSUMERS != wg) continue;
+      uint32_t slot[ROWS + 2];
+#pragma unroll
+      for (int j = 0; j < ROWS + 2; ++j) {
+        const uint32_t r = rc + q * ROWS + j;
+        slot[j] = r % g.slots;
+        mbar_wait(sm.full0 + 8 * slot[j], (r / g.slots) & 1);
+      }
+#pragma unroll 1
+      for (int ch0 = 0; ch0 < npass; ++ch0) {
+        float acc[ROWS][N / 2];
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i) fence_reg(acc[k][i]);
+        wgmma_fence();
+        group_mma<N, SP, NP>(acc, g, sm.ring, slot, sm.sw + ch0 * g.wchunk,
+                             0, g.npieces, 0);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i) fence_reg(acc[k][i]);
+        // after the last chunk the group's rows are read: one arrival for
+        // each, two where it is the row's only reader
+        if (ch0 == npass - 1 && wtid == 0) {
+#pragma unroll
+          for (int j = 0; j < ROWS + 2; ++j)
+            mbar_arrive(sm.empty0 + 8 * slot[j],
+                        3 - readers(q * ROWS + j, sp.groups));
+        }
+        if (npass > 1) load_bias(ch0);
+        store_group<N, ONE>(acc, bv, g, sp, q, m0, c_base + ch0 * N + c0,
+                            cout, out);
+      }
+    }
+    rc += ROWS * sp.groups + 2;
+  }
+}
+
+// Copies `bytes` (a multiple of 16) from global w to shared `dst`, with
+// every thread of the block.
+__device__ __forceinline__ void copy16(uint32_t dst, const void* w,
+                                       uint32_t bytes) {
+  const uint4* src = reinterpret_cast<const uint4*>(w);
+  uint4* d = reinterpret_cast<uint4*>(__cvta_shared_to_generic(dst));
+  for (uint32_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    d[i] = src[i];
 }
 
 template <int N, int SP, int NP>
@@ -344,24 +704,22 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                      __nv_bfloat16* __restrict__ out,
                      const __grid_constant__ Geom g) {
   extern __shared__ unsigned char smem_raw[];
-  // [weights][slots x row][full x slots][empty x slots], from the first
-  // ALIGN boundary of the dynamic shared memory
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t pad = (ALIGN - (raw & (ALIGN - 1))) & (ALIGN - 1);
-  const uint32_t sw = raw + pad;
-  const uint32_t ring = sw + g.w_bytes;
-  const uint32_t full0 = ring + g.slots * g.row;
-  const uint32_t empty0 = full0 + 8 * g.slots;
+  const Smem sm =
+      smem_layout(g, raw + ((ALIGN - (raw & (ALIGN - 1))) & (ALIGN - 1)));
+  // this block's slice of the output channels: chunks split * npass ...
+  const int split = blockIdx.x % g.nsplit;
+  copy16(sm.sw, reinterpret_cast<const unsigned char*>(w) +
+                    (size_t)split * g.w_bytes, g.w_bytes);
   {
-    const uint4* src = reinterpret_cast<const uint4*>(w);
-    uint4* dst = reinterpret_cast<uint4*>(smem_raw + pad);
-    for (uint32_t i = threadIdx.x; i < g.w_bytes / 16; i += THREADS)
-      dst[i] = src[i];
+    float* sb = reinterpret_cast<float*>(__cvta_shared_to_generic(sm.bias));
+    for (int i = threadIdx.x; i < g.npass * N; i += THREADS)
+      sb[i] = bias[split * g.npass * N + i];
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < g.slots; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 2);
+      mbar_init(sm.full0 + 8 * s, 1);
+      mbar_init(sm.empty0 + 8 * s, 2);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -370,111 +728,15 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   __syncthreads();
 
   const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  const int t0 = blockIdx.x / g.nsplit, ts = gridDim.x / g.nsplit;
+  uint32_t rc = 0;
   if (wg == CONSUMERS) {
-    // the producer: one thread loads the halo rows in order
-    if (threadIdx.x % 128 != 0) return;
-    uint32_t rc = 0;  // rows issued
-    for (int t = blockIdx.x; t < g.nstrips; t += gridDim.x) {
-      const Strip sp = strip_at(g, t);
-      if (!sp.live) continue;
-#pragma unroll 1
-      for (int j = 0; j < ROWS * sp.groups + 2; ++j, ++rc) {
-        const uint32_t s = rc % g.slots;
-        mbar_wait(empty0 + 8 * s, ((rc / g.slots) & 1) ^ 1);
-        const uint32_t bar = full0 + 8 * s;
-        mbar_expect_tx(bar, g.tx_bytes);
-        const int y = sp.y0 + (j - 1) * g.dil;
-#pragma unroll 1
-        for (int p = 0; p < g.npieces; ++p) {
-          const Piece& pc = g.pc[p];
-          const CUtensorMap* map = pc.map ? &map_b : &map_a;
-#pragma unroll 1
-          for (int k = 0; k < g.nseg; ++k) {
-            const int x =
-                g.nseg == 1 ? sp.x0 - g.dil : sp.x0 + (k - 1) * g.dil;
-            tma_load4(ring + s * g.row + pc.aoff + k * pc.areg, map, bar,
-                      pc.c0, x, y, sp.b);
-          }
-        }
-      }
-    }
+    if (threadIdx.x % 128 == 0)
+      produce<NP == 0>(g, &map_a, &map_b, sm, t0, ts, rc);
     return;
   }
-
-  // a consumer warpgroup: row groups qc = wg, wg + CONSUMERS, ... of this
-  // block
-  const int wtid = threadIdx.x % 128;
-  const int m0 = (wtid / 32) * 16 + (wtid % 32) / 4;  // rows m0, m0 + 8
-  const int c0 = 2 * (wtid % 4);  // channels c0, c0 + 1 of each 8
-  float bv[N / 4];
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    bv[2 * j] = bias[8 * j + c0];
-    bv[2 * j + 1] = bias[8 * j + c0 + 1];
-  }
-  uint32_t rc = 0;  // the first halo row of the strip, in issue order
-  int qc = 0;       // row groups of this block so far
-  for (int t = blockIdx.x; t < g.nstrips; t += gridDim.x) {
-    const Strip sp = strip_at(g, t);
-    if (!sp.live) continue;
-#pragma unroll 1
-    for (int q = 0; q < sp.groups; ++q, ++qc) {
-      if (qc % CONSUMERS != wg) continue;
-      uint32_t slot[ROWS + 2];
-#pragma unroll
-      for (int j = 0; j < ROWS + 2; ++j) {
-        const uint32_t r = rc + q * ROWS + j;
-        slot[j] = r % g.slots;
-        mbar_wait(full0 + 8 * slot[j], (r / g.slots) & 1);
-      }
-      float acc[ROWS][N / 2];
-#pragma unroll
-      for (int k = 0; k < ROWS; ++k)
-#pragma unroll
-        for (int i = 0; i < N / 2; ++i) fence_reg(acc[k][i]);
-      wgmma_fence();
-      group_mma<N, SP, NP>(acc, g, ring, slot, sw);
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int k = 0; k < ROWS; ++k)
-#pragma unroll
-        for (int i = 0; i < N / 2; ++i) fence_reg(acc[k][i]);
-      // the group's rows are read: one arrival for each, two where it is
-      // the row's only reader
-      if (wtid == 0) {
-#pragma unroll
-        for (int j = 0; j < ROWS + 2; ++j)
-          mbar_arrive(empty0 + 8 * slot[j],
-                      3 - readers(q * ROWS + j, sp.groups));
-      }
-
-      // bias, activation, one cast; d[4j + 2h + e] is row m0 + 8h,
-      // channel 8j + c0 + e
-#pragma unroll
-      for (int k = 0; k < ROWS; ++k) {
-        const int y = sp.y0 + (q * ROWS + k) * g.dil;
-        if (y >= g.H) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int x = sp.x0 + m0 + 8 * h;
-          if (x >= g.W) continue;
-          __nv_bfloat16* o =
-              out + (((long long)sp.b * g.H + y) * g.W + x) * N + c0;
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j) {
-            const float v0 = conv::activate(
-                acc[k][4 * j + 2 * h] + bv[2 * j], g.act);
-            const float v1 = conv::activate(
-                acc[k][4 * j + 2 * h + 1] + bv[2 * j + 1], g.act);
-            *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
-                __floats2bfloat162_rn(v0, v1);
-          }
-        }
-      }
-    }
-    rc += ROWS * sp.groups + 2;
-  }
+  int qc = 0;
+  consume<N, SP, NP>(g, sm, out, split * g.npass * N, wg, t0, ts, rc, qc);
 }
 
 // ------------------------------------------------------------- host --- //
@@ -508,18 +770,20 @@ inline EncodeTiled encode_tiled() {
 // it, 64 channels (128 bytes) at most.
 inline int piece_channels(int c) { return c <= 16 ? 16 : c <= 32 ? 32 : 64; }
 
-// The map of one NHWC bf16 input group of c channels, dims (c, x, y,
-// batch), box (CP, box_x, 1, 1), swizzled by the CP * 2 bytes of a pixel.
-inline int make_map(CUtensorMap* map, const void* x, int c, const Geom& g) {
+// The map of one NHWC bf16 input group of c channels over `images` images
+// of H x W, dims (c, x, y, image), box (CP, box_x, 1, 1), swizzled by the
+// CP * 2 bytes of a pixel.
+inline int make_map(CUtensorMap* map, const void* x, int c, int W, int H,
+                    int images, int box_x) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const int cp = piece_channels(c);
   const cuuint64_t e = 2;  // bytes of a bf16
-  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)g.W,
-                              (cuuint64_t)g.H, (cuuint64_t)g.B};
-  const cuuint64_t strides[3] = {c * e, (cuuint64_t)g.W * c * e,
-                                 (cuuint64_t)g.H * g.W * c * e};
-  const cuuint32_t box[4] = {(cuuint32_t)cp, (cuuint32_t)g.box_x, 1, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)images};
+  const cuuint64_t strides[3] = {c * e, (cuuint64_t)W * c * e,
+                                 (cuuint64_t)H * W * c * e};
+  const cuuint32_t box[4] = {(cuuint32_t)cp, (cuuint32_t)box_x, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz = cp == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : cp == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -534,20 +798,24 @@ inline int make_map(CUtensorMap* map, const void* x, int c, const Geom& g) {
 
 inline uint32_t round_up(uint32_t v, uint32_t m) { return (v + m - 1) / m * m; }
 
-// The geometry of a layer of groups of ca and cb channels (cb may be 0):
-// the pieces, the ring as deep as fits (ROWS + 2 halo rows at least, so
-// that a group can run; MAX_SLOTS at most); false if even the shallowest
-// ring does not fit a block's shared memory or the pieces are too many.
-inline bool plan(Geom* g, int ca, int cb, int cout) {
+// The pieces, slot and weight sizes of a layer of groups of ca and cb
+// channels (cb may be 0) at chunk width n, `ppg` pieces a slot (at most),
+// and its strips; the ring and the slices are left to plan(). False if the
+// pieces are too many.
+template <class G>
+inline bool plan_layer(G* g, int ca, int cb, int cout, int n,
+                       int ppg = MAX_PIECES) {
   g->nseg = TILE_X + 2 * g->dil <= MAX_BOX_X ? 1 : 3;
   g->box_x = g->nseg == 1 ? (int)round_up(TILE_X + 2 * g->dil, 8) : TILE_X;
   g->npieces = 0;
-  uint32_t aoff = 0, woff = 0, tx = 0;
+  uint32_t aoff = 0, woff = 0, tx = 0, row = 0;
   const int cs[2] = {ca, cb};
+  const int mp = (int)(sizeof(g->pc) / sizeof(g->pc[0]));
   for (int m = 0; m < 2; ++m) {
     const int cp = piece_channels(cs[m]);
     for (int c0 = 0; c0 < cs[m]; c0 += cp) {
-      if (g->npieces == MAX_PIECES) return false;
+      if (g->npieces == mp) return false;
+      if (g->npieces % ppg == 0) aoff = 0;  // a piece group: a slot each
       Piece& pc = g->pc[g->npieces++];
       pc.map = m;
       pc.c0 = c0;
@@ -557,77 +825,158 @@ inline bool plan(Geom* g, int ca, int cb, int cout) {
       pc.areg = round_up(g->box_x * pc.sp, ALIGN);
       pc.woff = woff;
       aoff += g->nseg * pc.areg;
-      woff += round_up(cout * pc.sp, ALIGN);
+      woff += round_up(n * pc.sp, ALIGN);
       tx += g->nseg * g->box_x * pc.sp;
+      row = row > aoff ? row : aoff;
     }
   }
-  g->row = aoff;
+  g->ppg = ppg < g->npieces ? ppg : g->npieces;
+  g->pgroups = (g->npieces + g->ppg - 1) / g->ppg;
+  g->row = row;
   g->tx_bytes = tx;
   g->wtap = woff;
-  g->w_bytes = 9 * woff;
-  const long long fixed = ALIGN + (long long)g->w_bytes;
-  const long long per_slot = (long long)g->row + 16;
-  const long long fit = (SMEM_LIMIT - fixed) / per_slot;
-  if (fit < ROWS + 2) return false;
-  g->slots = (int)(fit < MAX_SLOTS ? fit : MAX_SLOTS);
-  g->smem = (int)(fixed + per_slot * g->slots);
+  g->wchunk = 9 * woff;
+  g->cout = cout;
+  g->nchunks = (int)round_up(cout, 8) / n;
   g->phases = g->dil < g->H ? g->dil : g->H;
   const int per_phase = (g->H + g->dil - 1) / g->dil;
   g->chunks = (per_phase + STRIP_ROWS - 1) / STRIP_ROWS;
   g->xtiles = (g->W + TILE_X - 1) / TILE_X;
-  const long long n = (long long)g->B * g->phases * g->chunks * g->xtiles;
-  g->nstrips = (int)n;
-  return n < (1LL << 31);
+  const long long strips = (long long)g->B * g->phases * g->chunks *
+                           g->xtiles;
+  g->nstrips = (int)strips;
+  return strips < (1LL << 31);
 }
 
-// One bf16 layer: xa (B, H, W, ca) [+ xb (B, H, W, cb)] -> out (B, H, W,
-// N); w the packed bf16 weights of pack_conv_weights_wgmma. Returns
-// cudaErrorInvalidValue for a layer whose weights and shallowest ring do
-// not fit shared memory.
+// plan() tries these stages in turn: whole halo rows a slot, a ring of
+// 2 * ROWS + 4 slots (both consumers busy and the next rows loading), then
+// of ROWS + 2 (a group can run); then the same with piece groups.
+constexpr int PLAN_STAGES = 4;
+
+// The ring, the slices and the piece groups of a layer at chunk width n
+// at plan stage `stage`: whole halo rows and the most chunks a block can
+// hold (a divisor of nchunks), or the fewest piece groups (as even as they
+// go) with one chunk a block; the ring then as deep as fits, MAX_SLOTS at
+// most. False if nothing fits.
+template <class G>
+inline bool plan_stage(G* g, int ca, int cb, int cout, int n, int stage) {
+  const int want = stage % 2 ? ROWS + 2 : 2 * ROWS + 4;
+  const bool groups = stage >= 2;
+  if (!plan_layer(g, ca, cb, cout, n)) return false;
+  const int pieces = g->npieces;
+  for (int pgroups = groups ? 2 : 1; pgroups <= (groups ? pieces : 1);
+       ++pgroups) {
+    const int ppg = (pieces + pgroups - 1) / pgroups;
+    if ((pieces + ppg - 1) / ppg != pgroups) continue;  // a split seen
+    if (groups) plan_layer(g, ca, cb, cout, n, ppg);
+    const long long per_slot = (long long)g->row + 16;
+    for (int np = groups ? 1 : g->nchunks; np >= 1; --np) {
+      if (g->nchunks % np) continue;
+      const long long fixed =
+          ALIGN + (long long)np * g->wchunk + 4LL * np * n;
+      const long long fit = (SMEM_LIMIT - fixed) / per_slot;
+      if (fit < want) continue;
+      g->npass = np;
+      g->nsplit = g->nchunks / np;
+      g->w_bytes = np * g->wchunk;
+      g->slots = (int)(fit < MAX_SLOTS ? fit : MAX_SLOTS);
+      g->smem = (int)(fixed + per_slot * g->slots);
+      return true;
+    }
+  }
+  return false;
+}
+
+// The plan of a layer at chunk width n: its first stage that fits.
+template <class G>
+inline bool plan(G* g, int ca, int cb, int cout, int n) {
+  for (int stage = 0; stage < PLAN_STAGES; ++stage)
+    if (plan_stage(g, ca, cb, cout, n, stage)) return true;
+  return false;
+}
+
+// The chunk width a bf16 layer of input groups of ca and cb channels
+// (multiples of 8; cb may be 0) -> cout at dilation dil runs at: at the
+// first plan stage where any fits, the widest multiple of 8 up to MAX_N
+// that divides cout rounded up to 8 (so that plan() at that width picks
+// that stage); 0 where none fits.
+inline int chunk_width(int ca, int cb, int cout, int dil) {
+  const int c8 = (cout + 7) / 8;
+  for (int stage = 0; stage < PLAN_STAGES; ++stage)
+    for (int d = MAX_N / 8; d >= 1; --d) {
+      if (c8 % d) continue;
+      Geom g = {};
+      g.B = g.H = g.W = 1;
+      g.dil = dil;
+      if (plan_stage(&g, ca, cb, cout, 8 * d, stage)) return 8 * d;
+    }
+  return 0;
+}
+
+// SMs and the blocks of `kern` that fit on one at `smem` bytes.
+inline int card_fit(const void* kern, int smem, int* sms, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, THREADS,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  return *per_sm < 1 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+// One bf16 layer at chunk width N: xa (B, H, W, ca) [+ xb (B, H, W, cb)]
+// -> out (B, H, W, cout); w the packed bf16 weights of
+// pack_conv_weights_wgmma, bias f32 padded to the chunks. Returns
+// cudaErrorInvalidValue for a layer that plan() cannot fit in shared
+// memory at N.
 template <int N>
 int launch(const void* xa, int ca, const void* xb, int cb, const void* w,
-           const float* bias, void* out, int B, int H, int W, int dil,
-           int act, cudaStream_t stream) {
+           const float* bias, void* out, int cout, int B, int H, int W,
+           int dil, int act, cudaStream_t stream) {
   Geom g = {};
   g.B = B;
   g.H = H;
   g.W = W;
   g.dil = dil;
   g.act = act;
-  if (!plan(&g, ca, cb, N)) return (int)cudaErrorInvalidValue;
+  if (!plan(&g, ca, cb, cout, N)) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
-  int rc = make_map(&ma, xa, ca, g);
+  int rc = make_map(&ma, xa, ca, W, H, B, g.box_x);
   if (rc != 0) return rc;
   mb = ma;
   if (cb) {
-    rc = make_map(&mb, xb, cb, g);
+    rc = make_map(&mb, xb, cb, W, H, B, g.box_x);
     if (rc != 0) return rc;
   }
-  // the nets' layers (one or two groups of 24 or 32 channels: one or two
-  // 64-byte pieces) get the kernel that names its pieces at compile time
+  // the nets' layers at 32 features (one or two groups of 24 or 32
+  // channels: one or two 64-byte pieces, one chunk of N == cout up to 32)
+  // get the kernel that names its pieces at compile time
   const bool nets = g.npieces <= 2 && g.pc[0].sp == 64 &&
-                    g.pc[g.npieces - 1].sp == 64;
-  const void* kern =
-      !nets             ? (const void*)conv3x3_wgmma_kernel<N, 0, 0>
-      : g.npieces == 1  ? (const void*)conv3x3_wgmma_kernel<N, 64, 1>
-                        : (const void*)conv3x3_wgmma_kernel<N, 64, 2>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS,
-                                                      g.smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  long long grid = (long long)per_sm * sms;
+                    g.pc[g.npieces - 1].sp == 64 && g.npass == 1 &&
+                    g.nsplit == 1 && g.pgroups == 1 && cout == N;
+  const void* kern = (const void*)conv3x3_wgmma_kernel<N, 0, 0>;
+  if constexpr (N <= 32) {
+    if (nets)
+      kern = g.npieces == 1 ? (const void*)conv3x3_wgmma_kernel<N, 64, 1>
+                            : (const void*)conv3x3_wgmma_kernel<N, 64, 2>;
+  }
+  int sms = 0, per_sm = 0;
+  rc = card_fit(kern, g.smem, &sms, &per_sm);
+  if (rc != 0) return rc;
+  // every slice gets the same number of blocks; at least one each
+  long long grid = (long long)per_sm * sms / g.nsplit;
   if (grid > g.nstrips) grid = g.nstrips;
+  if (grid < 1) grid = 1;
+  grid *= g.nsplit;
   void* args[] = {&ma, &mb, &w, &bias, &out, &g};
-  err = cudaLaunchKernel(kern, dim3((unsigned)grid), dim3(THREADS), args,
-                         (size_t)g.smem, stream);
+  const cudaError_t err =
+      cudaLaunchKernel(kern, dim3((unsigned)grid), dim3(THREADS), args,
+                       (size_t)g.smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,31 @@
 // Guided-filter device code: the shift-form cascade of ops/guided.py
 // (box_mean_shift, guided_core_shift, guided_joint_core_shift) on a 2-D
-// output tile of TILE_H x TILE_W pixels, one thread per output pixel. K5
-// (tiled_denoise.cu) runs it on an f32 input tile; the guided tails of K1
-// and K3 are to stage their boosted (or curved) planes the same way and
-// call guided_tile.
+// output tile of GT_H x GT_W pixels. K5 (tiled_denoise.cu) runs it on an
+// f32 input tile; the guided tails of K1 and K3 are to stage their boosted
+// (or curved) planes the same way and run guided_tile.
 //
 // The arithmetic repeats the plain versions operation for operation: each
 // box pass starts from the centre and adds the taps at -t and +t, t
 // ascending, then multiplies by k = float(1 / (2r + 1)); products such as
 // g * p are formed where the box reads them, which gives the same floats
 // as the plain version's product planes; the joint core multiplies by the
-// reciprocal 1 / (var + eps), the per-channel core divides.
+// reciprocal 1 / (var + eps), the per-channel core divides. So the tile
+// equals the plain version bit for bit (under --fmad=false).
+//
+// The walk. Every box mean is a vertical pass then a horizontal one, and
+// each pass is a loop over items of P consecutive outputs along the pass's
+// axis: a thread loads the P + 2r values under them once into registers (r
+// is a template parameter, so the window's indices are constants) and sums
+// the P outputs from there. Shared memory is read (P + 2r) / P times a
+// value and pass (twice at r = 4), not 2r + 1 times. Vertical items take
+// consecutive columns in consecutive threads, horizontal items consecutive
+// rows, and every plane's row stride is odd, so a warp's loads fall in
+// distinct banks. The algebra between the passes runs in the horizontal
+// items' registers (a and b as the box means arrive; q and the blend as
+// box(a) and box(b) arrive), and the blended tile is staged in shared
+// memory and written out row by row at the end. Item indices are divided
+// only by compile-time constants. Barriers: 1 for the input, 2 for the
+// joint guide's statistics, 3 a channel, 1 before the output.
 #pragma once
 
 #include "fused_enhance.cuh"
@@ -18,6 +33,10 @@
 namespace llie {
 
 constexpr int MAX_GUIDED_RADIUS = 8;
+constexpr int GT_H = 32;             // output rows of a tile
+constexpr int GT_W = 32;             // output columns of a tile
+constexpr int GUIDED_THREADS = 256;
+constexpr int GP = 8;                // outputs of one item of a pass
 
 struct GuidedParams {
   int radius;      // box radius r, 1..MAX_GUIDED_RADIUS
@@ -28,153 +47,219 @@ struct GuidedParams {
                    // channel guides itself
 };
 
-// The cascade for radius r reads the input tile with a 2r ring,
-// LH x LW = (TILE_H + 4r) x (TILE_W + 4r), and keeps its statistics and the
-// a / b planes on the tile with an r ring, SH x SW = (TILE_H + 2r) x
-// (TILE_W + 2r).
-__host__ __device__ constexpr int guided_lh(int r) { return TILE_H + 4 * r; }
-__host__ __device__ constexpr int guided_lw(int r) { return TILE_W + 4 * r; }
-__host__ __device__ constexpr int guided_sh(int r) { return TILE_H + 2 * r; }
-__host__ __device__ constexpr int guided_sw(int r) { return TILE_W + 2 * r; }
+// The planes of a tile at radius R, in floats. The input (and the joint
+// guide) with a 2R ring: LH x LW, row stride LS; the statistics with an R
+// ring: SH x SW, row stride SS; vertical passes over the input's columns:
+// SH x LW at stride LS; over the statistics' columns: GT_H x SW at SS.
+template <int R>
+struct GuidedGeom {
+  static constexpr int LH = GT_H + 4 * R, LW = GT_W + 4 * R, LS = LW + 1;
+  static constexpr int SH = GT_H + 2 * R, SW = GT_W + 2 * R, SS = SW + 1;
+  static constexpr int LN = LH * LS;  // one input plane
+  static constexpr int VN = SH * LS;  // one vertical pass of the input
+  static constexpr int SN = SH * SS;  // one statistics plane
+  static constexpr int QN = GT_H * SS;  // one vertical pass of the stats
+  static constexpr int ON = GT_H * (GT_W + 1);  // one output plane
+  // x0 x1 x2 g | v1 v2 | s1 s2 | a b | va vb | out x 3
+  static constexpr int FLOATS = 4 * LN + 2 * VN + 4 * SN + 2 * QN + 3 * ON;
+};
 
-// Floats of scratch that guided_tile needs besides the three input planes:
-// the guide (LH x LW), five stats planes (SH x SW) and the vertical-pass
-// buffer (SH x LW).
-__host__ __device__ constexpr int guided_scratch_floats(int r) {
-  return guided_lh(r) * guided_lw(r) + 5 * guided_sh(r) * guided_sw(r) +
-         guided_sh(r) * guided_lw(r);
-}
-
-// Vertical pass of a box mean: src(i, j) over (oh + 2r) rows x vw cols ->
-// sV, oh x vw. Row i of the output is centred on source row i + r.
-template <class Src>
-__device__ void box_vertical(Src src, int oh, int vw, int r, float k,
-                             float* __restrict__ sV, int tid) {
-  for (int e = tid; e < oh * vw; e += NTHREADS) {
-    const int i = e / vw, j = e - (e / vw) * vw;
-    const int ci = i + r;
-    float acc = src(ci, j);
-    for (int t = 1; t <= r; ++t) acc = (acc + src(ci - t, j)) + src(ci + t, j);
-    sV[e] = acc * k;
+// One item of a pass: P outputs from P + 2R values of a window w, out[i]
+// centred on w[i + R].
+template <int R>
+__device__ __forceinline__ void box_run(const float (&w)[GP + 2 * R],
+                                        float k, float (&out)[GP]) {
+#pragma unroll
+  for (int i = 0; i < GP; ++i) {
+    float acc = w[i + R];
+#pragma unroll
+    for (int t = 1; t <= R; ++t) acc = (acc + w[i + R - t]) + w[i + R + t];
+    out[i] = acc * k;
   }
 }
 
-// Horizontal pass at (i, j) of the output: columns j .. j + 2r of row i of
-// sV (row stride vw), centred on j + r.
-__device__ __forceinline__ float box_horizontal_at(const float* __restrict__ sV,
-                                                   int vw, int i, int j, int r,
-                                                   float k) {
-  const float* row = sV + i * vw + j + r;
-  float acc = row[0];
-  for (int t = 1; t <= r; ++t) acc = (acc + row[-t]) + row[t];
-  return acc * k;
+// The first output of item `run` of a pass of n outputs: runs of GP, the
+// last one moved back to end at n (it recomputes a few outputs of the one
+// before it, the same values).
+__device__ __forceinline__ int run_start(int run, int n) {
+  return min(run * GP, n - GP);
 }
 
-// Box mean of src over (oh + 2r) x (ow + 2r) -> dst, oh x ow, through sV.
-// Every thread of the block must call it.
-template <class Src>
-__device__ void box_mean_tile(Src src, int oh, int ow, int r, float k,
-                              float* __restrict__ sV, float* __restrict__ dst,
-                              int tid) {
-  const int vw = ow + 2 * r;
-  box_vertical(src, oh, vw, r, k, sV, tid);
-  __syncthreads();
-  for (int e = tid; e < oh * ow; e += NTHREADS) {
-    const int i = e / ow, j = e - (e / ow) * ow;
-    dst[e] = box_horizontal_at(sV, vw, i, j, r, k);
-  }
-  __syncthreads();
+// Vertical pass items: NC columns x the runs of NR outputs, columns
+// fastest. fn(col, row0) handles one.
+template <int NC, int NR, class Fn>
+__device__ __forceinline__ void vertical_items(int tid, Fn fn) {
+  constexpr int RUNS = (NR + GP - 1) / GP;
+  for (int e = tid; e < NC * RUNS; e += GUIDED_THREADS)
+    fn(e % NC, run_start(e / NC, NR));
 }
 
-// Box mean of an SH x SW plane at the thread's pixel (ty, tx) of the tile.
-// Every thread of the block must call it.
-__device__ inline float box_mean_px(const float* __restrict__ plane, int r,
-                                   float k, float* __restrict__ sV, int tid,
-                                   int ty, int tx) {
-  const int sw = guided_sw(r);
-  box_vertical([&](int i, int j) { return plane[i * sw + j]; }, TILE_H, sw, r,
-               k, sV, tid);
-  __syncthreads();
-  const float v = box_horizontal_at(sV, sw, ty, tx, r, k);
-  __syncthreads();
-  return v;
+// Horizontal pass items: NR rows x the runs of NC outputs, rows fastest.
+template <int NR, int NC, class Fn>
+__device__ __forceinline__ void horizontal_items(int tid, Fn fn) {
+  constexpr int RUNS = (NC + GP - 1) / GP;
+  for (int e = tid; e < NR * RUNS; e += GUIDED_THREADS)
+    fn(e % NR, run_start(e / NR, NC));
 }
 
-// Guided filter for the thread's pixel (ty, tx) of the tile. sX holds three
-// planes of LH x LW, the input tile with a 2r ring: pixel (ty, tx) is at
-// (ty + 2r, tx + 2r). scratch holds guided_scratch_floats(r) floats. Every
-// thread of the block must call it. out[] gets the blended, unclipped value.
-__device__ inline void guided_tile(const float* __restrict__ sX,
-                                   float* __restrict__ scratch,
-                                   const GuidedParams& gp, int tid, int ty,
-                                   int tx, float out[3]) {
-  const int r = gp.radius;
-  const int LW = guided_lw(r), LN = guided_lh(r) * LW;
-  const int SH = guided_sh(r), SW = guided_sw(r), SN = SH * SW;
+// The guided filter of the tile whose input planes (with their 2R ring)
+// are staged in sm[0 .. 3 * LN) at stride LS, pixel (y, x) of the tile at
+// (y + 2R, x + 2R); sm holds GuidedGeom<R>::FLOATS floats. Every thread of
+// the block must call it; it ends with the blended, unclipped tile in
+// out_planes(sm) (3 planes of GT_H x (GT_W + 1)) and a __syncthreads.
+template <int R, bool JOINT>
+__device__ void guided_tile(float* __restrict__ sm, const GuidedParams& gp,
+                            int tid) {
+  using Gm = GuidedGeom<R>;
+  constexpr int LS = Gm::LS, SS = Gm::SS, W = GP + 2 * R;
+  float* sG = sm + 3 * Gm::LN;      // LH x LW: the channel-mean guide
+  float* sV1 = sG + Gm::LN;         // SH x LW: vertical passes
+  float* sV2 = sV1 + Gm::VN;
+  float* sMg = sV2 + Gm::VN;        // SH x SW: box(g)
+  float* sInv = sMg + Gm::SN;       // SH x SW: 1 / (var(g) + eps)
+  float* sA = sInv + Gm::SN;        // SH x SW: a
+  float* sB = sA + Gm::SN;          // SH x SW: b
+  float* sVa = sB + Gm::SN;         // GT_H x SW: vertical passes of a, b
+  float* sVb = sVa + Gm::QN;
+  float* sOut = sVb + Gm::QN;       // 3 x GT_H x (GT_W + 1)
   const float k = gp.k;
-  float* sG = scratch;     // LH x LW: channel-mean guide (joint)
-  float* sMg = sG + LN;    // SH x SW: box(g)
-  float* sInv = sMg + SN;  // SH x SW: box(g*g), then 1 / (var + eps)
-  float* sMp = sInv + SN;  // SH x SW: box(p)
-  float* sA = sMp + SN;    // SH x SW: box(g*p) or box(p*p), then a
-  float* sB = sA + SN;     // SH x SW: b
-  float* sV = sB + SN;     // SH x LW: vertical passes
-  const int ce = (ty + 2 * r) * LW + (tx + 2 * r);
 
-  if (gp.joint) {
-    for (int e = tid; e < LN; e += NTHREADS)
-      sG[e] = (sX[e] + sX[LN + e] + sX[2 * LN + e]) * (1.0f / 3.0f);
+  if constexpr (JOINT) {
+    for (int e = tid; e < Gm::LN; e += GUIDED_THREADS)
+      sG[e] = (sm[e] + sm[Gm::LN + e] + sm[2 * Gm::LN + e]) * (1.0f / 3.0f);
     __syncthreads();
-    box_mean_tile([&](int i, int j) { return sG[i * LW + j]; }, SH, SW, r, k,
-                  sV, sMg, tid);
-    box_mean_tile(
-        [&](int i, int j) {
-          const float g = sG[i * LW + j];
-          return g * g;
-        },
-        SH, SW, r, k, sV, sInv, tid);
-    for (int e = tid; e < SN; e += NTHREADS) {
-      const float var = sInv[e] - sMg[e] * sMg[e];
-      sInv[e] = 1.0f / (var + gp.eps);
-    }
+    // box(g), box(g * g): vertical
+    vertical_items<Gm::LW, Gm::SH>(tid, [&](int c, int r0) {
+      float g[W], v[GP], vv[GP], gg[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        g[i] = sG[(r0 + i) * LS + c];
+        gg[i] = g[i] * g[i];
+      }
+      box_run<R>(g, k, v);
+      box_run<R>(gg, k, vv);
+#pragma unroll
+      for (int i = 0; i < GP; ++i) {
+        sV1[(r0 + i) * LS + c] = v[i];
+        sV2[(r0 + i) * LS + c] = vv[i];
+      }
+    });
+    __syncthreads();
+    // horizontal, then 1 / (var + eps)
+    horizontal_items<Gm::SH, Gm::SW>(tid, [&](int r, int c0) {
+      float w1[W], w2[W], mg[GP], sgg[GP];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        w1[i] = sV1[r * LS + c0 + i];
+        w2[i] = sV2[r * LS + c0 + i];
+      }
+      box_run<R>(w1, k, mg);
+      box_run<R>(w2, k, sgg);
+#pragma unroll
+      for (int i = 0; i < GP; ++i) {
+        const float var = sgg[i] - mg[i] * mg[i];
+        sMg[r * SS + c0 + i] = mg[i];
+        sInv[r * SS + c0 + i] = 1.0f / (var + gp.eps);
+      }
+    });
     __syncthreads();
   }
-  for (int c = 0; c < 3; ++c) {
-    const float* p = sX + c * LN;
-    box_mean_tile([&](int i, int j) { return p[i * LW + j]; }, SH, SW, r, k,
-                  sV, sMp, tid);
-    if (gp.joint) {
-      box_mean_tile(
-          [&](int i, int j) { return sG[i * LW + j] * p[i * LW + j]; }, SH,
-          SW, r, k, sV, sA, tid);
-      for (int e = tid; e < SN; e += NTHREADS) {
-        const float cov = sA[e] - sMg[e] * sMp[e];
-        const float a = cov * sInv[e];
-        sA[e] = a;
-        sB[e] = sMp[e] - a * sMg[e];
+
+  for (int ch = 0; ch < 3; ++ch) {
+    const float* p = sm + ch * Gm::LN;
+    // box(p) and box(g * p) (joint) or box(p * p): vertical, over the rows
+    // of the statistics
+    vertical_items<Gm::LW, Gm::SH>(tid, [&](int c, int r0) {
+      float w1[W], w2[W], v1[GP], v2[GP];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const int at = (r0 + i) * LS + c;
+        w1[i] = p[at];
+        w2[i] = JOINT ? sG[at] * w1[i] : w1[i] * w1[i];
       }
-    } else {
-      box_mean_tile(
-          [&](int i, int j) {
-            const float x = p[i * LW + j];
-            return x * x;
-          },
-          SH, SW, r, k, sV, sA, tid);
-      for (int e = tid; e < SN; e += NTHREADS) {
-        const float m = sMp[e];
-        const float var = sA[e] - m * m;
-        const float a = var / (var + gp.eps);
-        sA[e] = a;
-        sB[e] = m - a * m;
+      box_run<R>(w1, k, v1);
+      box_run<R>(w2, k, v2);
+#pragma unroll
+      for (int i = 0; i < GP; ++i) {
+        sV1[(r0 + i) * LS + c] = v1[i];
+        sV2[(r0 + i) * LS + c] = v2[i];
       }
-    }
+    });
     __syncthreads();
-    const float qa = box_mean_px(sA, r, k, sV, tid, ty, tx);
-    const float qb = box_mean_px(sB, r, k, sV, tid, ty, tx);
-    const float x = p[ce];
-    const float q = qa * (gp.joint ? sG[ce] : x) + qb;
-    out[c] = x + gp.strength * (q - x);
+    // horizontal, then a and b
+    horizontal_items<Gm::SH, Gm::SW>(tid, [&](int r, int c0) {
+      float w1[W], w2[W], m[GP], s2[GP];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        w1[i] = sV1[r * LS + c0 + i];
+        w2[i] = sV2[r * LS + c0 + i];
+      }
+      box_run<R>(w1, k, m);
+      box_run<R>(w2, k, s2);
+#pragma unroll
+      for (int i = 0; i < GP; ++i) {
+        const int at = r * SS + c0 + i;
+        float a, b;
+        if constexpr (JOINT) {
+          const float mg = sMg[at];
+          const float cov = s2[i] - mg * m[i];
+          a = cov * sInv[at];
+          b = m[i] - a * mg;
+        } else {
+          const float var = s2[i] - m[i] * m[i];
+          a = var / (var + gp.eps);
+          b = m[i] - a * m[i];
+        }
+        sA[at] = a;
+        sB[at] = b;
+      }
+    });
+    __syncthreads();
+    // box(a), box(b): vertical over the tile's rows
+    vertical_items<Gm::SW, GT_H>(tid, [&](int c, int r0) {
+      float wa[W], wb[W], va[GP], vb[GP];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        wa[i] = sA[(r0 + i) * SS + c];
+        wb[i] = sB[(r0 + i) * SS + c];
+      }
+      box_run<R>(wa, k, va);
+      box_run<R>(wb, k, vb);
+#pragma unroll
+      for (int i = 0; i < GP; ++i) {
+        sVa[(r0 + i) * SS + c] = va[i];
+        sVb[(r0 + i) * SS + c] = vb[i];
+      }
+    });
+    __syncthreads();
+    // horizontal, then q = box(a) * guide + box(b) and the blend
+    float* o = sOut + ch * Gm::ON;
+    horizontal_items<GT_H, GT_W>(tid, [&](int r, int c0) {
+      float wa[W], wb[W], qa[GP], qb[GP];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        wa[i] = sVa[r * SS + c0 + i];
+        wb[i] = sVb[r * SS + c0 + i];
+      }
+      box_run<R>(wa, k, qa);
+      box_run<R>(wb, k, qb);
+#pragma unroll
+      for (int i = 0; i < GP; ++i) {
+        const int at = (r + 2 * R) * LS + c0 + i + 2 * R;
+        const float x = p[at];
+        const float q = qa[i] * (JOINT ? sG[at] : x) + qb[i];
+        o[r * (GT_W + 1) + c0 + i] = x + gp.strength * (q - x);
+      }
+    });
   }
+  __syncthreads();
+}
+
+// The output planes of a tile's shared memory after guided_tile.
+template <int R>
+__device__ __forceinline__ const float* out_planes(const float* sm) {
+  using Gm = GuidedGeom<R>;
+  return sm + 4 * Gm::LN + 2 * Gm::VN + 4 * Gm::SN + 2 * Gm::QN;
 }
 
 }  // namespace llie

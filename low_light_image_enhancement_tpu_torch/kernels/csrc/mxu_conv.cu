@@ -24,10 +24,23 @@
 // wgmma fed by TMA, the halo rows of a tile staged once in shared memory
 // and each tap a shifted descriptor into them, so a layer moves its bytes
 // about once from device memory. f32, the parity dtype, stays on the CUDA
-// cores (conv3x3.cuh: f32 multiply-adds, one thread per 2 pixels and all
-// output channels, weights in shared memory for a persistent grid); TF32
-// would not hold the f32 bar of 1e-5. The concat of skip connections is
-// never built: the second input tensor is read in place.
+// cores (conv3x3.cuh: f32 multiply-adds, one thread per 2 pixels and a
+// chunk of output channels at a time, weights in shared memory for a
+// persistent grid); TF32 would not hold the f32 bar of 1e-5. The concat of
+// skip connections is never built: the second input tensor is read in
+// place.
+//
+// Widths. Both forms take every width the nets' configs reach
+// (curve_features and curve_iters): input groups of a multiple of 8
+// channels (the wrapper pads other widths once, since TMA needs 16-byte
+// strides), any Cout, padded to a multiple of the chunk width nc with zero
+// weights and bias and stored unpadded. The bf16 form holds one chunk's
+// weights in shared memory beside a ring of at least ROWS + 2 slots, each
+// slot the halo rows of a group of input pieces where whole rows do not
+// fit (conv3x3_wgmma.cuh, piece groups), so it takes up to 16 pieces of 64
+// channels (Cin 1024: curve_features up to 512) at dilation 1; past that
+// it refuses the layer (llie_conv_plan returns 0, and
+// mxu_conv.py _check_kernel_shapes raises before the launch).
 #include "conv3x3.cuh"
 #include "conv3x3_wgmma.cuh"
 
@@ -35,79 +48,104 @@ using namespace llie::conv;
 
 namespace {
 
-template <int COUT>
+// wsm: the weights and bias fit shared memory (else they are read in
+// place)
+template <int NC>
 __global__ void __launch_bounds__(CONV_THREADS)
 conv3x3_kernel(const float* xa, int ca, const float* xb, int cb,
-               const float* w, const float* bias, float* out, int B, int H,
-               int W, int dil, int act) {
+               const float* w, const float* bias, float* out, int cout,
+               int coutp, int B, int H, int W, int dil, int act, int wsm) {
   extern __shared__ float sw[];
-  conv3x3_layer<float, COUT, false>(xa, ca, xb, cb, w, bias, out, B, H, W,
-                                    dil, act, sw);
+  conv3x3_layer<float, NC, false>(xa, ca, xb, cb, w, bias, out, cout, coutp,
+                                  B, H, W, dil, act, wsm ? sw : nullptr);
 }
 
-template <int COUT>
+template <int NC>
 int launch_direct(const void* xa, int ca, const void* xb, int cb,
-                  const float* w, const float* bias, void* out, int B, int H,
-                  int W, int dil, int act, cudaStream_t stream) {
-  const void* kern = (const void*)conv3x3_kernel<COUT>;
-  const int smem = (int)sizeof(float) * layer_smem_floats(ca + cb, COUT);
+                  const float* w, const float* bias, void* out, int cout,
+                  int B, int H, int W, int dil, int act,
+                  cudaStream_t stream) {
+  const void* kern = (const void*)conv3x3_kernel<NC>;
+  const int coutp = (cout + NC - 1) / NC * NC;
+  const int floats = layer_smem_floats(ca + cb, coutp);
+  const int wsm = floats <= MAX_SMEM_FLOATS;
+  const int smem = wsm ? (int)sizeof(float) * floats : 0;
   int grid = 0;
   const int rc = persistent_grid(kern, smem, (long long)B * H * W, &grid);
   if (rc != 0) return rc;
-  conv3x3_kernel<COUT><<<grid, CONV_THREADS, smem, stream>>>(
-      (const float*)xa, ca, (const float*)xb, cb, w, bias, (float*)out, B, H,
-      W, dil, act);
+  conv3x3_kernel<NC><<<grid, CONV_THREADS, smem, stream>>>(
+      (const float*)xa, ca, (const float*)xb, cb, w, bias, (float*)out, cout,
+      coutp, B, H, W, dil, act, wsm);
   return (int)cudaGetLastError();
 }
 
-// One layer at Cout N: bf16 on the tensor cores, f32 on the CUDA cores.
-template <int N>
+// One layer in chunks of NC output channels: bf16 on the tensor cores, f32
+// on the CUDA cores.
+template <int NC>
 int launch(int bf16, const void* xa, int ca, const void* xb, int cb,
-           const void* w, const float* bias, void* out, int B, int H, int W,
-           int dil, int act, cudaStream_t stream) {
+           const void* w, const float* bias, void* out, int cout, int B,
+           int H, int W, int dil, int act, cudaStream_t stream) {
   if (bf16)
-    return llie::wgmma_conv::launch<N>(xa, ca, xb, cb, w, bias, out, B, H, W,
-                                       dil, act, stream);
-  return launch_direct<N>(xa, ca, xb, cb, (const float*)w, bias, out, B, H,
-                          W, dil, act, stream);
+    return llie::wgmma_conv::launch<NC>(xa, ca, xb, cb, w, bias, out, cout,
+                                        B, H, W, dil, act, stream);
+  return launch_direct<NC>(xa, ca, xb, cb, (const float*)w, bias, out, cout,
+                           B, H, W, dil, act, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// The chunk width nc at which llie_conv3x3 runs a bf16 layer of input
+// groups of ca and cb channels (multiples of 8; cb may be 0) -> cout at
+// dilation dil (conv3x3_wgmma.cuh chunk_width), or 0 where the layer does
+// not fit the kernel's shared memory.
+int llie_conv_plan(int ca, int cb, int cout, int dil) {
+  if (ca < CIN_STEP || ca % CIN_STEP || cb < 0 || cb % CIN_STEP ||
+      cout < 1 || dil < 1)
+    return 0;
+  return llie::wgmma_conv::chunk_width(ca, cb, cout, dil);
+}
+
 // NHWC (B, H, W, ca) [+ (B, H, W, cb)] -> (B, H, W, cout), all bf16 (`bf16`
-// 1) or all f32; w is the packed bf16 of mxu_conv.py
-// pack_conv_weights_wgmma (bf16: per tap and piece a swizzled Cout x CP
-// matrix) or the packed f32 (9, ca + cb, cout) of pack_conv_weights (f32),
-// bias f32 (cout). ca, cb multiples of 8
-// (cb may be 0, xb then unused), cout one of 8, 16, 24, 32, dil >= 1, act
-// an Act. Returns cudaGetLastError() after the launch (0 when it was
-// accepted), or the error that kept it from launching.
+// 1) or all f32, in chunks of nc output channels (a multiple of 8 up to 64
+// that divides cout rounded up to 8: llie_conv_plan's for bf16,
+// mxu_conv.py chunk_channels for f32); w is the packed bf16 of mxu_conv.py
+// pack_conv_weights_wgmma (bf16: per chunk, tap and piece a swizzled nc x
+// CP matrix) or the packed f32
+// (9, ca + cb, coutp) of pack_conv_weights (f32), bias f32 (coutp), coutp
+// = cout rounded up to nc. ca, cb multiples of 8 (cb may be 0, xb then
+// unused), dil >= 1, act an Act. Returns cudaGetLastError() after the
+// launch (0 when it was accepted), or the error that kept it from
+// launching (cudaErrorInvalidValue for a bf16 layer too wide for shared
+// memory).
 int llie_conv3x3(const void* xa, int ca, const void* xb, int cb,
-                 const void* w, const void* bias, void* out, int cout, int B,
-                 int H, int W, int dil, int act, int bf16, void* stream) {
+                 const void* w, const void* bias, void* out, int cout,
+                 int nc, int B, int H, int W, int dil, int act, int bf16,
+                 void* stream) {
   if (B < 1 || H < 1 || W < 1 || dil < 1 || ca < CIN_STEP ||
       ca % CIN_STEP || cb < 0 || cb % CIN_STEP || act < ACT_NONE ||
-      act > ACT_TANH)
+      act > ACT_TANH || cout < 1 || nc % 8 || (cout + 7) / 8 * 8 % nc)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const float* bs = (const float*)bias;
-  switch (cout) {
-    case 8:
-      return launch<8>(bf16, xa, ca, xb, cb, w, bs, out, B, H, W, dil, act, s);
-    case 16:
-      return launch<16>(bf16, xa, ca, xb, cb, w, bs, out, B, H, W, dil, act,
-                        s);
-    case 24:
-      return launch<24>(bf16, xa, ca, xb, cb, w, bs, out, B, H, W, dil, act,
-                        s);
-    case 32:
-      return launch<32>(bf16, xa, ca, xb, cb, w, bs, out, B, H, W, dil, act,
-                        s);
+#define LLIE_CONV_CASE(NC)                                                  \
+  case NC:                                                                  \
+    return launch<NC>(bf16, xa, ca, xb, cb, w, bs, out, cout, B, H, W, dil, \
+                      act, s);
+  switch (nc) {
+    LLIE_CONV_CASE(8)
+    LLIE_CONV_CASE(16)
+    LLIE_CONV_CASE(24)
+    LLIE_CONV_CASE(32)
+    LLIE_CONV_CASE(40)
+    LLIE_CONV_CASE(48)
+    LLIE_CONV_CASE(56)
+    LLIE_CONV_CASE(64)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef LLIE_CONV_CASE
 }
 
 }  // extern "C"

@@ -25,17 +25,21 @@
 // ~20 operations per byte where arithmetic would bound it, so device
 // memory bounds K5 on paper.
 //
-// What the design does about it. One thread per output pixel on a 16 x 32
-// tile. The tile's input with its ring (1 for the bilateral, 2r for the
-// guided filter) is staged once in shared memory, and every intermediate
-// (the first bilateral pass; the guide, its box means, the per-channel
-// statistics and the a / b planes of the guided filter) stays there, so
-// device memory sees each input value once per tile plus the ring's
-// overlap. The guided scratch grows with r: 48,384 bytes at r = 4, 88,064
-// at r = 8, above the 48 KB of static shared memory, so the launch opts in
-// to dynamic shared memory (cudaFuncAttributeMaxDynamicSharedMemorySize)
-// whenever it needs more; the tile stays 16 x 32 at every radius. Speed
-// (more pixels per thread, a ring shared between tiles) is later work.
+// What the design does about it. The bilateral arms: one thread per output
+// pixel on a 16 x 32 tile, the tile's input with a ring of 1 staged once
+// in shared memory with the first bilateral pass. The guided arms
+// (guided.cuh): a 32 x 32 tile of 256 threads, its input with a 2r ring
+// staged once (and the joint guide beside it); every box mean runs as a
+// vertical and a horizontal pass of items of 8 outputs, each summed in
+// registers from the 8 + 2r values under it, so shared memory is read
+// about twice a value and pass at r = 4 rather than 2r + 1 times, with
+// about 13 barriers a tile rather than 33; the algebra runs in the
+// horizontal items' registers, and the blended tile leaves through shared
+// memory in whole rows. The radius and the guide are template parameters
+// (8 radii x joint / per channel), so every window index is a constant.
+// A tile at r = 4 holds 90 KB of shared memory (two blocks an SM), at r =
+// 8 142 KB: the launch opts in to dynamic shared memory past 48 KB
+// (cudaFuncAttributeMaxDynamicSharedMemorySize).
 //
 // Numerics. --fmad=false and no --use_fast_math (see _build.py); the
 // device code repeats the plain versions' operations in their order
@@ -80,46 +84,70 @@ denoise_bilateral_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
-// Guided arms: the input tile with a 2r ring, then guided_tile.
-__global__ void __launch_bounds__(NTHREADS)
+// Guided arms: the input tile with a 2r ring, then guided_tile, then the
+// clipped tile out.
+template <int R, bool JOINT>
+__global__ void __launch_bounds__(GUIDED_THREADS)
 denoise_guided_kernel(const float* __restrict__ in, float* __restrict__ out,
                       int HB, int WB, int halo, int rows, int m,
                       GuidedParams gp) {
+  using Gm = GuidedGeom<R>;
   extern __shared__ float smem[];
-  const int R = gp.radius;
-  const int LW = guided_lw(R), LN = guided_lh(R) * LW;
-  float* sX = smem;              // 3 x LH x LW: the input tile
-  float* scratch = sX + 3 * LN;  // guided_scratch_floats(R)
-
   const int tid = threadIdx.x;
-  const int ty = tid / TILE_W, tx = tid - (tid / TILE_W) * TILE_W;
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+  const int y0 = blockIdx.y * GT_H, x0 = blockIdx.x * GT_W;
   const size_t plane = (size_t)HB * WB;
   const float* blk = in + (size_t)blockIdx.z * 3 * plane;
   const int lo = halo - m, hi = halo + rows + m - 1;
   const int r0 = halo + y0 - 2 * R, c0 = x0 - 2 * R;
 
-  for (int e = tid; e < LN; e += NTHREADS) {
-    const int i = e / LW, j = e - (e / LW) * LW;
+  for (int e = tid; e < Gm::LH * Gm::LW; e += GUIDED_THREADS) {
+    const int i = e / Gm::LW, j = e % Gm::LW;
     const size_t at = (size_t)clampi(r0 + i, lo, hi) * WB
                       + clampi(c0 + j, 0, WB - 1);
-    for (int c = 0; c < 3; ++c) sX[c * LN + e] = blk[c * plane + at];
+    for (int c = 0; c < 3; ++c)
+      smem[c * Gm::LN + i * Gm::LS + j] = blk[c * plane + at];
   }
   __syncthreads();
 
-  float o[3];
-  guided_tile(sX, scratch, gp, tid, ty, tx, o);
-  const int r = y0 + ty, c = x0 + tx;
-  if (r < rows && c < WB) {
-    float* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
-    for (int ch = 0; ch < 3; ++ch) q[(size_t)ch * rows * WB] = clip01(o[ch]);
+  guided_tile<R, JOINT>(smem, gp, tid);
+  const float* o = out_planes<R>(smem);
+  float* q = out + (size_t)blockIdx.z * 3 * rows * WB;
+  for (int e = tid; e < GT_H * GT_W; e += GUIDED_THREADS) {
+    const int i = e / GT_W, j = e % GT_W;
+    const int r = y0 + i, c = x0 + j;
+    if (r < rows && c < WB)
+      for (int ch = 0; ch < 3; ++ch)
+        q[(size_t)ch * rows * WB + (size_t)r * WB + c] =
+            clip01(o[ch * Gm::ON + i * (GT_W + 1) + j]);
   }
 }
 
-// Dynamic shared memory of the guided arm at radius r, in bytes.
-static int guided_smem_bytes(int r) {
-  const int ln = guided_lh(r) * guided_lw(r);
-  return (int)sizeof(float) * (3 * ln + guided_scratch_floats(r));
+template <int R, bool JOINT>
+int launch_guided(const float* in, float* out, int B, int HB, int WB,
+                  int halo, int rows, int m, const GuidedParams& gp,
+                  cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * GuidedGeom<R>::FLOATS;
+  const void* kern = (const void*)denoise_guided_kernel<R, JOINT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((WB + GT_W - 1) / GT_W, (rows + GT_H - 1) / GT_H, B);
+  denoise_guided_kernel<R, JOINT><<<grid, GUIDED_THREADS, smem, stream>>>(
+      in, out, HB, WB, halo, rows, m, gp);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_guided_r(const float* in, float* out, int B, int HB, int WB,
+                    int halo, int rows, int m, const GuidedParams& gp,
+                    cudaStream_t stream) {
+  return gp.joint
+             ? launch_guided<R, true>(in, out, B, HB, WB, halo, rows, m, gp,
+                                      stream)
+             : launch_guided<R, false>(in, out, B, HB, WB, halo, rows, m, gp,
+                                       stream);
 }
 
 }  // namespace llie
@@ -140,7 +168,9 @@ int llie_tiled_denoise_f32(const void* in, void* out, int B, int HB, int WB,
                            float g_eps, void* stream) {
   if (rows < 1 || halo < m || HB < halo + rows + m || WB < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((WB + TILE_W - 1) / TILE_W, (rows + TILE_H - 1) / TILE_H, B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* fin = (const float*)in;
+  float* fout = (float*)out;
   if (guided) {
     if (g_radius < 1 || g_radius > MAX_GUIDED_RADIUS || 2 * g_radius > m)
       return (int)cudaErrorInvalidValue;
@@ -150,15 +180,22 @@ int llie_tiled_denoise_f32(const void* in, void* out, int B, int HB, int WB,
     gp.eps = g_eps;
     gp.strength = strength;
     gp.joint = joint;
-    const int smem = guided_smem_bytes(g_radius);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          denoise_guided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return (int)err;
+    switch (g_radius) {
+#define LLIE_GUIDED_CASE(R) \
+  case R:                   \
+    return launch_guided_r<R>(fin, fout, B, HB, WB, halo, rows, m, gp, st);
+      LLIE_GUIDED_CASE(1)
+      LLIE_GUIDED_CASE(2)
+      LLIE_GUIDED_CASE(3)
+      LLIE_GUIDED_CASE(4)
+      LLIE_GUIDED_CASE(5)
+      LLIE_GUIDED_CASE(6)
+      LLIE_GUIDED_CASE(7)
+      LLIE_GUIDED_CASE(8)
+#undef LLIE_GUIDED_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
     }
-    denoise_guided_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)in, (float*)out, HB, WB, halo, rows, m, gp);
   } else {
     if (m < 1) return (int)cudaErrorInvalidValue;
     TailParams tp;
@@ -168,9 +205,11 @@ int llie_tiled_denoise_f32(const void* in, void* out, int B, int HB, int WB,
     tp.kind = kind;
     tp.joint = joint;
     tp.sep = sep;
+    const dim3 grid((WB + TILE_W - 1) / TILE_W, (rows + TILE_H - 1) / TILE_H,
+                    B);
     const size_t smem = sizeof(float) * (3 * YN + 3 * PN);
-    denoise_bilateral_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)in, (float*)out, HB, WB, halo, rows, m, tp);
+    denoise_bilateral_kernel<<<grid, NTHREADS, smem, st>>>(fin, fout, HB, WB,
+                                                          halo, rows, m, tp);
   }
   return (int)cudaGetLastError();
 }

@@ -6,11 +6,13 @@ PyTorch version and launch count.
 ``apply_fcn_cascade`` its ``apply_fcn_cascade``: the fcn net with layers
 c2-c7 (24 channels, dilations 2, 4, 8, 16, 32, 1, bias and leaky 0.2 in
 f32, one cast a layer) in one launch of the CUDA kernel in
-``csrc/fcn_cascade.cu``. Each layer sees conv-SAME zeros beyond the
-tensor, as each layer of the JAX cascade does beyond the block, so the
-stack equals K6b applied layer by layer. The wrapper dispatches on the
-device of its input alone: a CPU tensor goes to ``fcn_cascade_plain``, a
-CUDA tensor to the kernel (or the call raises).
+``csrc/fcn_cascade.cu``: bf16 runs K6's tensor-core layer, f32 its
+CUDA-core layer, each layer after a grid-wide barrier. Each layer sees
+conv-SAME zeros beyond the tensor, as each layer of the JAX cascade does
+beyond the block, so the stack equals K6b applied layer by layer (bit for
+bit on the card, in both dtypes). The wrapper dispatches on the device of
+its input alone: a CPU tensor goes to ``fcn_cascade_plain``, a CUDA tensor
+to the kernel (or the call raises).
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
 )
 from low_light_image_enhancement_tpu_torch.kernels.mxu_conv import (
     _check_aligned,
-    _check_kernel_shapes,
     _check_layer,
     conv3x3_plain,
     pack_conv_weights,
+    pack_conv_weights_wgmma,
     packed_params,
 )
 from low_light_image_enhancement_tpu_torch.models.fcn import (
@@ -39,8 +41,9 @@ from low_light_image_enhancement_tpu_torch.models.fcn import (
 )
 from low_light_image_enhancement_tpu_torch.models.layers import as_dtype
 
-# the kernel's limit on the layers of one launch
+# the kernel's limits on the layers of one launch and on their width
 MAX_LAYERS = 8
+CASCADE_CHANNELS = (8, 16, 24, 32)
 
 
 def fcn_cascade_plain(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -75,13 +78,24 @@ def fcn_cascade_mxu(x: torch.Tensor, ws: Sequence[torch.Tensor],
         return fcn_cascade_plain(x, ws, bs, dilations)
     lib = _build.load_library()
     _check_aligned(x)
-    _check_kernel_shapes((c,), c)
+    if c not in CASCADE_CHANNELS:
+        raise ValueError(f"the cascade kernel takes C in {CASCADE_CHANNELS}"
+                         f", got {c}")
     dt = x.dtype
-    wk, bk = packed_params(
-        ws + bs, dt,
-        lambda: (torch.stack([pack_conv_weights(w, dt) for w in ws]),
-                 torch.stack([b.detach().float() for b in bs])),
-        form="cascade")
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        wk, bk = packed_params(
+            ws + bs, dt,
+            lambda: (torch.cat([pack_conv_weights_wgmma(w, (c,)).reshape(-1)
+                                for w in ws]),
+                     torch.stack([b.detach().float() for b in bs])),
+            form="cascade wgmma")
+    else:
+        wk, bk = packed_params(
+            ws + bs, dt,
+            lambda: (torch.stack([pack_conv_weights(w, dt) for w in ws]),
+                     torch.stack([b.detach().float() for b in bs])),
+            form="cascade")
     out = torch.empty_like(x)
     scratch = torch.empty_like(x)
     bsz, h, w, _ = x.shape
@@ -90,7 +104,7 @@ def fcn_cascade_mxu(x: torch.Tensor, ws: Sequence[torch.Tensor],
         rc = lib.llie_fcn_cascade(
             x.data_ptr(), scratch.data_ptr(), out.data_ptr(), wk.data_ptr(),
             bk.data_ptr(), (ctypes.c_int * nl)(*dilations), nl, c, bsz, h, w,
-            int(dt == torch.bfloat16), stream)
+            int(bf16), stream)
     _raise_on(rc, lib, "fcn_cascade")
     fcn_cascade_mxu.launches += 1
     return out

@@ -19,13 +19,21 @@ activations and the weights in bf16 (or f32), an f32 accumulator, the bias
 added in f32, the activation in f32, one cast to the input dtype. Each
 wrapper dispatches on the device of its input alone: a CPU tensor goes to
 ``conv3x3_plain``, a CUDA tensor to the kernel (or the call raises).
+
+Widths: every width the nets' configs reach. Cout runs in chunks of
+``chunk_channels(Cout)`` output channels, Cout padded to a multiple of 8
+with zero weights and bias and stored unpadded (curve_iters 4's head is 12
+channels); an input group whose width is not a multiple of 8 (a
+``curve_features`` of 20) is copied once, zero-padded, since TMA reads
+16-byte strides. Only the bf16 form has a limit, its shared memory and
+its table of input pieces (``_check_kernel_shapes``).
 """
 
 from __future__ import annotations
 
 import threading
 import weakref
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,9 +51,10 @@ ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
 }
 _ACT_CODE = {"none": 0, "relu": 1, "leaky": 2, "tanh": 3}
-# the kernel's output widths and its channel step (one 16-byte bf16 read)
-KERNEL_COUTS = (8, 16, 24, 32)
+# the kernel's channel step (one 16-byte bf16 read) and its widest chunk of
+# output channels (a consumer's accumulators: 64 registers a thread)
 CIN_STEP = 8
+MAX_CHUNK = 64
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -91,12 +100,43 @@ def packed_params(sources: Sequence[torch.Tensor], dtype: torch.dtype,
         return packed
 
 
-def pack_conv_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(Cout, Cin, 3, 3) -> the kernel's f32 (9, Cin, Cout), tap-major
-    (dy, dx), each value rounded to ``dtype`` first."""
-    cout, cin = w.shape[:2]
-    return w.detach().to(dtype).float().permute(2, 3, 1, 0) \
-        .reshape(9, cin, cout).contiguous()
+def padded(c: int) -> int:
+    """c channels rounded up to the kernels' step of 8."""
+    return -(-c // CIN_STEP) * CIN_STEP
+
+
+def chunk_channels(cout: int) -> int:
+    """The output channels the kernels run at a time for a layer of
+    ``cout``: the widest multiple of 8 up to 64 that divides
+    ``padded(cout)`` (csrc/mxu_conv.cu takes it as ``nc``)."""
+    c8 = padded(cout) // CIN_STEP
+    return CIN_STEP * max(d for d in range(1, MAX_CHUNK // CIN_STEP + 1)
+                          if c8 % d == 0)
+
+
+def _pad_weights(w: torch.Tensor, groups: Sequence[int]) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> (padded(Cout), sum of padded(groups), 3, 3):
+    zero output rows past Cout and zero input channels past each group's
+    width, as the kernels see the padded tensors."""
+    parts, start = [], 0
+    for c in groups:
+        parts.append(F.pad(w[:, start:start + c],
+                           (0, 0, 0, 0, 0, padded(c) - c)))
+        start += c
+    wp = torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+    return F.pad(wp, (0, 0, 0, 0, 0, 0, 0, padded(w.shape[0]) - w.shape[0]))
+
+
+def pack_conv_weights(w: torch.Tensor, dtype: torch.dtype,
+                      groups: Sequence[int] = ()) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) with Cin the concat of ``groups`` (one group by
+    default) -> the CUDA-core kernel's f32 (9, Cin', Cout'), tap-major (dy,
+    dx), each value rounded to ``dtype`` first; Cin' and Cout' padded to
+    multiples of 8 with zeros (``_pad_weights``)."""
+    wp = _pad_weights(w.detach().to(dtype).float(),
+                      tuple(groups) or (w.shape[1],))
+    cout, cin = wp.shape[:2]
+    return wp.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
 
 
 def piece_channels(c: int) -> int:
@@ -106,36 +146,44 @@ def piece_channels(c: int) -> int:
     return 16 if c <= 16 else 32 if c <= 32 else 64
 
 
-def pack_conv_weights_wgmma(w: torch.Tensor,
-                            groups: Sequence[int]) -> torch.Tensor:
+def pack_conv_weights_wgmma(w: torch.Tensor, groups: Sequence[int],
+                            nc: Optional[int] = None) -> torch.Tensor:
     """(Cout, Cin, 3, 3) with Cin the concat of ``groups`` -> the
-    tensor-core kernel's bf16 B operand, flat (9, ...): for each tap (dy,
-    dx) and each piece of each group (``piece_channels`` wide, zeros past
-    the group's width), a Cout x CP K-major matrix, an output channel's CP
-    inputs one row of 2 * CP bytes, its 16-byte chunks XORed with bits 7-9
-    of their byte offset (the 32/64/128-byte swizzle the kernel's
+    tensor-core kernel's bf16 B operand, (9 * chunks, ...): Cout padded to
+    a multiple of 8 with zero rows and cut into chunks of ``nc`` channels
+    (default ``chunk_channels(Cout)``); for each chunk, each tap (dy, dx)
+    and each piece of each group (``piece_channels`` wide, zeros past the
+    group's width), an NC x CP K-major matrix, an output channel's CP
+    inputs one row of 2 * CP bytes, its 16-byte chunks XORed with bits
+    7-9 of their byte offset (the 32/64/128-byte swizzle the kernel's
     descriptors name), each matrix starting on a 1024-byte boundary
     (csrc/conv3x3_wgmma.cuh plan())."""
     cout = w.shape[0]
+    nc = nc or chunk_channels(cout)
     wt = w.detach().to(torch.bfloat16)
-    mats = []
-    start = 0
-    for c in groups:
-        cp = piece_channels(c)
-        for c0 in range(0, c, cp):
-            cw = min(cp, c - c0)
-            m = F.pad(wt[:, start + c0:start + c0 + cw],
-                      (0, 0, 0, 0, 0, cp - cw))
-            m = m.permute(2, 3, 0, 1).reshape(9, cout * cp)
-            # element e of the row-major (Cout, CP) matrix lies at byte 2e:
-            # its 16-byte chunk is XORed with bits 7.. of the byte offset
-            e = torch.arange(cout * cp, device=w.device)
-            flat = torch.empty_like(m)
-            flat[:, e ^ (((e >> 6) & (cp // 8 - 1)) << 3)] = m
-            span = -(-cout * cp // 512) * 512  # 1024 bytes
-            mats.append(F.pad(flat, (0, span - cout * cp)))
-        start += c
-    return torch.cat(mats, 1).contiguous()
+    wt = F.pad(wt, (0, 0, 0, 0, 0, 0, 0, padded(cout) - cout))
+    chunks = []
+    for n0 in range(0, padded(cout), nc):
+        mats = []
+        start = 0
+        for c in groups:
+            cp = piece_channels(c)
+            for c0 in range(0, c, cp):
+                cw = min(cp, c - c0)
+                m = F.pad(wt[n0:n0 + nc, start + c0:start + c0 + cw],
+                          (0, 0, 0, 0, 0, cp - cw))
+                m = m.permute(2, 3, 0, 1).reshape(9, nc * cp)
+                # element e of the row-major (NC, CP) matrix lies at byte
+                # 2e: its 16-byte chunk is XORed with bits 7.. of the byte
+                # offset
+                e = torch.arange(nc * cp, device=w.device)
+                flat = torch.empty_like(m)
+                flat[:, e ^ (((e >> 6) & (cp // 8 - 1)) << 3)] = m
+                span = -(-nc * cp // 512) * 512  # 1024 bytes
+                mats.append(F.pad(flat, (0, span - nc * cp)))
+            start += c
+        chunks.append(torch.cat(mats, 1))
+    return torch.cat(chunks, 0).contiguous()
 
 
 def _check_layer(xs: Sequence[torch.Tensor], w: torch.Tensor,
@@ -166,12 +214,26 @@ def _check_layer(xs: Sequence[torch.Tensor], w: torch.Tensor,
         raise ValueError(f"dilation must be >= 1: {dilation}")
 
 
-def _check_kernel_shapes(cins: Sequence[int], cout: int) -> None:
-    if cout not in KERNEL_COUTS or any(c % CIN_STEP for c in cins):
+def _check_kernel_shapes(lib, cins: Sequence[int], cout: int,
+                         dilation: int, bf16: bool) -> int:
+    """The chunk width the kernel runs the layer at (for bf16 the library's
+    ``llie_conv_plan``, for f32 ``chunk_channels``). Raises where it cannot
+    take the layer: only the bf16 form, whose block holds one chunk of the
+    weights beside a ring of at least four slots of halo rows (of a group
+    of input pieces each) in 227 KB of shared memory, and at most 16
+    pieces: Cin up to 1024 at dilation 1 (curve_features up to 512)."""
+    if not bf16:
+        return chunk_channels(cout)
+    ca, cb = (padded(c) for c in (tuple(cins) + (0,))[:2])
+    nc = lib.llie_conv_plan(ca, cb, cout, dilation)
+    if nc == 0:
         raise ValueError(
-            f"the conv kernel takes groups of a multiple of {CIN_STEP} "
-            f"channels and Cout in {KERNEL_COUTS}, got {tuple(cins)} -> "
-            f"{cout}")
+            f"the bf16 conv kernel takes at most 16 pieces of 64 input "
+            f"channels (Cin 1024, curve_features up to 512) and holds one "
+            f"chunk of the weights beside four slots of halo rows in 227 KB "
+            f"of shared memory; groups {tuple(cins)} -> {cout} at dilation "
+            f"{dilation} do not fit")
+    return nc
 
 
 def _check_aligned(t: torch.Tensor) -> None:
@@ -186,29 +248,34 @@ def _conv3x3(xs, w, b, act, dilation, counter):
     if xs[0].device.type == "cpu":
         return conv3x3_plain(xs, w, b, act, dilation)
     lib = _build.load_library()
-    for x in xs:
-        _check_aligned(x)
-    _check_kernel_shapes([x.shape[-1] for x in xs], w.shape[0])
     x0 = xs[0]
     dt = x0.dtype
     bf16 = dt == torch.bfloat16
-    bsz, h, wd, ca = x0.shape
+    groups = tuple(x.shape[-1] for x in xs)
+    cout = w.shape[0]
+    # a group of a width off the step of 8: one zero-padded copy
+    xs = tuple(x if padded(x.shape[-1]) == x.shape[-1]
+               else F.pad(x, (0, padded(x.shape[-1]) - x.shape[-1]))
+               for x in xs)
+    for x in xs:
+        _check_aligned(x)
+    nc = _check_kernel_shapes(lib, groups, cout, dilation, bf16)
+    bsz, h, wd, ca = xs[0].shape
     xb, cb = (xs[1], xs[1].shape[-1]) if len(xs) > 1 else (None, 0)
-    groups = (ca, cb) if cb else (ca,)
     wk, bk = packed_params(
         (w, b), dt,
-        lambda: (pack_conv_weights_wgmma(w, groups) if bf16
-                 else pack_conv_weights(w, dt),
-                 b.detach().float().contiguous()),
-        form=f"wgmma {groups}" if bf16 else "direct")
-    cout = w.shape[0]
+        lambda: (pack_conv_weights_wgmma(w, groups, nc) if bf16
+                 else pack_conv_weights(w, dt, groups),
+                 F.pad(b.detach().float(), (0, padded(cout) - cout))),
+        form=f"wgmma {groups} {nc}" if bf16 else f"direct {groups}")
     out = torch.empty((bsz, h, wd, cout), dtype=dt, device=x0.device)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.llie_conv3x3(
-            x0.data_ptr(), ca, None if xb is None else xb.data_ptr(), cb,
-            wk.data_ptr(), bk.data_ptr(), out.data_ptr(), cout, bsz, h, wd,
-            dilation, _ACT_CODE[act], int(bf16), stream)
+            xs[0].data_ptr(), ca, None if xb is None else xb.data_ptr(), cb,
+            wk.data_ptr(), bk.data_ptr(), out.data_ptr(), cout, nc, bsz, h,
+            wd, dilation, _ACT_CODE[act],
+            int(bf16), stream)
     _raise_on(rc, lib, "conv3x3")
     counter.launches += 1
     return out

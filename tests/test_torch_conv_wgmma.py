@@ -3,8 +3,9 @@
 The kernel runs only on the card. What it reads is fixed on the host: the
 bf16 weights of ``mxu_conv.pack_conv_weights_wgmma`` and the order in which
 it walks K (tap, then the pieces of each input group, ``piece_channels``
-wide with zero rows past the group's width, 16 channels a step). Two
-models of that walk are held here to ``conv3x3_plain``:
+wide with zero rows past the group's width, 16 channels a step), chunk by
+chunk of output channels (Cout padded to a multiple of 8). Two models of
+that walk are held here to ``conv3x3_plain``:
 
 - an im2col GEMM over the packed matrix, K in the kernel's order;
 - the kernel's shared-memory walk itself: its strips and ring of halo
@@ -14,8 +15,12 @@ models of that walk are held here to ``conv3x3_plain``:
   past the group's channels), and each wgmma operand read through its
   K-major swizzled descriptor (rows of 2 * CP bytes, 8-row groups at SBO
   = 8 rows, 16-byte chunks XORed with bits 7-9 of their address), the A
-  start moved by dx * d pixels and 32 bytes a k16 step, with the geometry
-  of ``plan()``.
+  start moved by dx * d pixels and 32 bytes a k16 step, the grid's slices
+  of output chunks each holding its own weights, the epilogue storing
+  only the layer's channels, and the piece groups of the widest layers
+  (a slot holding some of a row's pieces, the accumulators held across
+  them), with the geometry of this file's mirror of the kernel's plan
+  (``wgmma_plan``: llie_conv_plan's chunk width and plan()).
 
 Bars: float32 within 1e-5, bf16 within one bf16 step of the value (see
 tests/test_torch_mxu_conv.py ``assert_within``).
@@ -32,7 +37,11 @@ F32_BAR = 1e-5
 # (groups, Cout, act, dilation, (H, W)): fcn's 24->24 layers at d 1, 2 and
 # 32, the curve CNN's and decom's 32->32 (also over several strips), the
 # curve CNN's 32+32->32 and 32+32->24, and a dilation past the widest
-# contiguous halo row (three boxes a row)
+# contiguous halo row (three boxes a row); the widths other configs reach:
+# the head at curve_iters 4 (Cout 12, padded to 16) and 16 (48),
+# curve_features 64 (64->64, the 64+64 concat in two 64-channel groups,
+# whose weights the grid holds in two slices, and its head at 16 iters),
+# and the widest (below)
 _CASES = {
     "24-24-leaky-d1": ((24,), 24, "leaky", 1, (9, 70)),
     "24-24-leaky-d2": ((24,), 24, "leaky", 2, (11, 70)),
@@ -43,6 +52,16 @@ _CASES = {
     "64cat-32-relu": ((32, 32), 32, "relu", 1, (7, 45)),
     "64cat-24-tanh": ((32, 32), 24, "tanh", 1, (7, 45)),
     "24-24-leaky-d66": ((24,), 24, "leaky", 66, (70, 140)),
+    "64cat-12-tanh": ((32, 32), 12, "tanh", 1, (7, 45)),
+    "64cat-48-tanh": ((32, 32), 48, "tanh", 1, (7, 45)),
+    "64-64-relu": ((64,), 64, "relu", 1, (7, 70)),
+    "128cat-64-relu": ((64, 64), 64, "relu", 1, (7, 45)),
+    "128cat-48-tanh": ((64, 64), 48, "tanh", 1, (5, 45)),
+    # curve_features 160 and 512: more pieces than whole halo rows leave
+    # room for, so a slot holds a group of pieces (c5 at 160, the head of
+    # curve_iters 8 at 512, the widest the kernel takes)
+    "320cat-160-relu": ((160, 160), 160, "relu", 1, (5, 45)),
+    "1024cat-24-tanh": ((512, 512), 24, "tanh", 1, (3, 40)),
 }
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -89,19 +108,24 @@ def _swizzled(nbytes, mask):
     return o ^ (((o >> 7) & mask) << 4)
 
 
-def _packed_b(packed, groups, cout):
+def _packed_b(packed, groups, cout, nc=None):
     """The packed weights as the (9 * K, Cout) B matrix, rows in the order
-    the kernel walks K: tap, piece, channel of the piece (CP of them)."""
-    raw = packed.view(torch.int16).numpy().reshape(9, -1)
-    taps, off = [[] for _ in range(9)], 0
-    for _, _, _, cp in _pieces(groups):
-        span = -(-cout * cp // 512) * 512
-        el = _swizzled(2 * cout * cp, cp // 8 - 1)[::2] // 2
-        for t in range(9):
-            m = raw[t, off:off + span][el].reshape(cout, cp)
-            taps[t].append(m.T)
-        off += span
-    b = np.concatenate([np.concatenate(m, 0) for m in taps], 0)
+    the kernel walks K (tap, piece, channel of the piece: CP of them), the
+    columns of chunk after chunk of nc, Cout's padding dropped."""
+    nc = nc or tmx.chunk_channels(cout)
+    raw = packed.view(torch.int16).numpy()
+    cols = []
+    for j in range(tmx.padded(cout) // nc):
+        taps, off = [[] for _ in range(9)], 0
+        for _, _, _, cp in _pieces(groups):
+            span = -(-nc * cp // 512) * 512
+            el = _swizzled(2 * nc * cp, cp // 8 - 1)[::2] // 2
+            for t in range(9):
+                m = raw[9 * j + t, off:off + span][el].reshape(nc, cp)
+                taps[t].append(m.T)
+            off += span
+        cols.append(np.concatenate([np.concatenate(m, 0) for m in taps], 0))
+    b = np.concatenate(cols, 1)[:, :cout]
     return torch.from_numpy(np.ascontiguousarray(b)).view(torch.bfloat16)
 
 
@@ -141,32 +165,96 @@ def test_im2col_gemm_over_packed_weights_matches_plain(case, dtype):
 
 # ------------------------------------------- the kernel's walk, modelled #
 
-TILE_X, ROWS, STRIP_ROWS, MAX_BOX_X, ALIGN = 64, 2, 32, 192, 1024
-MAX_SLOTS, SMEM_LIMIT = 16, 232448
+# csrc/conv3x3_wgmma.cuh: the strip walk and the shared memory of a block
+TILE_X, ROWS, STRIP_ROWS = 64, 2, 32
+MAX_BOX_X, MAX_PIECES, MAX_SLOTS, MAX_N = 192, 16, 16, 64
+ALIGN, SMEM_LIMIT = 1024, 232448
 
 
 def _round(v, m):
     return -(-v // m) * m
 
 
-def _plan(bsz, h, w, dil, groups, cout):
-    """conv3x3_wgmma.cuh plan(), in bytes."""
-    g = {"nseg": 1 if TILE_X + 2 * dil <= MAX_BOX_X else 3}
+def plan_layer(groups, cout, dil, nc, ppg=MAX_PIECES):
+    """conv3x3_wgmma.cuh plan_layer() for input groups of ``groups``
+    channels (multiples of 8) at chunk width nc: the pieces (group, first
+    channel, CP, bytes a pixel, offset in its piece group's slot, bytes of
+    a box region, weights' offset in a tap), ``ppg`` pieces a slot at most;
+    None past MAX_PIECES pieces."""
+    g = {"nc": nc, "nseg": 1 if TILE_X + 2 * dil <= MAX_BOX_X else 3}
     g["box_x"] = _round(TILE_X + 2 * dil, 8) if g["nseg"] == 1 else TILE_X
-    aoff = woff = 0
+    aoff = woff = row = 0
     g["pieces"] = []
-    for start, c0, _, cp in _pieces(groups):
-        sp = 2 * cp
-        areg = _round(g["box_x"] * sp, ALIGN)
-        g["pieces"].append({"group": 0 if start == 0 else 1, "c0": c0,
-                            "cp": cp, "sp": sp, "aoff": aoff, "areg": areg,
-                            "woff": woff})
-        aoff += g["nseg"] * areg
-        woff += _round(cout * sp, ALIGN)
-    g.update(row=aoff, wtap=woff)
-    fit = (SMEM_LIMIT - ALIGN - 9 * woff) // (aoff + 16)
-    assert fit >= ROWS + 2
-    g["slots"] = min(fit, MAX_SLOTS)
+    for m, c in enumerate(groups):
+        cp = tmx.piece_channels(c)
+        for c0 in range(0, c, cp):
+            if len(g["pieces"]) == MAX_PIECES:
+                return None
+            if len(g["pieces"]) % ppg == 0:
+                aoff = 0
+            sp = 2 * cp
+            areg = _round(g["box_x"] * sp, ALIGN)
+            g["pieces"].append({"group": m, "c0": c0, "cp": cp, "sp": sp,
+                                "aoff": aoff, "areg": areg, "woff": woff})
+            aoff += g["nseg"] * areg
+            woff += _round(nc * sp, ALIGN)
+            row = max(row, aoff)
+    g["ppg"] = min(ppg, len(g["pieces"]))
+    g["pgroups"] = -(-len(g["pieces"]) // g["ppg"])
+    g.update(row=row, wtap=woff, wchunk=9 * woff,
+             nchunks=tmx.padded(cout) // nc)
+    return g
+
+
+def plan_stage(groups, cout, dil, nc, stage):
+    """conv3x3_wgmma.cuh plan_stage(): at stages 0 and 1 whole halo rows a
+    slot and the most chunks a block holds beside a ring of 2 * ROWS + 4,
+    then ROWS + 2 slots; at stages 2 and 3 the same rings with the fewest
+    piece groups and one chunk a block; None where nothing fits."""
+    want = ROWS + 2 if stage % 2 else 2 * ROWS + 4
+    g = plan_layer(groups, cout, dil, nc)
+    if g is None:
+        return None
+    pieces = len(g["pieces"])
+    for pgroups in (range(2, pieces + 1) if stage >= 2 else (1,)):
+        ppg = -(-pieces // pgroups)
+        if -(-pieces // ppg) != pgroups:
+            continue
+        if stage >= 2:
+            g = plan_layer(groups, cout, dil, nc, ppg)
+        for npass in range(1 if stage >= 2 else g["nchunks"], 0, -1):
+            if g["nchunks"] % npass:
+                continue
+            fixed = ALIGN + npass * g["wchunk"] + 4 * npass * nc
+            fit = (SMEM_LIMIT - fixed) // (g["row"] + 16)
+            if fit >= want:
+                g.update(npass=npass, nsplit=g["nchunks"] // npass,
+                         slots=min(fit, MAX_SLOTS),
+                         smem=fixed + (g["row"] + 16) * min(fit, MAX_SLOTS))
+                return g
+    return None
+
+
+def wgmma_plan(groups, cout, dil):
+    """conv3x3_wgmma.cuh chunk_width() and plan() at that width: at the
+    first stage where any fits, the widest nc dividing Cout's padding; None
+    where none fits (llie_conv_plan's 0)."""
+    c8 = tmx.padded(cout) // 8
+    for stage in range(4):
+        for d in range(MAX_N // 8, 0, -1):
+            if c8 % d == 0:
+                g = plan_stage(groups, cout, dil, 8 * d, stage)
+                if g is not None:
+                    return g
+    return None
+
+
+def _plan(bsz, h, w, dil, groups, cout):
+    """conv3x3_wgmma.cuh plan(), in bytes: wgmma_plan's pieces, ring and
+    slices, and the strips of the layer."""
+    g = wgmma_plan(groups, cout, dil)
+    assert g is not None and g["slots"] >= ROWS + 2
+    assert g["smem"] <= SMEM_LIMIT
     g["phases"] = min(dil, h)
     g["chunks"] = -(-(-(-h // dil)) // STRIP_ROWS)
     g["xtiles"] = -(-w // TILE_X)
@@ -196,47 +284,53 @@ def _operand(buf, start, sp, nrows):
     return buf[o // 2]
 
 
-def _kernel_walk(xs, packed, bias, act, dil):
+def _kernel_walk(xs, w, bias, act, dil):
     """The kernel's strips, ring of halo rows and descriptors on numpy
-    float32 arrays holding bf16 values, the row groups in order: a halo
-    row is loaded when a group first needs it, into the next slot of the
+    float32 arrays holding bf16 values, the row groups in order, one block
+    for each slice of output chunks: a halo row is loaded when a group
+    first needs it (with piece groups: each row group's rows once per piece
+    group, the accumulators held across them), into the next slot of the
     ring, which must hold no row still to be read (its readers all
     arrived: else the kernel's producer would wait forever); NaN where no
-    TMA box writes."""
+    TMA box writes. The weights are packed at the plan's chunk width, the
+    bias padded as the wrapper does."""
     groups = [x.float().numpy() for x in xs]
-    bsz, h, w, _ = groups[0].shape
+    bsz, h, wd, _ = groups[0].shape
     cout = bias.shape[0]
-    g = _plan(bsz, h, w, dil, [x.shape[-1] for x in groups], cout)
-    wsm = packed.float().numpy().reshape(-1)
-    ring = np.full(g["slots"] * g["row"] // 2, np.nan, np.float32)
-    owed = [0] * g["slots"]  # arrivals a slot still waits for
-    out = np.full((bsz, h, w, cout), np.nan, np.float32)
-    rc = 0
-    for t in range(g["nstrips"]):
-        xt, t2 = t % g["xtiles"], t // g["xtiles"]
-        c, t2 = t2 % g["chunks"], t2 // g["chunks"]
-        p, b = t2 % g["phases"], t2 // g["phases"]
-        n = -(-(h - p) // dil) - c * STRIP_ROWS
-        if n <= 0:
-            continue
-        ngroups = -(-min(n, STRIP_ROWS) // ROWS)
-        x0, y0 = xt * TILE_X, p + c * STRIP_ROWS * dil
-        loaded = 0
+    g = _plan(bsz, h, wd, dil, [x.shape[-1] for x in groups], cout)
+    nc, slots = g["nc"], g["slots"]
+    packed = tmx.pack_conv_weights_wgmma(w, [x.shape[-1] for x in groups],
+                                         nc)
+    assert packed.numel() * 2 == g["nchunks"] * g["wchunk"]
+    wall = packed.float().numpy().reshape(-1)
+    bpad = np.pad(bias, (0, tmx.padded(cout) - cout))
+    out = np.full((bsz, h, wd, cout), np.nan, np.float32)
+    piece_groups = [g["pieces"][p:p + g["ppg"]]
+                    for p in range(0, len(g["pieces"]), g["ppg"])]
+    assert len(piece_groups) == g["pgroups"]
+    for split in range(g["nsplit"]):
+        wbytes = g["npass"] * g["wchunk"]
+        wsm = wall[split * wbytes // 2:(split + 1) * wbytes // 2]
+        ring = np.full(slots * g["row"] // 2, np.nan, np.float32)
+        owed = [0] * slots  # arrivals a slot still waits for
+        rc = 0  # rows issued, the producer's count
 
-        def load(j):
-            # the TMA boxes of halo row j: (CP channels, box_x pixels, 1
+        def load(b, x0, y, pieces):
+            # the TMA boxes of one halo row: (CP channels, box_x pixels, 1
             # row, 1 image) land pixel-major, swizzled; zeros outside
-            s = (rc + j) % g["slots"]
+            nonlocal rc
+            s = rc % slots
             assert owed[s] == 0, "a slot refilled before it was read"
             owed[s] = 2
-            y = y0 + (j - 1) * dil
-            for pc in g["pieces"]:
+            rc += 1
+            for pc in pieces:
+                assert pc["aoff"] + g["nseg"] * pc["areg"] <= g["row"]
                 xg = groups[pc["group"]]
                 for k in range(g["nseg"]):
                     x = x0 - dil if g["nseg"] == 1 else x0 + (k - 1) * dil
                     box = np.zeros((g["box_x"], pc["cp"]), np.float32)
                     xx = np.arange(x, x + g["box_x"])
-                    ok = (xx >= 0) & (xx < w)
+                    ok = (xx >= 0) & (xx < wd)
                     cw = min(pc["cp"], xg.shape[-1] - pc["c0"])
                     if 0 <= y < h:
                         box[ok, :cw] = xg[b, y, xx[ok],
@@ -244,37 +338,73 @@ def _kernel_walk(xs, packed, bias, act, dil):
                     dst = s * g["row"] + pc["aoff"] + k * pc["areg"]
                     el = _swizzled(2 * box.size, pc["sp"] // 16 - 1)[::2]
                     ring[(dst + el) // 2] = box.reshape(-1)
+            return s
 
-        for q in range(ngroups):
-            while loaded < q * ROWS + ROWS + 2:
-                load(loaded)
-                loaded += 1
-            slot = [(rc + q * ROWS + j) % g["slots"]
-                    for j in range(ROWS + 2)]
-            for k in range(ROWS):
-                acc = np.zeros((TILE_X, cout), np.float32)
-                for tap in range(9):
-                    dy, dx = tap // 3, tap % 3
-                    for pc in g["pieces"]:
-                        sp = pc["sp"]
-                        a0 = slot[k + dy] * g["row"] + pc["aoff"] + (
-                            dx * dil * sp if g["nseg"] == 1
-                            else dx * pc["areg"])
-                        b0 = tap * g["wtap"] + pc["woff"]
-                        for kk in range(pc["cp"] // 16):
-                            am = _operand(ring, a0 + 32 * kk, sp, TILE_X)
-                            bm = _operand(wsm, b0 + 32 * kk, sp, cout)
-                            acc += am @ bm.T
-                y = y0 + (q * ROWS + k) * dil
-                if y < h:
-                    n_x = min(TILE_X, w - x0)
-                    out[b, y, x0:x0 + n_x] = acc[:n_x] + bias
-            for j in range(ROWS + 2):
-                owed[slot[j]] -= 3 - _readers(q * ROWS + j, ngroups)
-                assert owed[slot[j]] >= 0
-        assert loaded == ROWS * ngroups + 2
-        rc += loaded
-    assert not any(owed), "rows left unreleased"
+        def mma(acc, slot, k, pieces, ch0):
+            # output row k of a group: 9 taps x the pieces x k16 steps
+            for tap in range(9):
+                dy, dx = tap // 3, tap % 3
+                for pc in pieces:
+                    sp = pc["sp"]
+                    a0 = slot[k + dy] * g["row"] + pc["aoff"] + (
+                        dx * dil * sp if g["nseg"] == 1
+                        else dx * pc["areg"])
+                    b0 = ch0 * g["wchunk"] + tap * g["wtap"] + pc["woff"]
+                    for kk in range(pc["cp"] // 16):
+                        am = _operand(ring, a0 + 32 * kk, sp, TILE_X)
+                        bm = _operand(wsm, b0 + 32 * kk, sp, nc)
+                        acc += am @ bm.T
+
+        def store(acc, b, x0, y, cb):
+            if y < h:
+                n_x = min(TILE_X, wd - x0)
+                n_c = min(nc, cout - cb)
+                if n_c > 0:
+                    out[b, y, x0:x0 + n_x, cb:cb + n_c] = (
+                        acc[:n_x, :n_c] + bpad[cb:cb + n_c])
+
+        for t in range(g["nstrips"]):
+            xt, t2 = t % g["xtiles"], t // g["xtiles"]
+            c, t2 = t2 % g["chunks"], t2 // g["chunks"]
+            p, b = t2 % g["phases"], t2 // g["phases"]
+            n = -(-(h - p) // dil) - c * STRIP_ROWS
+            if n <= 0:
+                continue
+            ngroups = -(-min(n, STRIP_ROWS) // ROWS)
+            x0, y0 = xt * TILE_X, p + c * STRIP_ROWS * dil
+            if g["pgroups"] > 1:
+                for q in range(ngroups):
+                    acc = [np.zeros((TILE_X, nc), np.float32)
+                           for _ in range(ROWS)]
+                    for pieces in piece_groups:
+                        slot = [load(b, x0, y0 + (q * ROWS + j - 1) * dil,
+                                     pieces) for j in range(ROWS + 2)]
+                        for k in range(ROWS):
+                            mma(acc[k], slot, k, pieces, 0)
+                        # the reader's arrival and the other consumer's
+                        for s in slot:
+                            owed[s] -= 2
+                    for k in range(ROWS):
+                        store(acc[k], b, x0, y0 + (q * ROWS + k) * dil,
+                              split * nc)
+                continue
+            first = rc
+            for q in range(ngroups):
+                while rc - first < q * ROWS + ROWS + 2:
+                    load(b, x0, y0 + (rc - first - 1) * dil, g["pieces"])
+                slot = [(first + q * ROWS + j) % slots
+                        for j in range(ROWS + 2)]
+                for ch0 in range(g["npass"]):
+                    cb = (split * g["npass"] + ch0) * nc
+                    for k in range(ROWS):
+                        acc = np.zeros((TILE_X, nc), np.float32)
+                        mma(acc, slot, k, g["pieces"], ch0)
+                        store(acc, b, x0, y0 + (q * ROWS + k) * dil, cb)
+                for j in range(ROWS + 2):
+                    owed[slot[j]] -= 3 - _readers(q * ROWS + j, ngroups)
+                    assert owed[slot[j]] >= 0
+            assert rc - first == ROWS * ngroups + 2
+        assert not any(owed), "rows left unreleased"
     return tmx.ACTS[act](torch.from_numpy(out))
 
 
@@ -282,9 +412,7 @@ def _kernel_walk(xs, packed, bias, act, dil):
 def test_kernel_walk_over_packed_weights_matches_plain(case):
     """bf16, the kernel's dtype; every output written once and finite."""
     xs, wt, b, act, dil = _layer(case, torch.bfloat16)
-    groups = tuple(x.shape[-1] for x in xs)
-    got = _kernel_walk(xs, tmx.pack_conv_weights_wgmma(wt, groups),
-                       b.numpy(), act, dil)
+    got = _kernel_walk(xs, wt, b.numpy(), act, dil)
     assert bool(torch.isfinite(got).all())
     assert_within(got.to(torch.bfloat16),
                   _reference(xs, wt, b, act, dil, torch.bfloat16),
@@ -293,11 +421,17 @@ def test_kernel_walk_over_packed_weights_matches_plain(case):
 
 @pytest.mark.parametrize("groups,cout", [((24,), 24), ((32, 32), 32),
                                          ((8, 40), 8), ((16,), 16),
-                                         ((96,), 24)])
+                                         ((96,), 24), ((32, 32), 12),
+                                         ((64, 64), 64), ((64, 64), 48)])
 def test_packed_weights_pad_with_zero_rows(groups, cout):
     wt = torch.randn(cout, sum(groups), 3, 3)
     packed = tmx.pack_conv_weights_wgmma(wt, groups)
-    assert packed.dtype == torch.bfloat16 and packed.shape[0] == 9
+    nc = tmx.chunk_channels(cout)
+    assert packed.dtype == torch.bfloat16
+    assert packed.shape[0] == 9 * tmx.padded(cout) // nc
+    # the output channels past Cout are zero columns
+    full = _packed_b(packed, groups, tmx.padded(cout), nc)
+    assert bool((full[:, cout:] == 0).all())
     bm = _packed_b(packed, groups, cout).reshape(9, -1, cout)
     want = wt.to(torch.bfloat16).permute(2, 3, 1, 0).reshape(
         9, sum(groups), cout)
@@ -311,6 +445,12 @@ def test_packed_weights_pad_with_zero_rows(groups, cout):
     # built where the weights lie (the kernel reads it from the card)
     assert tmx.pack_conv_weights_wgmma(wt.to("meta"), groups).device.type \
         == "meta"
+    # any chunk width that divides the padded Cout lays out the same B
+    nc8 = 8
+    assert torch.equal(_packed_b(tmx.pack_conv_weights_wgmma(wt, groups,
+                                                             nc8),
+                                 groups, cout, nc8).reshape(9, -1, cout),
+                       bm)
 
 
 def test_packed_params_keeps_the_forms_apart():

@@ -1,6 +1,7 @@
 """The port's guided filter (ops/guided.py), its dispatch through
 ops/denoise.py and core.denoise_tail, against the JAX package's, on the
-same random planes (numpy, seeded).
+same random planes (numpy, seeded); and a CPU model of K5's guided walk
+(csrc/guided.cuh) against K5's plain version.
 
 Bars: the integral-image public ops within 1e-6 (cumsum sums in another
 order in the two frameworks); the shift cores bit-equal, since both run
@@ -16,7 +17,13 @@ from low_light_image_enhancement_tpu.ops import denoise as jdn
 from low_light_image_enhancement_tpu.ops import filters as jf
 from low_light_image_enhancement_tpu.ops import guided as jg
 from low_light_image_enhancement_tpu_torch import core as tcore
-from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+from low_light_image_enhancement_tpu_torch.config import (
+    PipelineConfig,
+    canvas_margin,
+)
+from low_light_image_enhancement_tpu_torch.kernels.tiled_denoise import (
+    tiled_denoise_plain,
+)
 from low_light_image_enhancement_tpu_torch.ops import denoise as tdn
 from low_light_image_enhancement_tpu_torch.ops import filters as tf
 from low_light_image_enhancement_tpu_torch.ops import guided as tg
@@ -94,3 +101,99 @@ def test_denoise_tail_passes_the_guided_radius_and_eps():
                                   cfg.denoise_kernel, cfg.denoise_guide,
                                   "guided")
     assert np.abs(got - np.asarray(defaults)).max() > 1e-3
+
+
+# ------------------------------------------- K5's guided walk, modelled #
+# csrc/guided.cuh on the CPU: 32 x 32 output tiles, each reading its input
+# with a 2r ring clamped into the block's window; every box mean a vertical
+# then a horizontal pass of items of 8 outputs (the last item of a pass
+# moved back to end at the pass's edge), each output summed from its item's
+# window as the kernel's registers hold it: the centre, then -t and +t, t
+# ascending, times k.
+
+GT, GP = 32, 8
+
+
+def _run_starts(n):
+    return [min(run * GP, n - GP) for run in range(-(-n // GP))]
+
+
+def _pass(src, nout, r, k):
+    """One pass along dim 0 of ``src`` (nout + 2r rows): item by item."""
+    out = torch.full((nout,) + tuple(src.shape[1:]), float("nan"))
+    for r0 in _run_starts(nout):
+        w = src[r0:r0 + GP + 2 * r]
+        for i in range(GP):
+            acc = w[i + r]
+            for t in range(1, r + 1):
+                acc = (acc + w[i + r - t]) + w[i + r + t]
+            out[r0 + i] = acc * k
+    assert not bool(torch.isnan(out).any()), "an output no item wrote"
+    return out
+
+
+def _box(src, nh, nw, r, k):
+    """Vertical pass to nh rows, then horizontal to nw columns."""
+    return _pass(_pass(src, nh, r, k).t(), nw, r, k).t()
+
+
+def _guided_walk(y, cfg, halo, rows):
+    """The kernel's tiles over the f32 block ``y`` -> (B, 3, rows, WB)."""
+    r, eps, s = cfg.guided_radius, cfg.guided_eps, cfg.denoise_strength
+    k = 1.0 / (2 * r + 1)
+    joint = cfg.denoise_guide == "luma"
+    m = canvas_margin(cfg)
+    b, _, _, wb = y.shape
+    sh, sw = GT + 2 * r, GT + 2 * r
+    out = torch.full((b, 3, rows, wb), float("nan"))
+    lo, hi = halo - m, halo + rows + m - 1
+    for bi in range(b):
+        for y0 in range(0, rows, GT):
+            for x0 in range(0, wb, GT):
+                ri = torch.clamp(torch.arange(halo + y0 - 2 * r,
+                                              halo + y0 + GT + 2 * r), lo, hi)
+                ci = torch.clamp(torch.arange(x0 - 2 * r, x0 + GT + 2 * r),
+                                 0, wb - 1)
+                xs = y[bi][:, ri][:, :, ci]
+                if joint:
+                    g = (xs[0] + xs[1] + xs[2]) * (1.0 / 3.0)
+                    mg = _box(g, sh, sw, r, k)
+                    var = _box(g * g, sh, sw, r, k) - mg * mg
+                    inv = 1.0 / (var + eps)
+                for c in range(3):
+                    p = xs[c]
+                    mp = _box(p, sh, sw, r, k)
+                    if joint:
+                        cov = _box(g * p, sh, sw, r, k) - mg * mp
+                        a = cov * inv
+                        bb = mp - a * mg
+                    else:
+                        var = _box(p * p, sh, sw, r, k) - mp * mp
+                        a = var / (var + eps)
+                        bb = mp - a * mp
+                    x = p[2 * r:2 * r + GT, 2 * r:2 * r + GT]
+                    guide = g[2 * r:2 * r + GT, 2 * r:2 * r + GT] if joint \
+                        else x
+                    q = _box(a, GT, GT, r, k) * guide + _box(bb, GT, GT, r, k)
+                    o = torch.clamp(x + s * (q - x), 0.0, 1.0)
+                    nr, nc = min(GT, rows - y0), min(GT, wb - x0)
+                    out[bi, c, y0:y0 + nr, x0:x0 + nc] = o[:nr, :nc]
+    return out
+
+
+@pytest.mark.parametrize("guide", ["luma", "perchannel"])
+@pytest.mark.parametrize("radius", [1, 2, 4, 8])
+def test_guided_walk_bit_equal_to_tiled_denoise_plain(radius, guide):
+    """The kernel's order of sums is the plain version's, so its walk
+    equals ``tiled_denoise_plain`` bit for bit on every column whose
+    window lies inside the block (where the kernel clamps and the plain
+    version wraps, 2r from the sides: the caller crops those)."""
+    cfg = PipelineConfig(method="decom", denoise_taps="guided",
+                         guided_radius=radius, denoise_guide=guide)
+    m = canvas_margin(cfg)
+    y = torch.from_numpy(_planes((2, 3, 40, 72), seed=30 + radius))
+    rows = 40 - 2 * m
+    got = _guided_walk(y, cfg, m, rows)
+    want = tiled_denoise_plain(y, cfg, m, rows)
+    keep = slice(2 * radius, 72 - 2 * radius)
+    assert torch.equal(got[..., keep], want[..., keep])

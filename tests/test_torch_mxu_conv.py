@@ -42,6 +42,7 @@ from low_light_image_enhancement_tpu_torch.models import fcn as tfcn
 from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
 )
+from test_torch_conv_wgmma import ROWS, SMEM_LIMIT, wgmma_plan
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -138,6 +139,81 @@ def test_wrappers_check_their_arguments():
     assert tmx.conv2d_dense9_mxu.launches == 0
 
 
+def _curve_layers(features, n_iter):
+    """The curve CNN's c2-c7 as (input groups, Cout)."""
+    f = features
+    return ([((f,), f)] * 3 + [((f, f), f)] * 2 + [((f, f), 3 * n_iter)])
+
+
+class _PlanLib:
+    """The library's ``llie_conv_plan`` as the CPU mirror of the kernel's
+    plan in tests/test_torch_conv_wgmma.py computes it."""
+
+    @staticmethod
+    def llie_conv_plan(ca, cb, cout, dil):
+        g = wgmma_plan([c for c in (ca, cb) if c], cout, dil)
+        return 0 if g is None else g["nc"]
+
+
+@pytest.mark.parametrize("features,n_iter", [(32, 8), (64, 8), (32, 4),
+                                             (32, 16), (64, 16), (20, 8),
+                                             (128, 8), (160, 8), (512, 16)])
+def test_kernel_takes_the_curve_cnn_widths(features, n_iter):
+    """Every layer the curve_features / curve_iters configs reach has a
+    plan in both forms: a chunk width dividing Cout's padding to 8, and in
+    bf16 a ring and one chunk of weights within shared memory."""
+    for cins, cout in _curve_layers(features, n_iter):
+        for bf16 in (True, False):
+            nc = tmx._check_kernel_shapes(_PlanLib, cins, cout, 1, bf16)
+            assert nc % 8 == 0 and 8 <= nc <= 64
+            assert tmx.padded(cout) % nc == 0
+        g = wgmma_plan([tmx.padded(c) for c in cins], cout, 1)
+        assert g["slots"] >= ROWS + 2 and g["smem"] <= SMEM_LIMIT
+        assert g["nsplit"] * g["npass"] * g["nc"] == tmx.padded(cout)
+    # fcn's layers at every dilation
+    for d in (1, 2, 4, 8, 16, 32, 66):
+        assert tmx._check_kernel_shapes(_PlanLib, (24,), 24, d, True) == 24
+
+
+def test_kernel_shapes_raise_only_past_shared_memory():
+    # past 16 pieces of 64 channels, and 16 pieces at dilation 64, whose
+    # halo rows of 192 pixels leave no room for four slots
+    with pytest.raises(ValueError, match="shared memory"):
+        tmx._check_kernel_shapes(_PlanLib, (1032,), 8, 1, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tmx._check_kernel_shapes(_PlanLib, (520, 520), 64, 1, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tmx._check_kernel_shapes(_PlanLib, (1024,), 8, 64, True)
+    # wider than whole halo rows leave room for: piece groups
+    assert tmx._check_kernel_shapes(_PlanLib, (384,), 8, 1, True) == 8
+    assert tmx._check_kernel_shapes(_PlanLib, (160, 160), 64, 1, True) == 16
+    # the f32 form reads wide weights in place
+    assert tmx._check_kernel_shapes(None, (1032,), 8, 1, False) == 8
+
+
+@pytest.mark.parametrize("groups,cout", [((20,), 20), ((20, 20), 12),
+                                         ((32, 12), 15)])
+def test_padded_groups_compute_the_same_conv(groups, cout):
+    """The wrapper's one-time padding of a group off the step of 8 (zero
+    channels against zero weight rows, ``_pad_weights``) and of Cout
+    (zero outputs, sliced off) leave the conv as it was."""
+    xs, wt, b = _layer(groups, cout, 6, 10, seed=cout)
+    txs, tw, tb = _torch_layer(xs, wt, b, torch.float32)
+    want = tmx.conv3x3_plain(txs, tw, tb, "tanh")
+    pxs = [torch.nn.functional.pad(x, (0, tmx.padded(c) - c))
+           for x, c in zip(txs, groups)]
+    pw = tmx._pad_weights(tw, groups)
+    pb = torch.nn.functional.pad(tb, (0, tmx.padded(cout) - cout))
+    got = tmx.conv3x3_plain(pxs, pw, pb, "tanh")[..., :cout]
+    assert_within(got.numpy(), want.numpy(), "float32")
+    # the f32 packer holds the same zeros, tap-major
+    packed = tmx.pack_conv_weights(tw, torch.float32, groups)
+    assert packed.shape == (9, sum(map(tmx.padded, groups)),
+                            tmx.padded(cout))
+    assert torch.equal(packed, pw.permute(2, 3, 1, 0).reshape(
+        9, *packed.shape[1:]))
+
+
 def test_packed_weights_are_cached_per_parameter_set():
     w = torch.randn(24, 16, 3, 3)
     a = tmx.packed_params((w,), torch.bfloat16,
@@ -179,6 +255,28 @@ def net_refs():
                   interpret=True)
         out[name] = (params, x, y)
     return out
+
+
+@pytest.mark.parametrize("features,n_iter", [(64, 8), (32, 4), (32, 16)])
+def test_pallas_curve_cnn_widths_match_jax(features, n_iter):
+    """apply_curve_cnn_pallas at the widths curve_features 64 and
+    curve_iters 4 and 16 reach (c5/c6 128 -> 64, heads of 12 and 48
+    channels), random weights, against the JAX package's pallas arm in
+    interpret mode, f32 within 1e-5."""
+    import jax
+
+    params = jcnn.init_curve_cnn(jax.random.PRNGKey(features + n_iter),
+                                 features, n_iter)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    x = _net_input(24, 32, seed=n_iter)
+    want = jcnn.apply_curve_cnn_pallas(params, jnp.asarray(x), n_iter,
+                                       compute_dtype=jnp.float32,
+                                       interpret=True)
+    got = tcnn.apply_curve_cnn_pallas(params_from_numpy(params),
+                                      torch.from_numpy(x), n_iter,
+                                      compute_dtype="float32")
+    assert got.shape == (2, n_iter, 3, 24, 32) == want.shape
+    assert_within(got.numpy(), want, "float32")
 
 
 _PORT_NETS = {"curve": tcnn.apply_curve_cnn_pallas,

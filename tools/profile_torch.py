@@ -15,8 +15,10 @@ card; run from the repository root:
     python3 tools/profile_torch.py [quality quality_fast retinex hybrid
                                     hybrid_pallas quality_pallas
                                     quality_fast_pallas quality_fast_cascade
-                                    video_retinex video_retinex_extgain
-                                    video_curve_ds4 video_hybrid_ds4]
+                                    hybrid_pallas_f64 hybrid_pallas_f160
+                                    video_retinex
+                                    video_retinex_extgain video_curve_ds4
+                                    video_hybrid_ds4]
 """
 
 from __future__ import annotations
@@ -46,6 +48,13 @@ PATHS = {
         conv_impl="pallas"),
     "quality_fast_cascade": llt.PRESETS["quality_fast"].replace(
         conv_impl="cascade"),
+    # the curve CNN at 64 and 160 features (random weights) under "pallas"
+    "hybrid_pallas_f64": llt.PipelineConfig(method="hybrid",
+                                            conv_impl="pallas",
+                                            curve_features=64),
+    "hybrid_pallas_f160": llt.PipelineConfig(method="hybrid",
+                                             conv_impl="pallas",
+                                             curve_features=160),
 }
 # (config, ema_in_kernel) of the video benchmark's arms, alpha 0.3
 VIDEO_PATHS = {
