@@ -16,7 +16,11 @@ and ``quality`` under conv_impl="pallas" (K6a), ``quality_fast`` under
 "pallas" at the other widths its configs reach (curve_features 64 and
 160, curve_iters 4 and 16, random weights from the port's initialiser),
 and the HWC entry point enhance_hwc_u8 (K8) on retinex with the
-per-channel full-tap tail.
+per-channel full-tap tail. The guided tail (denoise_taps="guided") of
+retinex (K1), curve and hybrid (K3, hybrid also under "pallas") and of the
+video arms (K4, K1's gain form, K3 with the gain), a blur radius past the
+kernels' tiles (blur_illumination, then K1), and hybrid "pallas" at
+curve_features 640 (K6 streaming its weights by piece group).
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -38,7 +42,11 @@ Phases (each raises on failure, so the script exits non-zero):
      cores, f32 on the CUDA cores), K7 also launched one layer at a time
      against the plain layer, its six-layer launch equal to the chain of
      its one-layer launches and, in both dtypes, to K6b layer by layer;
-     then
+     the forms of K1, K3 and K4 beyond the default ones against their plain
+     versions (the guided tail at r 2 and 4 in both guides, f32 I/O, blur
+     radii 9, 16 and 32, K1's stages; f32 within 1e-5), K6 at 640+640->640,
+     1024+1024->24 and 1024->24 at d 64 (streamed weights) against float64
+     sums within one bf16 step or the f32 sum's rounding; then
      each kernel's time beside its plain version's, its bound and (K6) one
      F.conv2d's at 600x400 batch 48 (K6a also 32->32, K6b also at d 32),
      and the video forms' at 1080p b1 and
@@ -54,7 +62,8 @@ Phases (each raises on failure, so the script exits non-zero):
   4b. the two presets' PSNR/SSIM/dE76 means over the 15 synthetic eval
      pairs on the card, against the JAX package's numbers for the same
      pairs (tools/jax_eval15_reference.py): bar 0.1 dB and 0.005 SSIM;
-     also ``quality`` under "pallas" and ``quality_fast`` under "cascade";
+     also ``quality`` under "pallas", ``quality_fast`` under "cascade",
+     and retinex and hybrid with the guided tail at r 4;
   4c. each video arm through VideoEnhancer(device="cuda"): agreement with
      device="cpu" over 4 frames at 96x64 with a reset (float32 max |du8|
      bar, bf16 PSNR >= 40 dB), the 1080p frame rate of the step chained on
@@ -62,15 +71,17 @@ Phases (each raises on failure, so the script exits non-zero):
      hybrid MultiStreamVideoEnhancer(8)'s summed rate and whether a
      stream's output equals its lone output on the card;
   5. an EnhanceServer per path (retinex, hybrid, quality, quality_fast
-     under "cascade"), 16 requests of
-     two shapes from 4 threads per round, each answer equal to
+     under "cascade", retinex and hybrid guided r 4), 16 requests of
+     two shapes (the guided paths also two at 1080p) from 4 threads per
+     round, each answer equal to
      pipeline.enhance, p50/p99 latency;
   6. each path's launch counts, reset to 0 just before it runs (phases
      4-5, 4c) and read just after: every path launched its kernels, and
      the retinex video path launched K4 and no K1; the conv paths K6a 6
      times (hybrid, at every width) or 3 times (decom) a K3 or K5 launch,
      K6b 6 times, K7 once and no K6b (cascade); enhance_hwc_u8 K8 and no
-     K1; the default paths no conv kernel.
+     K1; the default paths no conv kernel; the wide blur the blur kernel
+     once a K1 launch.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -93,11 +104,17 @@ BAR_MAX, BAR_SHARE = 1, 1e-3
 # synth_pair(i, 400, 600, seed=0)), from its own evaluation on the CPU:
 # tools/jax_eval15_reference.py, i.e. eval_lol(EnhancePipeline(PRESETS[name],
 # force_jnp=True), max_images=15, parity=False).
+RETINEX_GUIDED_R4 = {"psnr": 10.656063715616861, "ssim": 0.642203938961029,
+                     "delta_e76": 37.17897987365723}
+HYBRID_GUIDED_R4 = {"psnr": 19.367358907063803, "ssim": 0.7950365503629049,
+                    "delta_e76": 18.524588966369627}
 JAX_EVAL15 = {
     "quality": {"psnr": 20.13423360188802, "ssim": 0.921144445737203,
                 "delta_e76": 17.885644912719727},
     "quality_fast": {"psnr": 18.797438430786134, "ssim": 0.8913289864857992,
                      "delta_e76": 17.871696535746256},
+    "retinex guided r4": RETINEX_GUIDED_R4,
+    "hybrid guided r4": HYBRID_GUIDED_R4,
 }
 EVAL_BAR_DB, EVAL_BAR_SSIM = 0.1, 0.005
 
@@ -242,10 +259,21 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_bound(cfg, b, h, w):
+def k1_bound(cfg, b, h, w, itemsize=1):
+    """u8 (itemsize 1) or f32 (4: no normalize, a clip in place of the
+    quantize) RGB in and out."""
     px = b * h * w
-    ops = NORMALIZE_OPS + boost_ops(cfg) + tail_ops(cfg) + QUANTIZE_OPS
-    return bound_ms(6 * px, ops * px)
+    io = (NORMALIZE_OPS + QUANTIZE_OPS) if itemsize == 1 else 6
+    ops = io + boost_ops(cfg) + tail_ops(cfg)
+    return bound_ms(6 * itemsize * px, ops * px)
+
+
+def blur_plane_bound(cfg, b, h, w, e):
+    """blur_illumination: u8 RGB in, the f32 plane of (h + 2e) x (w + 2e)
+    out; max RGB 2 and the two blur passes a position."""
+    taps = 2 * cfg.blur_radius + 1
+    n = b * (h + 2 * e) * (w + 2 * e)
+    return bound_ms(3 * b * h * w + 4 * n, n * (2 + 2 * (2 * taps - 1)))
 
 
 GAIN_OPS = 9        # x * gain 3 and its clip 6
@@ -393,9 +421,10 @@ def main() -> int:
     wrappers = {"k1": fe.fused_retinex, "k3": fe.fused_curve_enhance,
                 "k4": fe.fused_retinex_ema, "k5": td.tiled_denoise,
                 "k6a": mx.conv2d_patch_mxu, "k6b": mx.conv2d_dense9_mxu,
-                "k7": fc.fcn_cascade_mxu, "k8": hw.enhance_hwc_u8}
+                "k7": fc.fcn_cascade_mxu, "k8": hw.enhance_hwc_u8,
+                "kb": fe.blur_illumination}
     err = {"k1": 0, "k3": 0, "k4": 0, "k5": 0.0, "k6a": 0.0, "k6b": 0.0,
-           "k7": 0.0, "k8": 0}
+           "k7": 0.0, "k8": 0, "kb": 0.0}
     hwc_cfg = llt.PipelineConfig(denoise_guide="perchannel",
                                  denoise_taps="full")
 
@@ -637,10 +666,161 @@ def main() -> int:
                 raise AssertionError(f"K8 differs from {what}: {st}")
         del x
 
-    # the conv kernels on unit-scale random activations and He-scaled
-    # weights, at small odd shapes and on the nets' own blocks
     lows48 = synth_batch(48, 400, 600, seed=5)[0]
     x48 = torch.from_numpy(lows48).to(dev)
+
+    # the forms of K1, K3 and K4 beyond the default ones: the guided tail
+    # (r 2 and 4, both guides), f32 I/O (within 1e-5), blur radii past the
+    # tiles (the blur kernel's plane, then the kernel's LPLANE form) and
+    # K1's stages
+    f32_err = {"k1": 0.0, "k3": 0.0, "k4": 0.0}
+
+    def form_check(what, got, want, key):
+        if got.dtype == torch.uint8:
+            st = delta_stats(got.cpu().numpy(), want.cpu().numpy())
+            check_bar(what, st)
+            err[key] = max(err[key], st["max_abs"])
+            return
+        d = float((got - want).abs().max())
+        print(f"  {what}: max|df32|={d:.3e}")
+        if d > 1e-5:
+            raise AssertionError(f"{what}: f32 off by {d}")
+        f32_err[key] = max(f32_err[key], d)
+
+    synth_cache = {}
+
+    def lows_of(b, h, w):
+        """The first b synthetic h x w images of seed 15, made once (a
+        600x400 image takes a quarter of a second on the host)."""
+        if synth_cache.get((h, w), lows48[:0]).shape[0] < b:
+            synth_cache[(h, w)] = synth_batch(b, h, w, seed=15)[0]
+        return synth_cache[(h, w)][:b]
+
+    guided = dict(denoise_taps="guided")
+    gforms = [(f"guided r{r} {g}", dict(guided_radius=r, denoise_guide=g,
+                                        **guided))
+              for r in (2, 4) for g in ("luma", "perchannel")]
+    k1_forms = [(f"{n} {w}x{h} b{b}", cfg0.replace(**kw), (b, h, w), None,
+                 False)
+                for n, kw in gforms for b, h, w in ((8, 400, 600),
+                                                     (2, 33, 47))]
+    k1_forms += [
+        ("f32 600x400 b8", cfg0, (8, 400, 600), None, True),
+        ("f32 guided r4 luma 600x400 b2", cfg0.replace(guided_radius=4,
+                                                       **guided),
+         (2, 400, 600), None, True),
+        ("blur r16 guided r4 600x400 b2",
+         cfg0.replace(blur_radius=16, blur_sigma=5.0, guided_radius=4,
+                      **guided), (2, 400, 600), None, False),
+        ("guided r2 stages boost+denoise 600x400 b2", cfg0.replace(**guided),
+         (2, 400, 600), ("boost", "denoise"), False)]
+    k1_forms += [(f"blur r{r} 101x67 b2", cfg0.replace(blur_radius=r,
+                                                       blur_sigma=r / 3),
+                  (2, 67, 101), None, False) for r in (9, 16, 32)]
+    k1_forms += [(f"stages {'+'.join(st) or 'none'} 600x400 b2", cfg0,
+                  (2, 400, 600), st, False)
+                 for st in ((), ("blur",), ("blur", "boost"),
+                            ("boost", "denoise"), ("denoise",))]
+    for name, cfg, (b, h, w), stages, f32 in k1_forms:
+        x = torch.from_numpy(lows_of(b, h, w)).to(dev)
+        if f32:
+            x = normalize_u8(x)
+        form_check(f"K1 {name}", fe.fused_retinex(x, cfg, stages=stages),
+                   fe.fused_retinex_plain(x, cfg, stages), "k1")
+    # the blur kernel's plane alone
+    for r, e in ((16, 1), (32, 8)):
+        cfg = cfg0.replace(blur_radius=r, blur_sigma=r / 3)
+        x = torch.from_numpy(lows_of(2, 400, 600)).to(dev)
+        d = float((fe.blur_illumination(x, cfg, e, hwc=True)
+                   - fe.blur_illumination_plain(x, cfg, e, True))
+                  .abs().max())
+        print(f"  blur_illumination r{r} e{e} 600x400 b2: max|df32|={d:.3e}")
+        err["kb"] = max(err["kb"], d)
+        if d > 1e-6:
+            raise AssertionError(f"blur_illumination r{r} off by {d}")
+    k3_forms = [
+        ("hybrid guided r2 luma 600x400 b8", hybrid.replace(**guided),
+         (8, 400, 600), False),
+        ("hybrid guided r4 perchannel 600x400 b2",
+         hybrid.replace(guided_radius=4, denoise_guide="perchannel",
+                        **guided), (2, 400, 600), False),
+        ("curve ds2 guided r4 luma 600x400 b2",
+         curve.replace(curve_downsample=2, guided_radius=4, **guided),
+         (2, 400, 600), False),
+        ("hybrid ds4 guided r2 perchannel 1080p b1",
+         hybrid.replace(curve_downsample=4, denoise_guide="perchannel",
+                        **guided), (1, 1080, 1920), False),
+        ("hybrid f32 600x400 b2", hybrid, (2, 400, 600), True),
+        ("hybrid guided r4 luma f32 600x400 b2",
+         hybrid.replace(guided_radius=4, **guided), (2, 400, 600), True),
+        ("hybrid blur r16 600x400 b2",
+         hybrid.replace(blur_radius=16, blur_sigma=5.0), (2, 400, 600),
+         False),
+        ("hybrid blur r9 guided r2 600x400 b2",
+         hybrid.replace(blur_radius=9, blur_sigma=3.0, **guided),
+         (2, 400, 600), False)]
+    for name, cfg, (b, h, w), f32 in k3_forms:
+        xb, maps, halo, rows, iw, m = curve_case(cfg, lows_of(b, h, w))
+        if f32:
+            xb = normalize_u8(xb)
+        ds = kernel_maps_ds(cfg)
+        got = fe.fused_curve_enhance(xb, maps, cfg, halo, rows, iw, ds=ds)
+        want = fe.fused_curve_enhance_plain(xb, maps, cfg, halo, rows, iw, ds)
+        form_check(f"K3 {name}", got[..., :h, m:m + iw],
+                   want[..., :h, m:m + iw], "k3")
+        del xb, maps, got, want
+    # the video forms: K1's gain form, K4 over two chained frames from the
+    # sentinel, K3 with the gain plane
+    for name, cfg, (b, h, w), f32 in (
+            ("guided r2 luma 1080p b1", cfg0.replace(**guided),
+             (1, 1080, 1920), False),
+            ("guided r4 perchannel 600x400 b8",
+             cfg0.replace(guided_radius=4, denoise_guide="perchannel",
+                          **guided), (8, 400, 600), False),
+            ("f32 1080p b1", cfg0, (1, 1080, 1920), True),
+            ("guided r4 luma f32 600x400 b2",
+             cfg0.replace(guided_radius=4, **guided), (2, 400, 600), True),
+            ("blur r16 600x400 b2",
+             cfg0.replace(blur_radius=16, blur_sigma=5.0), (2, 400, 600),
+             False)):
+        xb, gain, _, halo, rows, iw, m = video_case(cfg, lows_of(b, h, w))
+        if f32:
+            xb = normalize_u8(xb)
+        form_check(f"K1 gain form {name}",
+                   fe.fused_retinex_gain(xb, gain, cfg, halo, rows)
+                   [..., :h, m:m + iw],
+                   fe.fused_retinex_gain_plain(xb, gain, cfg, halo, rows)
+                   [..., :h, m:m + iw], "k1")
+        ck = torch.full_like(gain, -1.0)
+        cp = ck.clone()
+        for t in range(2):
+            got, ck = fe.fused_retinex_ema(xb, ck, cfg, halo, rows, iw, 0.3)
+            want, cp = fe.fused_retinex_ema_plain(xb, cp, cfg, halo, rows,
+                                                  iw, 0.3)
+            form_check(f"K4 {name} frame {t + 1}", got[..., :h, m:m + iw],
+                       want[..., :h, m:m + iw], "k4")
+            dc = float((ck - cp)[..., m:m + iw].abs().max())
+            if dc > 1e-6:
+                raise AssertionError(f"K4 {name} carry off by {dc}")
+        del xb, gain, ck, cp, got, want
+    for name, cfg in (("hybrid ds4 + gain guided r2 luma 1080p b1",
+                       hybrid.replace(curve_downsample=4, **guided)),
+                      ("hybrid ds4 + gain guided r4 perchannel 1080p b1",
+                       hybrid.replace(curve_downsample=4, guided_radius=4,
+                                      denoise_guide="perchannel", **guided))):
+        xb, gain, maps, halo, rows, iw, m = video_case(cfg,
+                                                       lows_of(1, 1080, 1920))
+        form_check(f"K3 {name}",
+                   fe.fused_curve_enhance(xb, maps, cfg, halo, rows, iw,
+                                          ds=4, gain=gain)[..., m:m + iw],
+                   fe.fused_curve_enhance_plain(xb, maps, cfg, halo, rows, iw,
+                                                4, gain)[..., m:m + iw],
+                   "k3")
+        del xb, gain, maps
+    print(f"  f32 forms max |df32| over the cases: {f32_err}")
+
+    # the conv kernels on unit-scale random activations and He-scaled
+    # weights, at small odd shapes and on the nets' own blocks
     blk = {name: tuple(pad_block(x48, c)[0].shape[-2:])
            for name, c in (("hybrid", hybrid), ("decom", quality),
                            ("fcn", quality_fast))}
@@ -742,6 +922,50 @@ def main() -> int:
             del x, chain, chain7, got, want
     torch.cuda.synchronize()
 
+    # K6 past one chunk's weights beside a ring (more than 16 pieces of 64
+    # channels, or 14 at dilation 64): the weights streamed by piece group.
+    # Against float64 sums of the same bf16 inputs and weights: within one
+    # bf16 step of the value or the f32 sum's rounding, sqrt(9 Cin) 2^-24
+    # sum |x w| (near 0 the f32 sums of 9,000-18,000 products of the
+    # kernel and of cuDNN part by more than 1e-5)
+    def wide_check(what, got, xs, w, b, act, dil):
+        x = torch.cat(xs, -1).permute(0, 3, 1, 2).double()
+        wd = w.to(torch.bfloat16).double()
+        z = F.conv2d(x, wd, padding=dil, dilation=dil) \
+            + b.double()[:, None, None]
+        ref = mx.ACTS[act](z).permute(0, 2, 3, 1)
+        mag = F.conv2d(x.abs(), wd.abs(), padding=dil, dilation=dil)
+        rounding = ((9 * x.shape[1]) ** 0.5 * 2.0 ** -24
+                    * mag.permute(0, 2, 3, 1))
+        step = torch.exp2(torch.floor(torch.log2(
+            ref.abs().clamp_min(1e-30))) - 7)
+        bar = torch.maximum(step, rounding).clamp_min(CONV_F32_BAR)
+        d = (got.double() - ref).abs()
+        over = int((d > bar).sum())
+        print(f"  {what}: max|d| vs float64 {float(d.max()):.3e}, outside "
+              f"one bf16 step or the f32 rounding {over}")
+        if over or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: {over} values off float64")
+        return float(d.max())
+
+    for lname, groups, cout, act, dil, shape in (
+            ("640+640->640 relu", (640, 640), 640, "relu", 1, (2, 37, 45)),
+            ("1024+1024->24 tanh", (1024, 1024), 24, "tanh", 1,
+             (2, 37, 45)),
+            ("1024->24 leaky d64", (1024,), 24, "leaky", 64, (1, 140, 200)),
+            ("1024->24 leaky d128", (1024,), 24, "leaky", 128,
+             (1, 140, 300))):
+        w, b = conv_params(sum(groups), cout)
+        xs = [urand(shape + (c,), torch.bfloat16) for c in groups]
+        if dil == 1:
+            got, k = mx.conv2d_patch_mxu(xs, w, b, act=act), "k6a"
+        else:
+            got, k = mx.conv2d_dense9_mxu(xs[0], w, b, act=act,
+                                          dilation=dil), "k6b"
+        wide_check(f"{k.upper()} {lname} bf16 {shape} (streamed weights)",
+                   got, xs, w, b, act, dil)
+        del xs, got
+
     # kernel-only time beside the plain version's at the main-path shape
     k1_ms, k1_plain_ms = paired_ms(
         torch, lambda: fe.fused_retinex_plain(x48, cfg0),
@@ -824,6 +1048,73 @@ def main() -> int:
         lambda: hw.enhance_hwc_u8(x48, hwc_cfg), 10)
     k8_b = k1_bound(hwc_cfg, 48, 400, 600)
 
+    # the new forms' times beside their plain versions and bounds: K1 guided
+    # and f32 at 600x400 b48 and 1080p b1, K3 hybrid guided at 600x400 b48,
+    # the video forms guided at 1080p b1, the blur kernel's plane
+    form_ms = {}
+
+    def form_timed(name, plain, kernel, bnd, iters=3):
+        form_ms[name] = paired_ms(torch, plain, kernel, iters) + (bnd,)
+
+    x1080 = torch.from_numpy(lows_of(1, 1080, 1920)).to(dev)
+    for n, kw in (gforms[0], gforms[2], gforms[3]):
+        cfg = cfg0.replace(**kw)
+        for shape, x in (("600x400 b48", x48), ("1080p b1", x1080)):
+            b, h, w = x.shape[:3]
+            form_timed(f"K1 {n} {shape}",
+                       lambda: fe.fused_retinex_plain(x, cfg),
+                       lambda: fe.fused_retinex(x, cfg), k1_bound(cfg, b, h, w),
+                       3 if b > 1 else 10)
+    x48f = normalize_u8(x48)
+    form_timed("K1 f32 600x400 b48", lambda: fe.fused_retinex_plain(x48f, cfg0),
+               lambda: fe.fused_retinex(x48f, cfg0),
+               k1_bound(cfg0, 48, 400, 600, 4))
+    del x48f
+    cfg = cfg0.replace(blur_radius=16, blur_sigma=5.0)
+    kb_ms, kb_plain_ms = paired_ms(
+        torch, lambda: fe.blur_illumination_plain(x48, cfg, 1, True),
+        lambda: fe.blur_illumination(x48, cfg, 1, hwc=True), 3)
+    kb_b = blur_plane_bound(cfg, 48, 400, 600, 1)
+    form_timed("K1 blur r16 (plane and K1) 600x400 b48",
+               lambda: fe.fused_retinex_plain(x48, cfg),
+               lambda: fe.fused_retinex(x48, cfg), k1_bound(cfg, 48, 400, 600))
+    for n, kw in (gforms[2],):
+        cfg = hybrid.replace(**kw)
+        xb, maps, halo, rows, iw, m = curve_case(cfg, lows48)
+        form_timed(f"K3 hybrid {n} 600x400 b48",
+                   lambda: fe.fused_curve_enhance_plain(xb, maps, cfg, halo,
+                                                        rows, iw),
+                   lambda: fe.fused_curve_enhance(xb, maps, cfg, halo, rows,
+                                                  iw),
+                   k3_bound(cfg, xb, maps, halo, rows, m))
+        del xb, maps
+    lows1080 = lows_of(1, 1080, 1920)
+    for n, kw in (gforms[0], gforms[2]):
+        cfg = cfg0.replace(**kw)
+        xb, gain, _, halo, rows, iw, m = video_case(cfg, lows1080)
+        carry = torch.full_like(gain, -1.0)
+        form_timed(f"K4 {n} 1080p b1",
+                   lambda: fe.fused_retinex_ema_plain(xb, carry, cfg, halo,
+                                                      rows, iw, 0.3),
+                   lambda: fe.fused_retinex_ema(xb, carry, cfg, halo, rows,
+                                                iw, 0.3),
+                   k4_bound(cfg, 1, xb.shape[-2], xb.shape[-1], rows, m), 10)
+        form_timed(f"K1 gain form {n} 1080p b1",
+                   lambda: fe.fused_retinex_gain_plain(xb, gain, cfg, halo,
+                                                       rows),
+                   lambda: fe.fused_retinex_gain(xb, gain, cfg, halo, rows),
+                   k1_gain_bound(cfg, 1, rows, m, xb.shape[-1]), 10)
+        cfg = hybrid.replace(curve_downsample=4, **kw)
+        xb, gain, maps, halo, rows, iw, m = video_case(cfg, lows1080)
+        form_timed(f"K3 hybrid ds4 + gain {n} 1080p b1",
+                   lambda: fe.fused_curve_enhance_plain(xb, maps, cfg, halo,
+                                                        rows, iw, 4, gain),
+                   lambda: fe.fused_curve_enhance(xb, maps, cfg, halo, rows,
+                                                  iw, ds=4, gain=gain),
+                   k3_bound(cfg, xb, maps, halo, rows, m, ds=4, gain=True),
+                   10)
+        del xb, gain, maps, carry
+
     # the video forms at the video benchmark's 1080p b1 and at 600x400 b8,
     # in two rounds to show the spread of their times within one run
     video_ms = {}
@@ -891,6 +1182,12 @@ def main() -> int:
         lib = "" if tl is None else f", one F.conv2d {tl:.3f} ms"
         print(f"  600x400 b48 on {card}: {name} {t:.3f} ms (plain {tp:.3f} "
               f"ms{lib}, bound {bd[0]:.4f} ms by {bd[1]})")
+    for name, (t, tp, bd) in form_ms.items():
+        print(f"  {name} on {card}: {t:.4f} ms (plain {tp:.3f} ms, bound "
+              f"{bd[0]:.4f} ms by {bd[1]}, {t / bd[0]:.1f}x)")
+    print(f"  blur_illumination r16 e1 600x400 b48 on {card}: {kb_ms:.4f} ms "
+          f"(plain {kb_plain_ms:.3f} ms, bound {kb_b[0]:.4f} ms by "
+          f"{kb_b[1]})")
     for name, rounds in video_ms.items():
         t = " / ".join(f"{r[0]:.4f}" for r in rounds)
         tp = " / ".join(f"{r[1]:.3f}" for r in rounds)
@@ -907,6 +1204,23 @@ def main() -> int:
     # K3) and 8 (upsampled eagerly, then K3 at ds 1)
     paths += [(f"{c.method} ds{ds}", c.replace(curve_downsample=ds), ("k3",))
               for c, ds in ((curve, 2), (hybrid, 4), (hybrid, 8))]
+    # the guided tails (timed at 1080p b1 too), and a blur past the tiles
+    guided_paths = [
+        ("retinex guided r2", cfg0.replace(**guided), ("k1",)),
+        ("retinex guided r4", cfg0.replace(guided_radius=4, **guided),
+         ("k1",)),
+        ("retinex guided r4 perchannel",
+         cfg0.replace(guided_radius=4, denoise_guide="perchannel", **guided),
+         ("k1",)),
+        ("hybrid guided r4", hybrid.replace(guided_radius=4, **guided),
+         ("k3",)),
+        ("curve ds2 guided r2", curve.replace(curve_downsample=2, **guided),
+         ("k3",)),
+    ]
+    paths += guided_paths
+    paths += [("retinex blur r16", cfg0.replace(blur_radius=16,
+                                                blur_sigma=5.0),
+               ("k1", "kb"))]
     # the nets' own conv kernels: (name, config, kernels it launches)
     conv_paths = [
         ("hybrid pallas", hybrid.replace(conv_impl="pallas"), ("k6a", "k3")),
@@ -927,6 +1241,13 @@ def main() -> int:
                                             curve_iters=4), ("k6a", "k3")),
         ("hybrid pallas i16", hybrid.replace(conv_impl="pallas",
                                              curve_iters=16), ("k6a", "k3")),
+        ("hybrid pallas guided r4",
+         hybrid.replace(conv_impl="pallas", guided_radius=4, **guided),
+         ("k6a", "k3")),
+        # past 16 pieces: K6 streams its weights (a small block only)
+        ("hybrid pallas f640",
+         hybrid.replace(conv_impl="pallas", curve_features=640),
+         ("k6a", "k3")),
     ]
     paths += conv_paths
     conv_kernels = ("k6a", "k6b", "k7", "k8")
@@ -942,6 +1263,9 @@ def main() -> int:
                  "hybrid pallas f160": ("k6a", 6, "k3"),
                  "hybrid pallas i4": ("k6a", 6, "k3"),
                  "hybrid pallas i16": ("k6a", 6, "k3"),
+                 "hybrid pallas guided r4": ("k6a", 6, "k3"),
+                 "hybrid pallas f640": ("k6a", 6, "k3"),
+                 "retinex blur r16": ("kb", 1, "k1"),
                  "quality pallas": ("k6a", 3, "k5"),
                  "quality_fast pallas": ("k6b", 6, "k5"),
                  "quality_fast cascade": ("k7", 1, "k5")}
@@ -954,6 +1278,13 @@ def main() -> int:
          ("k3",), ("k1", "k4")),
         ("video hybrid_ds4", hybrid.replace(curve_downsample=4), True,
          ("k3",), ("k1", "k4")),
+        ("video retinex guided", cfg0.replace(**guided), True, ("k4",),
+         ("k1", "k3")),
+        ("video retinex_extgain guided", cfg0.replace(**guided), False,
+         ("k1",), ("k4", "k3")),
+        ("video hybrid_ds4 guided",
+         hybrid.replace(curve_downsample=4, **guided), True, ("k3",),
+         ("k1", "k4")),
     ]
     launches = {name: {k: 0 for k in wrappers}
                 for name, *_ in paths + video_paths + [("hwc",)]}
@@ -974,6 +1305,14 @@ def main() -> int:
         pipe = llt.EnhancePipeline(cfg, device="cuda")
         cpu = llt.EnhancePipeline(cfg, device="cpu",
                                   model_params=pipe.model_params)
+        if cfg.curve_features > 512:
+            # K6 streaming its weights: a small block, bf16 against the CPU
+            tiny = synth_batch(1, 32, 48, seed=6)[0]
+            p = psnr(pipe.enhance_batch(tiny), cpu.enhance_batch(tiny))
+            print(f"  {name} (bf16) cuda vs cpu 48x32 b1: PSNR {p:.2f} dB")
+            if p < 40.0:
+                raise AssertionError(f"{name} PSNR {p:.2f} < 40 dB")
+            return
         got, want = pipe.enhance_batch(small), cpu.enhance_batch(small)
         if got.shape != small.shape or got.dtype != np.uint8:
             raise AssertionError(f"{name}: output {got.shape} {got.dtype}")
@@ -997,6 +1336,11 @@ def main() -> int:
               f"{48e3 / host_ms:.1f} img/s enhance_batch (host u8 in/out, "
               f"{host_ms:.2f} ms), {48e3 / dev_ms:.1f} img/s "
               f"enhance_batch_device ({dev_ms:.2f} ms)")
+        if "guided" in name:
+            hd_ms = cuda_ms(torch, lambda: pipe.enhance_batch_device(x1080),
+                            10)
+            print(f"  {name} 1080p b1 on {card}: {1e3 / hd_ms:.1f} img/s "
+                  f"enhance_batch_device ({hd_ms:.3f} ms)")
 
     for name, cfg, _ in paths:
         counted(name, lambda: phase4(name, cfg))
@@ -1040,7 +1384,11 @@ def main() -> int:
                   ("quality pallas", "quality",
                    quality.replace(conv_impl="pallas")),
                   ("quality_fast cascade", "quality_fast",
-                   quality_fast.replace(conv_impl="cascade"))]
+                   quality_fast.replace(conv_impl="cascade")),
+                  ("retinex guided r4", "retinex guided r4",
+                   cfg0.replace(guided_radius=4, **guided)),
+                  ("hybrid guided r4", "hybrid guided r4",
+                   hybrid.replace(guided_radius=4, **guided))]
     for name, preset, cfg in eval_paths:
         got = counted(name, lambda: eval15(cfg))
         want = JAX_EVAL15[preset]
@@ -1116,7 +1464,7 @@ def main() -> int:
                         frame1080)
         print(f"  {name} 1080p on {card}: {1e3 / ms:.1f} frames/s "
               f"({ms:.3f} ms/step, {n_chain} chained steps, CUDA events)")
-        if cfg.method == "retinex":
+        if cfg.method == "retinex" or "guided" in name:
             return
         s8 = np.stack([frames_of(frame1080, i) for i in range(8)])
         mv = tvideo.MultiStreamVideoEnhancer(8, cfg, device="cuda")
@@ -1144,21 +1492,25 @@ def main() -> int:
              for i in range(8)]
 
     def phase5(name, cfg):
+        # the guided paths also serve two 1080p requests
+        rq = reqs + (list(lows_of(2, 1080, 1920)) if "guided" in name
+                     else [])
+        n = len(rq)
         ref = llt.EnhancePipeline(cfg, device="cuda", bucket=64)
-        want = [ref.enhance(img) for img in reqs]
+        want = [ref.enhance(img) for img in rq]
         with llt.EnhanceServer(cfg, device="cuda") as server:
             for rnd in ("warm-up", "measured"):
-                lat = [0.0] * len(reqs)
-                got = [None] * len(reqs)
+                lat = [0.0] * n
+                got = [None] * n
 
                 def client(ids):
                     for i in ids:
                         t = time.perf_counter()
-                        got[i] = server.submit(reqs[i]).result(timeout=300)
+                        got[i] = server.submit(rq[i]).result(timeout=300)
                         lat[i] = (time.perf_counter() - t) * 1e3
 
                 threads = [threading.Thread(target=client,
-                                            args=(range(k, 16, 4),))
+                                            args=(range(k, n, 4),))
                            for k in range(4)]
                 for t in threads:
                     t.start()
@@ -1166,18 +1518,18 @@ def main() -> int:
                     t.join(timeout=600)
                     if t.is_alive():
                         raise AssertionError("server client thread hung")
-                bad = [i for i in range(16) if got[i] is None
+                bad = [i for i in range(n) if got[i] is None
                        or not np.array_equal(got[i], want[i])]
                 if bad:
                     raise AssertionError(
                         f"{name} server: requests {bad} differ from "
                         "pipeline.enhance")
-                print(f"  {name} {rnd}: 16/16 answered, equal to "
+                print(f"  {name} {rnd}: {n}/{n} answered, equal to "
                       f"pipeline.enhance; latency p50 "
                       f"{np.percentile(lat, 50):.2f} ms p99 "
                       f"{np.percentile(lat, 99):.2f} ms on {card}")
 
-    for name, cfg, _ in paths[:3] + conv_paths[3:4]:
+    for name, cfg, _ in paths[:3] + conv_paths[3:4] + guided_paths[1:4:2]:
         counted(name, lambda: phase5(name, cfg))
 
     print(f"[6] ({time.perf_counter() - t_start:.0f} s) launches per path "
@@ -1232,6 +1584,9 @@ def main() -> int:
             "fcn_cascade.py:169", k7_ms, k7_plain_ms, k7_b),
         row("enhance_hwc_u8 (K8)", "k8", "fused_enhance.cu",
             "fused_enhance_hwc.py:178", k8_ms, k8_plain_ms, k8_b),
+        row("blur_illumination (K1/K3/K4 blur past the tiles)", "kb",
+            "fused_enhance.cu", "fused_enhance.py:146", kb_ms, kb_plain_ms,
+            kb_b),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,7 @@ from low_light_image_enhancement_tpu_torch.kernels.fcn_cascade import (
     apply_fcn_cascade,
 )
 from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
+    _to_float,
     fused_curve_enhance,
 )
 from low_light_image_enhancement_tpu_torch.kernels.tiled_denoise import (
@@ -56,10 +57,7 @@ from low_light_image_enhancement_tpu_torch.models.fcn import (
     apply_fcn,
     apply_fcn_pallas,
 )
-from low_light_image_enhancement_tpu_torch.ops.colorspace import (
-    normalize_u8,
-    quantize_u8,
-)
+from low_light_image_enhancement_tpu_torch.ops.colorspace import quantize_u8
 from low_light_image_enhancement_tpu_torch.ops.filters import upsample_maps
 
 __all__ = ["cnn_radius", "learned_halo", "single_block_halo",
@@ -232,7 +230,7 @@ def block_curve_maps(
     h: int,
     w: int,
 ) -> torch.Tensor:
-    """Curve maps of a u8 block as K3 takes them, (B, n_iter, 3, HB/k,
+    """Curve maps of a u8 or f32 block as K3 takes them, (B, n_iter, 3, HB/k,
     WB/k) with ``k = kernel_maps_ds(cfg)``: the CNN runs on the normalized
     block (hybrid: boosted, margin cols re-replicated, so the
     CNN never sees the wrap shifts' opposite-edge content), zeroed beyond
@@ -241,11 +239,8 @@ def block_curve_maps(
     if cfg.method not in ("curve", "hybrid"):
         raise ValueError(
             f"method {cfg.method!r} has no curve maps (curve and hybrid do)")
-    if xb.dtype != torch.uint8:
-        raise NotImplementedError(
-            "float blocks are not ported yet (ROADMAP Queue 1: f32 I/O)")
     m = canvas_margin(cfg)
-    y = normalize_u8(xb)
+    y = _to_float(xb)
     if cfg.method == "hybrid":
         y = replicate_margin_cols(illumination_boost(y, cfg), w, m)
     return curve_maps_for_kernel(_mask_extent(y, row0, h, w, m), cfg,
@@ -267,10 +262,7 @@ def block_net_image(
     cfg = resolve_conv_impl(cfg)
     if cfg.method not in ("fcn", "decom"):
         raise ValueError(f"method {cfg.method!r} is not fcn or decom")
-    if xb.dtype != torch.uint8:
-        raise NotImplementedError(
-            "float blocks are not ported yet (ROADMAP Queue 1: f32 I/O)")
-    cnn_in = _mask_extent(normalize_u8(xb), row0, h, w, canvas_margin(cfg))
+    cnn_in = _mask_extent(_to_float(xb), row0, h, w, canvas_margin(cfg))
     if cfg.method == "fcn":
         apply = {"pallas": apply_fcn_pallas,
                  "cascade": apply_fcn_cascade}.get(cfg.conv_impl, apply_fcn)
@@ -295,13 +287,15 @@ def enhance_learned_block(
     """Learned-method enhance on one halo'd u8 row block.
 
     Args:
-      xb: (B, 3, HB, WB) uint8; HB = owned rows + 2 * halo, WB a multiple
-        of 128 with ``canvas_margin`` replicate cols before the image.
+      xb: (B, 3, HB, WB) uint8, or float32 in [0, 1]; HB = owned rows + 2 *
+        halo, WB a multiple of 128 with ``canvas_margin`` replicate cols
+        before the image.
       row0: image-row index of block row 0.
       h, w: true image extent, for the zero mask beyond the margin.
       halo: rows per side; defaults to ``learned_halo(cfg)``.
 
-    Returns (B, 3, HB - 2*halo, WB) uint8, columns uncropped.
+    Returns (B, 3, HB - 2*halo, WB) of the block's dtype (f32 clipped to
+    [0, 1]), columns uncropped.
     """
     if halo is None:
         halo = learned_halo(cfg)
@@ -311,6 +305,8 @@ def enhance_learned_block(
         return fused_curve_enhance(xb, maps, cfg, halo, rows, img_w=w,
                                    ds=kernel_maps_ds(cfg))
     y = block_net_image(xb, cfg, model_params, row0, h, w)
-    if cfg.denoise_strength <= 0.0:
-        return quantize_u8(y[..., halo:halo + rows, :])
-    return quantize_u8(tiled_denoise(y, cfg, halo, rows))
+    if cfg.denoise_strength > 0.0:
+        y = tiled_denoise(y, cfg, halo, rows)
+    else:
+        y = y[..., halo:halo + rows, :]
+    return quantize_u8(y) if xb.dtype == torch.uint8 else y

@@ -71,8 +71,7 @@ class PipelineConfig:
     denoise_sigma: float = 0.2      # range sigma of the bilateral
     denoise_kernel: str = "exp"     # range weight: "exp" or "epan"
     denoise_taps: str = "sep"       # "sep" 3+3 taps, "full" 3x3, "guided"
-                                    # (guided runs on fcn and decom; on
-                                    # retinex/curve/hybrid it raises)
+                                    # (every method runs each of them)
     guided_radius: int = 2          # box radius of the guided tail
     guided_eps: float = 1e-2        # guided-filter variance threshold
     denoise_guide: str = "luma"     # "luma" joint bilateral or "perchannel"

@@ -37,14 +37,15 @@ _lib = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
-    "llie_fused_retinex_u8": [
-        _P, _P, _I, _I, _I,          # in, out, B, H, W
+    "llie_fused_retinex": [
+        _P, _P, _I, _P,              # in, out, f32, illumination plane
+        _I, _I, _I, _I,              # B, H, W, stages
         _I, _FP, _F, _F,             # radius, taps, gamma - 1, eps
         _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
         _P,                          # kind, joint, sep; stream
     ],
-    "llie_fused_curve_u8": [
-        _P, _P, _P, _P,              # in, maps, gain (or NULL), out
+    "llie_fused_curve": [
+        _P, _P, _P, _P, _P, _I,      # in, maps, gain, plane, out, f32
         _I, _I, _I,                  # B, HB, WB
         _I, _I, _I, _I, _I, _I,      # halo, rows, n_iter, boost, margin, img_w
         _I, _FP,                     # ds, the 8 upsample phase weights
@@ -52,14 +53,14 @@ _SIGNATURES = {
         _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
         _P,                          # kind, joint, sep; stream
     ],
-    "llie_fused_retinex_gain_u8": [
-        _P, _P, _P, _I, _I, _I,      # in, gain, out, B, HB, WB
+    "llie_fused_retinex_gain": [
+        _P, _P, _P, _I, _I, _I, _I,  # in, gain, out, f32, B, HB, WB
         _I, _I,                      # halo, rows
         _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
         _P,                          # kind, joint, sep; stream
     ],
-    "llie_fused_retinex_ema_u8": [
-        _P, _P, _P, _P,              # in, carry, out, new carry
+    "llie_fused_retinex_ema": [
+        _P, _P, _P, _P, _P, _I,      # in, carry, plane, out, new carry, f32
         _I, _I, _I,                  # B, HB, WB
         _I, _I, _I, _I,              # halo, rows, margin, img_w
         _F, _F, _F,                  # alpha, 1 - alpha, gamma
@@ -67,6 +68,13 @@ _SIGNATURES = {
         _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
         _P,                          # kind, joint, sep; stream
     ],
+    "llie_blur_illumination": [
+        _P, _I, _I, _P, _P,          # in, f32, hwc, scratch, plane
+        _I, _I, _I, _I, _I, _P,      # B, H, W, e, radius, device taps
+        _P,                          # stream
+    ],
+    "llie_fused_guided": [_P, _P],   # FusedGuidedArgs*, stream
+    "llie_fused_guided_args_size": [],
     "llie_tiled_denoise_f32": [
         _P, _P, _I, _I, _I,          # in, out, B, HB, WB
         _I, _I, _I,                  # halo, rows, margin
@@ -88,7 +96,6 @@ _SIGNATURES = {
         _I, _I, _I, _I,              # B, H, W, bf16
         _P,                          # stream
     ],
-    "llie_max_blur_radius": [],
 }
 
 

@@ -61,6 +61,16 @@
 // the one that does not read it arriving at once, so that a slot is
 // refilled only after both have passed it.
 //
+// Streamed weights. Where even one chunk's weights do not fit beside a
+// ring of piece groups (more than 16 pieces of 64 channels, Cin > 1024,
+// or 14 at dilation 64 and more), a block holds no chunk: with each row
+// group and piece group the producer also copies that piece group's
+// weights of the block's chunk (9 taps, cp.async.bulk) into one of two
+// weight buffers, which the consumers pass in turn as they pass the
+// ring's slots. Its pieces are worked out on the device from the two
+// groups' widths (no table), so it takes any Cin, in one launch. Only
+// this form (conv3x3_stream_kernel) reads weights per row group.
+//
 // The pipeline. One producer thread issues the TMA loads of the halo rows
 // in order; two consumer warpgroups take the row groups in turn, so one's
 // epilogue overlaps the other's wgmma. The first wgmma of a group writes
@@ -93,7 +103,9 @@ constexpr int CONSUMERS = 2;         // consumer warpgroups
 constexpr int THREADS = CONSUMERS * 128 + 32;  // and one producer warp
 constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory of a block
 constexpr int MAX_BOX_X = 192;       // the widest contiguous halo row
-constexpr int MAX_PIECES = 16;       // Cin <= 1024
+constexpr int MAX_PIECES = 16;       // the table: Cin <= 1024 (past it,
+                                     // the streamed form works the pieces
+                                     // out on the device)
 constexpr int MAX_SLOTS = 16;        // halo rows in the ring
 constexpr int MAX_N = 64;            // the widest chunk of output channels
 constexpr uint32_t ALIGN = 1024;     // the 128-byte swizzle's period
@@ -131,6 +143,12 @@ struct GeomT {
   uint32_t wchunk;      // bytes of one chunk's weights (9 taps)
   uint32_t w_bytes;     // bytes of a block's weights (npass chunks)
   int smem;             // dynamic shared memory to ask for
+  // the streamed form: the pieces of group a, the bytes a pixel of a
+  // group a and a group b piece, the bytes a tap of the widest piece
+  // group's weights, and 1 where the layer streams its weights
+  int npa;
+  uint32_t spa, spb, wpg;
+  int stream;
 };
 using Geom = GeomT<MAX_PIECES>;
 
@@ -739,6 +757,264 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   consume<N, SP, NP>(g, sm, out, split * g.npass * N, wg, t0, ts, rc, qc);
 }
 
+// ------------------------------------------------- streamed weights --- //
+
+// Copies `bytes` (a multiple of 16) from global `src` to shared `dst`,
+// completing on mbarrier `bar` (the async proxy, as TMA).
+inline __device__ void bulk_copy(uint32_t dst, const void* src,
+                                 uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Piece p of a layer of the streamed form, at chunk width N, within the
+// piece group that starts at piece p0: pieces 0 .. npa - 1 are group a's
+// (2 * spa... CP = spa / 2 channels each), the rest group b's. aoff and
+// woff are from piece p0 (its slot region, its weights in a tap).
+template <int N, class G>
+__device__ __forceinline__ Piece piece_at(const G& g, int p, int p0) {
+  const bool a = p < g.npa;
+  const uint32_t sp = a ? g.spa : g.spb;
+  const uint32_t areg_a = (g.box_x * g.spa + ALIGN - 1) / ALIGN * ALIGN;
+  const uint32_t areg_b = (g.box_x * g.spb + ALIGN - 1) / ALIGN * ALIGN;
+  const uint32_t wp_a = (N * g.spa + ALIGN - 1) / ALIGN * ALIGN;
+  const uint32_t wp_b = (N * g.spb + ALIGN - 1) / ALIGN * ALIGN;
+  const int na = max(0, min(p, g.npa) - p0);
+  const int nb = p - p0 - na;
+  Piece pc;
+  pc.map = a ? 0 : 1;
+  pc.c0 = (a ? p : p - g.npa) * (int)(sp / 2);
+  pc.ksteps = (int)(sp / 32);
+  pc.sp = sp;
+  pc.areg = a ? areg_a : areg_b;
+  pc.aoff = g.nseg * (na * areg_a + nb * areg_b);
+  pc.woff = na * wp_a + nb * wp_b;
+  return pc;
+}
+
+// The streamed form's shared memory past the bias: two weight buffers'
+// full and empty barriers.
+__device__ __forceinline__ uint32_t stream_bars(const Smem& sm, int n) {
+  return (sm.bias + 4 * n + 7) & ~7u;
+}
+
+// The producer of the streamed form: for each row group and piece group,
+// the piece group's weights of the block's chunk (`wsrc`, 9 taps) into
+// weight buffer wc % 2, then the ROWS + 2 halo rows of its pieces into
+// the ring.
+template <int N, class G>
+__device__ __forceinline__ void produce_stream(
+    const G& g, const CUtensorMap* map_a, const CUtensorMap* map_b,
+    const Smem& sm, const unsigned char* wsrc, int t0, int ts) {
+  const uint32_t wbar = stream_bars(sm, N);
+  uint32_t rc = 0, wc = 0;
+  for (int t = t0; t < g.nstrips; t += ts) {
+    const Strip sp = strip_at(g, t);
+    if (!sp.live) continue;
+#pragma unroll 1
+    for (int q = 0; q < sp.groups; ++q)
+#pragma unroll 1
+      for (int p0 = 0; p0 < g.npieces; p0 += g.ppg) {
+        const int p1 = min(p0 + g.ppg, g.npieces);
+        // the weights: a tap's pieces p0 .. p1 - 1 lie together
+        const Piece first = piece_at<N>(g, p0, 0);
+        const uint32_t wb = piece_at<N>(g, p1, p0).woff;
+        const uint32_t s = wc % 2;
+        mbar_wait(wbar + 16 + 8 * s, ((wc / 2) & 1) ^ 1);
+        mbar_expect_tx(wbar + 8 * s, 9 * wb);
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap)
+          bulk_copy(sm.sw + s * 9 * g.wpg + tap * g.wpg,
+                    wsrc + (size_t)tap * g.wtap + first.woff, wb,
+                    wbar + 8 * s);
+        ++wc;
+        uint32_t tx = 0;
+        for (int p = p0; p < p1; ++p)
+          tx += g.nseg * g.box_x * piece_at<N>(g, p, p0).sp;
+#pragma unroll 1
+        for (int j = 0; j < ROWS + 2; ++j) {
+          const int y = sp.y0 + (q * ROWS + j - 1) * g.dil;
+          const uint32_t slot = rc % g.slots;
+          mbar_wait(sm.empty0 + 8 * slot, ((rc / g.slots) & 1) ^ 1);
+          const uint32_t bar = sm.full0 + 8 * slot;
+          mbar_expect_tx(bar, tx);
+#pragma unroll 1
+          for (int p = p0; p < p1; ++p) {
+            const Piece pc = piece_at<N>(g, p, p0);
+            const CUtensorMap* map = pc.map ? map_b : map_a;
+#pragma unroll 1
+            for (int k = 0; k < g.nseg; ++k) {
+              const int x = g.nseg == 1 ? sp.x0 - g.dil
+                                        : sp.x0 + (k - 1) * g.dil;
+              tma_load4(sm.ring + slot * g.row + pc.aoff + k * pc.areg, map,
+                        bar, pc.c0, x, y, sp.b);
+            }
+          }
+          ++rc;
+        }
+      }
+  }
+}
+
+// The wgmma of one row group over the pieces p0 .. p1 - 1 of the streamed
+// form, their weights in buffer `wbuf` (a tap every g.wpg bytes).
+template <int N, class G>
+__device__ __forceinline__ void group_mma_stream(
+    float (&acc)[ROWS][N / 2], const G& g, uint32_t ring,
+    const uint32_t (&slot)[ROWS + 2], uint32_t wbuf, int p0, int p1,
+    int acc_in) {
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+#pragma unroll 1
+    for (int p = p0; p < p1; ++p) {
+      const Piece pc = piece_at<N>(g, p, p0);
+      const uint32_t a_dx =
+          pc.aoff + (g.nseg == 1 ? dx * g.dil * pc.sp : dx * pc.areg);
+      const uint32_t b0 = wbuf + tap * g.wpg + pc.woff;
+#pragma unroll 1
+      for (int kk = 0; kk < pc.ksteps; ++kk) {
+        const uint64_t db = mat_desc(b0 + 32 * kk, pc.sp);
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k)
+          Mma<N>::run(acc[k],
+                      mat_desc(ring + slot[k + dy] * g.row + a_dx + 32 * kk,
+                               pc.sp),
+                      db, (acc_in | tap | (p - p0) | kk) != 0);
+      }
+    }
+  }
+}
+
+// A consumer warpgroup of the streamed form: as consume()'s piece-group
+// path, each piece group's weights waited for in their buffer and
+// released with its rows; one chunk a block, channels c_base ...
+template <int N, class G>
+__device__ __forceinline__ void consume_stream(const G& g, const Smem& sm,
+                                               __nv_bfloat16* __restrict__ out,
+                                               int c_base, int wg, int t0,
+                                               int ts) {
+  const int wtid = threadIdx.x % 128;
+  const int m0 = (wtid / 32) * 16 + (wtid % 32) / 4;
+  const int c0 = 2 * (wtid % 4);
+  const uint32_t wbar = stream_bars(sm, N);
+  const float* sbias =
+      reinterpret_cast<const float*>(__cvta_shared_to_generic(sm.bias));
+  float bv[N / 4];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    bv[2 * j] = sbias[8 * j + c0];
+    bv[2 * j + 1] = sbias[8 * j + c0 + 1];
+  }
+  uint32_t rc = 0, wc = 0;
+  int qc = 0;
+  for (int t = t0; t < g.nstrips; t += ts) {
+    const Strip sp = strip_at(g, t);
+    if (!sp.live) continue;
+#pragma unroll 1
+    for (int q = 0; q < sp.groups; ++q, ++qc) {
+      if (qc % CONSUMERS != wg) {
+        // the other consumer's weights and rows: pass each once landed
+#pragma unroll 1
+        for (int pg = 0; pg < g.pgroups; ++pg, ++wc) {
+          const uint32_t s = wc % 2;
+          mbar_wait(wbar + 8 * s, (wc / 2) & 1);
+          if (wtid == 0) mbar_arrive(wbar + 16 + 8 * s, 1);
+#pragma unroll 1
+          for (int j = 0; j < ROWS + 2; ++j, ++rc) {
+            const uint32_t slot = rc % g.slots;
+            mbar_wait(sm.full0 + 8 * slot, (rc / g.slots) & 1);
+            if (wtid == 0) mbar_arrive(sm.empty0 + 8 * slot, 1);
+          }
+        }
+        continue;
+      }
+      float acc[ROWS][N / 2];
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) fence_reg(acc[k][i]);
+#pragma unroll 1
+      for (int pg = 0; pg < g.pgroups; ++pg, ++wc, rc += ROWS + 2) {
+        const uint32_t s = wc % 2;
+        mbar_wait(wbar + 8 * s, (wc / 2) & 1);
+        uint32_t slot[ROWS + 2];
+#pragma unroll
+        for (int j = 0; j < ROWS + 2; ++j) {
+          const uint32_t r = rc + j;
+          slot[j] = r % g.slots;
+          mbar_wait(sm.full0 + 8 * slot[j], (r / g.slots) & 1);
+        }
+        const int p0 = pg * g.ppg;
+        wgmma_fence();
+        group_mma_stream<N>(acc, g, sm.ring, slot, sm.sw + s * 9 * g.wpg, p0,
+                            min(p0 + g.ppg, g.npieces), pg);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i) fence_reg(acc[k][i]);
+        if (wtid == 0) {
+#pragma unroll
+          for (int j = 0; j < ROWS + 2; ++j)
+            mbar_arrive(sm.empty0 + 8 * slot[j], 1);
+          mbar_arrive(wbar + 16 + 8 * s, 1);
+        }
+      }
+      store_group<N, false>(acc, bv, g, sp, q, m0, c_base + c0, g.cout, out);
+    }
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_stream_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const __nv_bfloat16* __restrict__ w,
+                      const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out,
+                      const __grid_constant__ Geom g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const Smem sm =
+      smem_layout(g, raw + ((ALIGN - (raw & (ALIGN - 1))) & (ALIGN - 1)));
+  const uint32_t wbar = stream_bars(sm, N);
+  // this block's chunk of the output channels
+  const int split = blockIdx.x % g.nsplit;
+  {
+    float* sb = reinterpret_cast<float*>(__cvta_shared_to_generic(sm.bias));
+    for (int i = threadIdx.x; i < N; i += THREADS) sb[i] = bias[split * N + i];
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.slots; ++s) {
+      mbar_init(sm.full0 + 8 * s, 1);
+      mbar_init(sm.empty0 + 8 * s, 2);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(wbar + 8 * s, 1);
+      mbar_init(wbar + 16 + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  const int t0 = blockIdx.x / g.nsplit, ts = gridDim.x / g.nsplit;
+  if (wg == CONSUMERS) {
+    if (threadIdx.x % 128 == 0)
+      produce_stream<N>(g, &map_a, &map_b, sm,
+                        reinterpret_cast<const unsigned char*>(w) +
+                            (size_t)split * g.wchunk,
+                        t0, ts);
+    return;
+  }
+  consume_stream<N>(g, sm, out, split * N, wg, t0, ts);
+}
+
 // ------------------------------------------------------------- host --- //
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -804,19 +1080,19 @@ inline uint32_t round_up(uint32_t v, uint32_t m) { return (v + m - 1) / m * m; }
 // pieces are too many.
 template <class G>
 inline bool plan_layer(G* g, int ca, int cb, int cout, int n,
-                       int ppg = MAX_PIECES) {
+                       int ppg = MAX_PIECES, bool table = true) {
   g->nseg = TILE_X + 2 * g->dil <= MAX_BOX_X ? 1 : 3;
   g->box_x = g->nseg == 1 ? (int)round_up(TILE_X + 2 * g->dil, 8) : TILE_X;
   g->npieces = 0;
-  uint32_t aoff = 0, woff = 0, tx = 0, row = 0;
+  uint32_t aoff = 0, woff = 0, tx = 0, row = 0, gw = 0, wpg = 0;
   const int cs[2] = {ca, cb};
   const int mp = (int)(sizeof(g->pc) / sizeof(g->pc[0]));
   for (int m = 0; m < 2; ++m) {
     const int cp = piece_channels(cs[m]);
     for (int c0 = 0; c0 < cs[m]; c0 += cp) {
-      if (g->npieces == mp) return false;
-      if (g->npieces % ppg == 0) aoff = 0;  // a piece group: a slot each
-      Piece& pc = g->pc[g->npieces++];
+      if (table && g->npieces == mp) return false;
+      if (g->npieces % ppg == 0) aoff = gw = 0;  // a piece group: a slot
+      Piece pc;
       pc.map = m;
       pc.c0 = c0;
       pc.ksteps = cp / 16;
@@ -824,12 +1100,21 @@ inline bool plan_layer(G* g, int ca, int cb, int cout, int n,
       pc.aoff = aoff;
       pc.areg = round_up(g->box_x * pc.sp, ALIGN);
       pc.woff = woff;
+      if (g->npieces < mp) g->pc[g->npieces] = pc;
+      ++g->npieces;
       aoff += g->nseg * pc.areg;
       woff += round_up(n * pc.sp, ALIGN);
+      gw += round_up(n * pc.sp, ALIGN);
       tx += g->nseg * g->box_x * pc.sp;
       row = row > aoff ? row : aoff;
+      wpg = wpg > gw ? wpg : gw;
     }
   }
+  g->npa = (ca + piece_channels(ca) - 1) / piece_channels(ca);
+  g->spa = 2u * piece_channels(ca);
+  g->spb = cb ? 2u * piece_channels(cb) : g->spa;
+  g->wpg = wpg;
+  g->stream = 0;
   g->ppg = ppg < g->npieces ? ppg : g->npieces;
   g->pgroups = (g->npieces + g->ppg - 1) / g->ppg;
   g->row = row;
@@ -850,8 +1135,38 @@ inline bool plan_layer(G* g, int ca, int cb, int cout, int n,
 
 // plan() tries these stages in turn: whole halo rows a slot, a ring of
 // 2 * ROWS + 4 slots (both consumers busy and the next rows loading), then
-// of ROWS + 2 (a group can run); then the same with piece groups.
-constexpr int PLAN_STAGES = 4;
+// of ROWS + 2 (a group can run); then the same with piece groups; then
+// streamed weights (the fewest piece groups whose two weight buffers and
+// a ring of at least ROWS + 2 slots fit).
+constexpr int PLAN_STAGES = 5;
+constexpr int STREAM_STAGE = 4;
+
+// The streamed form's plan at chunk width n: one chunk a block, two
+// weight buffers of a piece group's 9 taps, their four barriers (and 8
+// bytes of alignment) past the bias.
+template <class G>
+inline bool plan_stream(G* g, int ca, int cb, int cout, int n) {
+  if (!plan_layer(g, ca, cb, cout, n, MAX_PIECES, false)) return false;
+  const int pieces = g->npieces;
+  for (int pgroups = 1; pgroups <= pieces; ++pgroups) {
+    const int ppg = (pieces + pgroups - 1) / pgroups;
+    if ((pieces + ppg - 1) / ppg != pgroups) continue;  // a split seen
+    plan_layer(g, ca, cb, cout, n, ppg, false);
+    const long long per_slot = (long long)g->row + 16;
+    const long long fixed =
+        ALIGN + 2LL * 9 * g->wpg + 4LL * n + 8 + 32;
+    const long long fit = (SMEM_LIMIT - fixed) / per_slot;
+    if (fit < ROWS + 2) continue;
+    g->npass = 1;
+    g->nsplit = g->nchunks;
+    g->w_bytes = 2 * 9 * g->wpg;
+    g->slots = (int)(fit < MAX_SLOTS ? fit : MAX_SLOTS);
+    g->smem = (int)(fixed + per_slot * g->slots);
+    g->stream = 1;
+    return true;
+  }
+  return false;
+}
 
 // The ring, the slices and the piece groups of a layer at chunk width n
 // at plan stage `stage`: whole halo rows and the most chunks a block can
@@ -860,6 +1175,7 @@ constexpr int PLAN_STAGES = 4;
 // most. False if nothing fits.
 template <class G>
 inline bool plan_stage(G* g, int ca, int cb, int cout, int n, int stage) {
+  if (stage == STREAM_STAGE) return plan_stream(g, ca, cb, cout, n);
   const int want = stage % 2 ? ROWS + 2 : 2 * ROWS + 4;
   const bool groups = stage >= 2;
   if (!plan_layer(g, ca, cb, cout, n)) return false;
@@ -959,9 +1275,10 @@ int launch(const void* xa, int ca, const void* xb, int cb, const void* w,
   const bool nets = g.npieces <= 2 && g.pc[0].sp == 64 &&
                     g.pc[g.npieces - 1].sp == 64 && g.npass == 1 &&
                     g.nsplit == 1 && g.pgroups == 1 && cout == N;
-  const void* kern = (const void*)conv3x3_wgmma_kernel<N, 0, 0>;
+  const void* kern = g.stream ? (const void*)conv3x3_stream_kernel<N>
+                              : (const void*)conv3x3_wgmma_kernel<N, 0, 0>;
   if constexpr (N <= 32) {
-    if (nets)
+    if (nets && !g.stream)
       kern = g.npieces == 1 ? (const void*)conv3x3_wgmma_kernel<N, 64, 1>
                             : (const void*)conv3x3_wgmma_kernel<N, 64, 2>;
   }

@@ -8,7 +8,18 @@
 // -> _curve_kernel in the same file, with maps at 1/1, 1/2 and 1/4 and the
 // ext_gain arm; K4 replaces fused_retinex_ema -> _retinex_kernel(ema_alpha).
 // K1's gain form is K3's kernel with the gain and no curve iteration: the
-// TPU kernel's two ext_gain arms compute the same thing.
+// TPU kernel's two ext_gain arms compute the same thing. This file holds
+// the bilateral tails (and no tail); the guided tails of all three are
+// fused_guided.cu.
+//
+// Forms. Every kernel reads and writes u8 or f32 (a template parameter on
+// the loads and the store: f32 in [0, 1] in, clipped and not quantized
+// out). K1's stages (blur, boost, denoise) are template flags. Blur radii
+// up to MAX_BLUR_RADIUS run on the tile, the taps in the launch's
+// parameters; a wider blur runs first as blur_vertical_kernel and
+// blur_horizontal_kernel into an f32 illumination plane (the taps in a
+// device buffer), which the kernels' LPLANE forms read in place of their
+// own blur: the same sums in the same order, so the result is the same.
 //
 // What bounds them. All are stencils of a few hundred float operations per
 // pixel on data that is read once. K1 moves 3 bytes in and 3 bytes out per
@@ -49,12 +60,20 @@
 
 namespace llie {
 
-// K1: (B, H, W, 3) u8 -> (B, H, W, 3) u8.
+// K1: (B, H, W, 3) T -> (B, H, W, 3) T, T uint8_t or float. STAGES:
+// STAGE_* flags. LPLANE: the blurred illumination is read from lp, (B, H
+// + 2, W + 2) with image pixel (y, x) at (y + 1, x + 1), instead of being
+// blurred on the tile.
+template <class T, int STAGES, bool LPLANE>
 __global__ void __launch_bounds__(NTHREADS)
-retinex_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-               int H, int W, BoostParams bp, TailParams tp) {
+retinex_kernel(const T* __restrict__ in, T* __restrict__ out,
+               const float* __restrict__ lp, int H, int W, BoostParams bp,
+               TailParams tp) {
+  constexpr bool BLUR = STAGES & STAGE_BLUR, BOOST = STAGES & STAGE_BOOST;
+  constexpr bool GAIN = BLUR || BOOST;
+  constexpr bool INBLUR = BLUR && !LPLANE;  // the blur runs on the tile
   extern __shared__ float smem[];
-  const int R = bp.radius;
+  const int R = INBLUR ? bp.radius : 0;
   const int LH = YH + 2 * R, LW = YW + 2 * R;
   float* sL0 = smem;            // LH x LW: max RGB
   float* sV = sL0 + LH * LW;    // YH x LW: vertical blur
@@ -65,101 +84,73 @@ retinex_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   const int tid = threadIdx.x;
   const int ty = tid / TILE_W, tx = tid - (tid / TILE_W) * TILE_W;
   const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
-  const uint8_t* img = in + (size_t)blockIdx.z * H * W * 3;
+  const T* img = in + (size_t)blockIdx.z * H * W * 3;
 
   for (int e = tid; e < LH * LW; e += NTHREADS) {
     const int i = e / LW, j = e - (e / LW) * LW;
     const int gy = clampi(y0 - 1 - R + i, 0, H - 1);
     const int gx = clampi(x0 - 1 - R + j, 0, W - 1);
-    const uint8_t* px = img + ((size_t)gy * W + gx) * 3;
-    const float r = (float)(int)px[0] * U8_SCALE;
-    const float g = (float)(int)px[1] * U8_SCALE;
-    const float b = (float)(int)px[2] * U8_SCALE;
-    sL0[e] = fmaxf(fmaxf(r, g), b);
+    const T* px = img + ((size_t)gy * W + gx) * 3;
+    const float r = load_px(px);
+    const float g = load_px(px + 1);
+    const float b = load_px(px + 2);
+    if constexpr (INBLUR) sL0[e] = fmaxf(fmaxf(r, g), b);
     const int yi = i - R, yj = j - R;
     if (yi >= 0 && yi < YH && yj >= 0 && yj < YW) {
       const int ye = yi * YW + yj;
       sY[ye] = r;
       sY[YN + ye] = g;
       sY[2 * YN + ye] = b;
+      if constexpr (GAIN && !INBLUR) {
+        float l = fmaxf(fmaxf(r, g), b);
+        if constexpr (LPLANE)
+          l = lp[((size_t)blockIdx.z * (H + 2) + clampi(y0 + yi, 0, H + 1))
+                     * (W + 2) + clampi(x0 + yj, 0, W + 1)];
+        sG[ye] = boost_gain(l, bp, BOOST);
+      }
     }
   }
   __syncthreads();
-  gain_tile(sL0, sV, sG, bp, tid);
-  for (int e = tid; e < YN; e += NTHREADS) {
-    const float gain = sG[e];
-    for (int c = 0; c < 3; ++c) sY[c * YN + e] = clip01(sY[c * YN + e] * gain);
+  if constexpr (INBLUR)
+    blur_tile(sL0, sV, bp, tid,
+              [&](int e, float l) { sG[e] = boost_gain(l, bp, BOOST); });
+  if constexpr (GAIN) {
+    for (int e = tid; e < YN; e += NTHREADS) {
+      const float gain = sG[e];
+      for (int c = 0; c < 3; ++c)
+        sY[c * YN + e] = clip01(sY[c * YN + e] * gain);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   float o[3];
-  denoise_tile(sY, sP, tp, tid, ty, tx, o);
+  if constexpr ((STAGES & STAGE_DENOISE) != 0) {
+    denoise_tile(sY, sP, tp, tid, ty, tx, o);
+  } else {
+    for (int c = 0; c < 3; ++c) o[c] = sY[c * YN + (ty + 1) * YW + tx + 1];
+  }
   const int gy = y0 + ty, gx = x0 + tx;
   if (gy < H && gx < W) {
-    uint8_t* q = out + (((size_t)blockIdx.z * H + gy) * W + gx) * 3;
-    for (int c = 0; c < 3; ++c) q[c] = quantize(o[c]);
+    T* q = out + (((size_t)blockIdx.z * H + gy) * W + gx) * 3;
+    for (int c = 0; c < 3; ++c) store_px(q + c, o[c]);
   }
 }
 
-// The four low-res taps and two weights of one full-resolution map
-// position under upsample_int (ops/filters.py): columns first at the two
-// low-res rows, then rows, each lo * (1 - f) + hi * f with
-// lo = x[clamp((i - DS/2) / DS)], hi = x[clamp((i + DS/2) / DS)] and f the
-// phase weight of i mod DS. The clamps at the block's edges are the
-// reference's edge-replicating shifts.
-struct MapTap {
-  int r0, r1, c0, c1;
-  float fr, gr, fc, gc;  // f and 1 - f of the rows and the columns
-
-  __device__ __forceinline__ float at(const float* __restrict__ q,
-                                      int wl) const {
-    const float a0 = q[r0 * wl + c0] * gc + q[r0 * wl + c1] * fc;
-    const float a1 = q[r1 * wl + c0] * gc + q[r1 * wl + c1] * fc;
-    return a0 * gr + a1 * fr;
-  }
-};
-
-// The host-rounded weight of phase p, selected in registers (an indexed
-// read of the parameter array would copy it to local memory).
-template <int DS>
-__device__ __forceinline__ float phase_weight(const UpParams& up, int p) {
-  float f = up.f[0];
-#pragma unroll
-  for (int k = 1; k < DS; ++k) f = p == k ? up.f[k] : f;
-  return f;
-}
-
-template <int DS>
-__device__ __forceinline__ MapTap map_tap(int br, int bc, int hl, int wl,
-                                          const UpParams& up) {
-  // br, bc >= 0 and i - DS/2 > -DS, so truncating division clamps like
-  // the floor
-  constexpr int h = DS / 2;
-  MapTap t;
-  t.r0 = clampi((br - h) / DS, 0, hl - 1);
-  t.r1 = clampi((br + h) / DS, 0, hl - 1);
-  t.c0 = clampi((bc - h) / DS, 0, wl - 1);
-  t.c1 = clampi((bc + h) / DS, 0, wl - 1);
-  t.fr = phase_weight<DS>(up, br % DS);
-  t.fc = phase_weight<DS>(up, bc % DS);
-  t.gr = 1.0f - t.fr;
-  t.gc = 1.0f - t.fc;
-  return t;
-}
-
-// K3: block (B, 3, HB, WB) u8 + maps (B, n_iter, 3, HB/DS, WB/DS) f32 ->
-// (B, 3, rows, WB) u8, output row r <-> block row halo + r. With `boost`
+// K3: block (B, 3, HB, WB) T + maps (B, n_iter, 3, HB/DS, WB/DS) f32 ->
+// (B, 3, rows, WB) T, output row r <-> block row halo + r. With `boost`
 // (hybrid) the boosted image's columns outside [m, m + img_w) are replaced
 // by its columns m and m + img_w - 1 before the curves. With `gain` (and
-// no boost) the image is clip(x * gain) before the curves.
-template <int DS>
+// no boost) the image is clip(x * gain) before the curves. LPLANE: the
+// hybrid boost's blurred illumination is read from lp, (B, HB, WB).
+template <int DS, class T, bool LPLANE>
 __global__ void __launch_bounds__(NTHREADS)
-curve_kernel(const uint8_t* __restrict__ in, const float* __restrict__ maps,
-             const float* __restrict__ gain, uint8_t* __restrict__ out,
-             int HB, int WB, int halo, int rows, int n_iter, int boost, int m,
-             int img_w, UpParams up, BoostParams bp, TailParams tp) {
+curve_kernel(const T* __restrict__ in, const float* __restrict__ maps,
+             const float* __restrict__ gain, const float* __restrict__ lp,
+             T* __restrict__ out, int HB, int WB, int halo, int rows,
+             int n_iter, int boost, int m, int img_w, UpParams up,
+             BoostParams bp, TailParams tp) {
   extern __shared__ float smem[];
-  const int R = boost ? bp.radius : 0;
+  const int R = boost && !LPLANE ? bp.radius : 0;
   const int LH = YH + 2 * R, LW = YW + 2 * R;
   float* sY = smem;             // 3 x YH x YW: curved y
   float* sP = sY + 3 * YN;      // 3 x TILE_H x YW: separable pass 1
@@ -174,7 +165,7 @@ curve_kernel(const uint8_t* __restrict__ in, const float* __restrict__ maps,
   const size_t plane = (size_t)HB * WB;
   const int hl = HB / DS, wl = WB / DS;
   const size_t lplane = (size_t)hl * wl;
-  const uint8_t* blk = in + (size_t)blockIdx.z * 3 * plane;
+  const T* blk = in + (size_t)blockIdx.z * 3 * plane;
   const float* mp = n_iter ? maps + (size_t)blockIdx.z * n_iter * 3 * lplane
                            : nullptr;
   const float* gp = gain ? gain + (size_t)blockIdx.z * plane : nullptr;
@@ -186,20 +177,22 @@ curve_kernel(const uint8_t* __restrict__ in, const float* __restrict__ maps,
       const int i = e / LW, j = e - (e / LW) * LW;
       const size_t at = (size_t)clampi(r0 - R + i, 0, HB - 1) * WB
                         + clampi(c0 - R + j, 0, WB - 1);
-      const float r = (float)(int)blk[at] * U8_SCALE;
-      const float g = (float)(int)blk[plane + at] * U8_SCALE;
-      const float b = (float)(int)blk[2 * plane + at] * U8_SCALE;
-      sL0[e] = fmaxf(fmaxf(r, g), b);
+      const float r = load_px(blk + at);
+      const float g = load_px(blk + plane + at);
+      const float b = load_px(blk + 2 * plane + at);
+      if constexpr (!LPLANE) sL0[e] = fmaxf(fmaxf(r, g), b);
       const int yi = i - R, yj = j - R;
       if (yi >= 0 && yi < YH && yj >= 0 && yj < YW) {
         const int ye = yi * YW + yj;
         sX[ye] = r;
         sX[YN + ye] = g;
         sX[2 * YN + ye] = b;
+        if constexpr (LPLANE)
+          sG[ye] = boost_gain(lp[(size_t)blockIdx.z * plane + at], bp, true);
       }
     }
     __syncthreads();
-    gain_tile(sL0, sV, sG, bp, tid);
+    if constexpr (!LPLANE) gain_tile(sL0, sV, sG, bp, tid);
   }
   for (int e = tid; e < YN; e += NTHREADS) {
     const int i = e / YW, j = e - (e / YW) * YW;
@@ -212,8 +205,7 @@ curve_kernel(const uint8_t* __restrict__ in, const float* __restrict__ maps,
       const int re = i * YW + jr;
       for (int c = 0; c < 3; ++c) y[c] = clip01(sX[c * YN + re] * sG[re]);
     } else {
-      for (int c = 0; c < 3; ++c)
-        y[c] = (float)(int)blk[c * plane + at] * U8_SCALE;
+      for (int c = 0; c < 3; ++c) y[c] = load_px(blk + c * plane + at);
       if (gp) {
         const float g = gp[at];
         for (int c = 0; c < 3; ++c) y[c] = clip01(y[c] * g);
@@ -246,23 +238,24 @@ curve_kernel(const uint8_t* __restrict__ in, const float* __restrict__ maps,
   denoise_tile(sY, sP, tp, tid, ty, tx, o);
   const int r = y0 + ty, c = x0 + tx;
   if (r < rows && c < WB) {
-    uint8_t* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
-    for (int ch = 0; ch < 3; ++ch) q[(size_t)ch * rows * WB] = quantize(o[ch]);
+    T* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
+    for (int ch = 0; ch < 3; ++ch) store_px(q + (size_t)ch * rows * WB, o[ch]);
   }
 }
 
-// K4: block (B, 3, HB, WB) u8 + carry (B, HB, WB) f32 -> (B, 3, rows, WB)
-// u8, output row r <-> block row halo + r, and the new carry (B, HB, WB).
+// K4: block (B, 3, HB, WB) T + carry (B, HB, WB) f32 -> (B, 3, rows, WB)
+// T, output row r <-> block row halo + r, and the new carry (B, HB, WB).
 // The tiles cover the band [m, HB - m): ring-tile position (i, j) <-> block
 // (m + y0 - 1 + i, x0 - 1 + j). A negative carry marks a pixel with no
-// state yet: it takes l_now.
+// state yet: it takes l_now. LPLANE: l_now is read from lp, (B, HB, WB).
+template <class T, bool LPLANE>
 __global__ void __launch_bounds__(NTHREADS)
-ema_kernel(const uint8_t* __restrict__ in, const float* __restrict__ carry,
-           uint8_t* __restrict__ out, float* __restrict__ ncarry, int HB,
-           int WB, int halo, int rows, int m, int img_w, EmaParams ep,
-           BoostParams bp, TailParams tp) {
+ema_kernel(const T* __restrict__ in, const float* __restrict__ carry,
+           const float* __restrict__ lp, T* __restrict__ out,
+           float* __restrict__ ncarry, int HB, int WB, int halo, int rows,
+           int m, int img_w, EmaParams ep, BoostParams bp, TailParams tp) {
   extern __shared__ float smem[];
-  const int R = bp.radius;
+  const int R = LPLANE ? 0 : bp.radius;
   const int LH = YH + 2 * R, LW = YW + 2 * R;
   float* sL0 = smem;            // LH x LW: max RGB
   float* sV = sL0 + LH * LW;    // YH x LW: vertical blur
@@ -274,7 +267,7 @@ ema_kernel(const uint8_t* __restrict__ in, const float* __restrict__ carry,
   const int ty = tid / TILE_W, tx = tid - (tid / TILE_W) * TILE_W;
   const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
   const size_t plane = (size_t)HB * WB;
-  const uint8_t* blk = in + (size_t)blockIdx.z * 3 * plane;
+  const T* blk = in + (size_t)blockIdx.z * 3 * plane;
   const float* cp = carry + (size_t)blockIdx.z * plane;
   float* np = ncarry + (size_t)blockIdx.z * plane;
   const int r0 = m + y0 - 1, c0 = x0 - 1;
@@ -284,10 +277,10 @@ ema_kernel(const uint8_t* __restrict__ in, const float* __restrict__ carry,
     const int i = e / LW, j = e - (e / LW) * LW;
     const size_t at = (size_t)clampi(r0 - R + i, 0, HB - 1) * WB
                       + clampi(c0 - R + j, 0, WB - 1);
-    const float r = (float)(int)blk[at] * U8_SCALE;
-    const float g = (float)(int)blk[plane + at] * U8_SCALE;
-    const float b = (float)(int)blk[2 * plane + at] * U8_SCALE;
-    sL0[e] = fmaxf(fmaxf(r, g), b);
+    const float r = load_px(blk + at);
+    const float g = load_px(blk + plane + at);
+    const float b = load_px(blk + 2 * plane + at);
+    if constexpr (!LPLANE) sL0[e] = fmaxf(fmaxf(r, g), b);
     const int yi = i - R, yj = j - R;
     if (yi >= 0 && yi < YH && yj >= 0 && yj < YW) {
       const int ye = yi * YW + yj;
@@ -297,7 +290,7 @@ ema_kernel(const uint8_t* __restrict__ in, const float* __restrict__ carry,
     }
   }
   __syncthreads();
-  blur_tile(sL0, sV, bp, tid, [&](int e, float l_now) {
+  auto ema = [&](int e, float l_now) {
     const int i = e / YW, j = e - (e / YW) * YW;
     const int row = r0 + i, col = c0 + j;
     const float c = cp[(size_t)clampi(row, 0, HB - 1) * WB
@@ -315,7 +308,18 @@ ema_kernel(const uint8_t* __restrict__ in, const float* __restrict__ carry,
       if (row == band_end - 1)
         for (int k = band_end; k < HB; ++k) np[(size_t)k * WB + col] = l_mix;
     }
-  });
+  };
+  if constexpr (LPLANE) {
+    const float* lq = lp + (size_t)blockIdx.z * plane;
+    for (int e = tid; e < YN; e += NTHREADS) {
+      const int i = e / YW, j = e - (e / YW) * YW;
+      ema(e, lq[(size_t)clampi(r0 + i, 0, HB - 1) * WB
+                + clampi(c0 + j, 0, WB - 1)]);
+    }
+    __syncthreads();
+  } else {
+    blur_tile(sL0, sV, bp, tid, ema);
+  }
   for (int e = tid; e < YN; e += NTHREADS) {
     const int i = e / YW, j = e - (e / YW) * YW;
     // the gain of the nearest image column (_kreplicate_cols)
@@ -329,17 +333,79 @@ ema_kernel(const uint8_t* __restrict__ in, const float* __restrict__ carry,
   denoise_tile(sY, sP, tp, tid, ty, tx, o);
   const int r = m + y0 + ty - halo, c = x0 + tx;
   if (r >= 0 && r < rows && c < WB) {
-    uint8_t* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
-    for (int ch = 0; ch < 3; ++ch) q[(size_t)ch * rows * WB] = quantize(o[ch]);
+    T* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
+    for (int ch = 0; ch < 3; ++ch) store_px(q + (size_t)ch * rows * WB, o[ch]);
+  }
+}
+
+// The illumination of blur radii past MAX_BLUR_RADIUS, for the LPLANE
+// forms (and the guided tails'): L = blur(max RGB) on an (H + 2e) x (W +
+// 2e) grid, grid (Y, X) <-> pixel (Y - e, X - e) of the (B, H, W, 3) image
+// (HWC, K1) or of the (B, 3, H, W) block (K3, K4: e 0), from reads clamped
+// into it, in blur_tile's order: this vertical pass into v, (B, H + 2e,
+// W), then the horizontal one. Positions off the image blur the clamped
+// reads, as the tile does; v's columns off the image would equal its edge
+// columns, so v holds the image's columns only. taps: 2R + 1 floats on
+// the device.
+template <class T, bool HWC>
+__device__ __forceinline__ float max_rgb(const T* in, int b, int y, int x,
+                                         int H, int W) {
+  if constexpr (HWC) {
+    const T* p = in + (((size_t)b * H + y) * W + x) * 3;
+    return fmaxf(fmaxf(load_px(p), load_px(p + 1)), load_px(p + 2));
+  } else {
+    const size_t plane = (size_t)H * W;
+    const T* p = in + (size_t)b * 3 * plane + (size_t)y * W + x;
+    return fmaxf(fmaxf(load_px(p), load_px(p + plane)),
+                 load_px(p + 2 * plane));
+  }
+}
+
+template <class T, bool HWC>
+__global__ void __launch_bounds__(256)
+blur_vertical_kernel(const T* __restrict__ in, float* __restrict__ v, int B,
+                     int H, int W, int e, int R,
+                     const float* __restrict__ taps) {
+  const int HE = H + 2 * e;
+  const long long n = (long long)B * HE * W;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < n; idx += (long long)gridDim.x * blockDim.x) {
+    const int x = (int)(idx % W);
+    const long long t = idx / W;
+    const int y = (int)(t % HE) - e, b = (int)(t / HE);
+    float acc = taps[0] * max_rgb<T, HWC>(in, b, clampi(y + R, 0, H - 1), x,
+                                          H, W);
+    for (int k = 1; k <= 2 * R; ++k)
+      acc = acc + taps[k] * max_rgb<T, HWC>(in, b,
+                                            clampi(y + R - k, 0, H - 1), x,
+                                            H, W);
+    v[idx] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(256)
+blur_horizontal_kernel(const float* __restrict__ v, float* __restrict__ l,
+                       int B, int H, int W, int e, int R,
+                       const float* __restrict__ taps) {
+  const int HE = H + 2 * e, WE = W + 2 * e;
+  const long long n = (long long)B * HE * WE;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < n; idx += (long long)gridDim.x * blockDim.x) {
+    const int x = (int)(idx % WE) - e;
+    const float* row = v + (idx / WE) * W;
+    float acc = taps[0] * row[clampi(x + R, 0, W - 1)];
+    for (int k = 1; k <= 2 * R; ++k)
+      acc = acc + taps[k] * row[clampi(x + R - k, 0, W - 1)];
+    l[idx] = acc;
   }
 }
 
 static BoostParams boost_params(int radius, const float* taps, float gm1,
                                 float eps) {
-  BoostParams bp;
-  bp.radius = radius;
-  for (int k = 0; k < 2 * MAX_BLUR_RADIUS + 1; ++k)
-    bp.taps[k] = k <= 2 * radius ? taps[k] : 0.0f;
+  BoostParams bp = {};
+  // a radius past MAX_BLUR_RADIUS is blurred into a plane first
+  bp.radius = radius <= MAX_BLUR_RADIUS ? radius : 0;
+  for (int k = 0; k <= 2 * bp.radius; ++k) bp.taps[k] = taps[k];
   bp.gm1 = gm1;
   bp.eps = eps;
   return bp;
@@ -357,6 +423,128 @@ static TailParams tail_params(float strength, float inv2s2, float inv2s2_3,
   return tp;
 }
 
+// The kernel of one form: instantiated for both I/O types.
+template <template <class> class Form, class... Args>
+int launch_io(int f32, Args... args) {
+  return f32 ? Form<float>::run(args...) : Form<uint8_t>::run(args...);
+}
+
+template <class T>
+struct RetinexForm {
+  template <int STAGES, bool LPLANE>
+  static void go(const dim3& grid, size_t smem, cudaStream_t st,
+                 const void* in, void* out, const float* lp, int H, int W,
+                 const BoostParams& bp, const TailParams& tp) {
+    retinex_kernel<T, STAGES, LPLANE><<<grid, NTHREADS, smem, st>>>(
+        (const T*)in, (T*)out, lp, H, W, bp, tp);
+  }
+  static int run(const void* in, void* out, const float* lp, int B, int H,
+                 int W, int stages, const BoostParams& bp,
+                 const TailParams& tp, cudaStream_t st) {
+    const int R = (stages & STAGE_BLUR) && !lp ? bp.radius : 0;
+    const int LH = YH + 2 * R, LW = YW + 2 * R;
+    const size_t smem =
+        sizeof(float) * (LH * LW + YH * LW + YN + 3 * YN + 3 * PN);
+    const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
+    if (lp) {
+      switch (stages) {
+        case 1: go<1, true>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
+        case 3: go<3, true>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
+        case 5: go<5, true>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
+        case 7: go<7, true>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
+        default: return (int)cudaErrorInvalidValue;
+      }
+      return (int)cudaGetLastError();
+    }
+    switch (stages) {
+#define LLIE_STAGES_CASE(S) \
+  case S: go<S, false>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
+      LLIE_STAGES_CASE(0)
+      LLIE_STAGES_CASE(1)
+      LLIE_STAGES_CASE(2)
+      LLIE_STAGES_CASE(3)
+      LLIE_STAGES_CASE(4)
+      LLIE_STAGES_CASE(5)
+      LLIE_STAGES_CASE(6)
+      LLIE_STAGES_CASE(7)
+#undef LLIE_STAGES_CASE
+      default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+  }
+};
+
+template <class T>
+struct CurveForm {
+  static int run(const void* in, const void* maps, const void* gain,
+                 const float* lp, void* out, int B, int HB, int WB, int halo,
+                 int rows, int n_iter, int boost, int m, int img_w, int ds,
+                 const UpParams& up, const BoostParams& bp,
+                 const TailParams& tp, cudaStream_t st) {
+    const int R = boost && !lp ? bp.radius : 0;
+    const int LH = YH + 2 * R, LW = YW + 2 * R;
+    size_t floats = 3 * YN + 3 * PN;
+    if (boost) floats += 3 * YN + YN + YH * LW + LH * LW;
+    const dim3 grid((WB + TILE_W - 1) / TILE_W, (rows + TILE_H - 1) / TILE_H,
+                    B);
+    const size_t smem = sizeof(float) * floats;
+    auto kernel = lp ? (ds == 1 ? curve_kernel<1, T, true>
+                        : ds == 2 ? curve_kernel<2, T, true>
+                                  : curve_kernel<4, T, true>)
+                     : (ds == 1 ? curve_kernel<1, T, false>
+                        : ds == 2 ? curve_kernel<2, T, false>
+                                  : curve_kernel<4, T, false>);
+    kernel<<<grid, NTHREADS, smem, st>>>(
+        (const T*)in, (const float*)maps, (const float*)gain, lp, (T*)out,
+        HB, WB, halo, rows, n_iter, boost, m, img_w, up, bp, tp);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <class T>
+struct EmaForm {
+  static int run(const void* in, const void* carry, const float* lp,
+                 void* out, void* ncarry, int B, int HB, int WB, int halo,
+                 int rows, int m, int img_w, const EmaParams& ep,
+                 const BoostParams& bp, const TailParams& tp,
+                 cudaStream_t st) {
+    const int R = lp ? 0 : bp.radius;
+    const int LH = YH + 2 * R, LW = YW + 2 * R;
+    const size_t smem =
+        sizeof(float) * (LH * LW + YH * LW + YN + 3 * YN + 3 * PN);
+    const dim3 grid((WB + TILE_W - 1) / TILE_W,
+                    (HB - 2 * m + TILE_H - 1) / TILE_H, B);
+    auto kernel = lp ? ema_kernel<T, true> : ema_kernel<T, false>;
+    kernel<<<grid, NTHREADS, smem, st>>>(
+        (const T*)in, (const float*)carry, lp, (T*)out, (float*)ncarry, HB,
+        WB, halo, rows, m, img_w, ep, bp, tp);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <class T>
+struct BlurForm {
+  static int run(int hwc, const void* in, float* v, float* l, int B, int H,
+                 int W, int e, int R, const float* taps, cudaStream_t st) {
+    const int threads = 256;
+    auto blocks = [&](long long n) {
+      const long long g = (n + threads - 1) / threads;
+      return (unsigned)(g < 65535LL * 16 ? g : 65535LL * 16);
+    };
+    const long long nv = (long long)B * (H + 2 * e) * W;
+    if (hwc)
+      blur_vertical_kernel<T, true><<<blocks(nv), threads, 0, st>>>(
+          (const T*)in, v, B, H, W, e, R, taps);
+    else
+      blur_vertical_kernel<T, false><<<blocks(nv), threads, 0, st>>>(
+          (const T*)in, v, B, H, W, e, R, taps);
+    const long long nl = (long long)B * (H + 2 * e) * (W + 2 * e);
+    blur_horizontal_kernel<<<blocks(nl), threads, 0, st>>>(v, l, B, H, W, e,
+                                                           R, taps);
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace llie
 
 using namespace llie;
@@ -367,82 +555,80 @@ const char* llie_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int llie_max_blur_radius() { return MAX_BLUR_RADIUS; }
-
-// `taps` is a host array of 2 * radius + 1 floats. Returns
+// K1. `in`/`out` (B, H, W, 3), u8 or (`f32` 1) f32. `stages`: STAGE_*
+// flags. `taps` is a host array of 2 * radius + 1 floats, read when radius
+// <= MAX_BLUR_RADIUS; a wider blur comes in `lp` (B, H + 2, W + 2) from
+// llie_blur_illumination at e 1 (NULL otherwise). Returns
 // cudaGetLastError() after the launch (0 when it was accepted).
-int llie_fused_retinex_u8(const void* in, void* out, int B, int H, int W,
-                          int radius, const float* taps, float gm1, float eps,
-                          float strength, float inv2s2, float inv2s2_3,
-                          int kind, int joint, int sep, void* stream) {
-  if (radius < 1 || radius > MAX_BLUR_RADIUS) return (int)cudaErrorInvalidValue;
+int llie_fused_retinex(const void* in, void* out, int f32, const float* lp,
+                       int B, int H, int W, int stages, int radius,
+                       const float* taps, float gm1, float eps,
+                       float strength, float inv2s2, float inv2s2_3, int kind,
+                       int joint, int sep, void* stream) {
+  if (radius < 1 || stages < 0 || stages > STAGES_ALL) 
+    return (int)cudaErrorInvalidValue;
+  if ((stages & STAGE_BLUR) && (radius > MAX_BLUR_RADIUS) != (lp != nullptr))
+    return (int)cudaErrorInvalidValue;
   const BoostParams bp = boost_params(radius, taps, gm1, eps);
   const TailParams tp = tail_params(strength, inv2s2, inv2s2_3, kind, joint, sep);
-  const int LH = YH + 2 * radius, LW = YW + 2 * radius;
-  const size_t smem = sizeof(float) * (LH * LW + YH * LW + YN + 3 * YN + 3 * PN);
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
-  retinex_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)in, (uint8_t*)out, H, W, bp, tp);
-  return (int)cudaGetLastError();
+  return launch_io<RetinexForm>(f32, in, out,
+                                (stages & STAGE_BLUR) ? lp : nullptr, B, H,
+                                W, stages, bp, tp, (cudaStream_t)stream);
 }
 
-// `phases` is a host array of 8 floats: upsample_int's phase weights for
-// ds (ops.filters._phase_consts). `gain` may be NULL.
-int llie_fused_curve_u8(const void* in, const void* maps, const void* gain,
-                        void* out, int B, int HB, int WB, int halo, int rows,
-                        int n_iter, int boost, int m, int img_w, int ds,
-                        const float* phases, int radius, const float* taps,
-                        float gm1, float eps, float strength, float inv2s2,
-                        float inv2s2_3, int kind, int joint, int sep,
-                        void* stream) {
-  if (radius < 1 || radius > MAX_BLUR_RADIUS) return (int)cudaErrorInvalidValue;
+// K3. `phases` is a host array of 8 floats: upsample_int's phase weights
+// for ds (ops.filters._phase_consts). `gain` may be NULL; `lp` (B, HB, WB)
+// carries hybrid's blurred illumination for radius > MAX_BLUR_RADIUS (NULL
+// otherwise).
+int llie_fused_curve(const void* in, const void* maps, const void* gain,
+                     const float* lp, void* out, int f32, int B, int HB,
+                     int WB, int halo, int rows, int n_iter, int boost, int m,
+                     int img_w, int ds, const float* phases, int radius,
+                     const float* taps, float gm1, float eps, float strength,
+                     float inv2s2, float inv2s2_3, int kind, int joint,
+                     int sep, void* stream) {
+  if (radius < 1 || (boost && (radius > MAX_BLUR_RADIUS) != (lp != nullptr)))
+    return (int)cudaErrorInvalidValue;
   if ((ds != 1 && ds != 2 && ds != 4) || HB % ds || WB % ds)
     return (int)cudaErrorInvalidValue;
   const BoostParams bp = boost_params(radius, taps, gm1, eps);
   const TailParams tp = tail_params(strength, inv2s2, inv2s2_3, kind, joint, sep);
   UpParams up;
   for (int k = 0; k < 8; ++k) up.f[k] = k < ds ? phases[k] : 0.0f;
-  const int R = boost ? radius : 0;
-  const int LH = YH + 2 * R, LW = YW + 2 * R;
-  size_t floats = 3 * YN + 3 * PN;
-  if (boost) floats += 3 * YN + YN + YH * LW + LH * LW;
-  const dim3 grid((WB + TILE_W - 1) / TILE_W, (rows + TILE_H - 1) / TILE_H, B);
-  const size_t smem = sizeof(float) * floats;
-  auto kernel = ds == 1 ? curve_kernel<1> : ds == 2 ? curve_kernel<2>
-                                                    : curve_kernel<4>;
-  kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)in, (const float*)maps, (const float*)gain,
-      (uint8_t*)out, HB, WB, halo, rows, n_iter, boost, m, img_w, up, bp, tp);
-  return (int)cudaGetLastError();
+  return launch_io<CurveForm>(f32, in, maps, gain, boost ? lp : nullptr, out,
+                              B, HB, WB, halo, rows, n_iter, boost, m, img_w,
+                              ds, up, bp, tp, (cudaStream_t)stream);
 }
 
 // K1's gain form: curve_kernel<1> with the gain plane and no curve
 // iteration.
-int llie_fused_retinex_gain_u8(const void* in, const void* gain, void* out,
-                               int B, int HB, int WB, int halo, int rows,
-                               float strength, float inv2s2, float inv2s2_3,
-                               int kind, int joint, int sep, void* stream) {
+int llie_fused_retinex_gain(const void* in, const void* gain, void* out,
+                            int f32, int B, int HB, int WB, int halo,
+                            int rows, float strength, float inv2s2,
+                            float inv2s2_3, int kind, int joint, int sep,
+                            void* stream) {
   const TailParams tp = tail_params(strength, inv2s2, inv2s2_3, kind, joint, sep);
-  BoostParams bp = {};
+  const BoostParams bp = {};
   const UpParams up = {};
-  const size_t smem = sizeof(float) * (3 * YN + 3 * PN);
-  const dim3 grid((WB + TILE_W - 1) / TILE_W, (rows + TILE_H - 1) / TILE_H, B);
-  curve_kernel<1><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)in, nullptr, (const float*)gain, (uint8_t*)out, HB, WB,
-      halo, rows, 0, 0, 0, 1, up, bp, tp);
-  return (int)cudaGetLastError();
+  return launch_io<CurveForm>(f32, in, (const void*)nullptr, gain,
+                              (const float*)nullptr, out, B, HB, WB, halo,
+                              rows, 0, 0, 0, 1, 1, up, bp, tp,
+                              (cudaStream_t)stream);
 }
 
-// `alpha` and `beta` = 1 - alpha are each rounded once from double by the
-// caller; `taps` is a host array of 2 * radius + 1 floats.
-int llie_fused_retinex_ema_u8(const void* in, const void* carry, void* out,
-                              void* ncarry, int B, int HB, int WB, int halo,
-                              int rows, int m, int img_w, float alpha,
-                              float beta, float gamma, int radius,
-                              const float* taps, float eps, float strength,
-                              float inv2s2, float inv2s2_3, int kind,
-                              int joint, int sep, void* stream) {
-  if (radius < 1 || radius > MAX_BLUR_RADIUS) return (int)cudaErrorInvalidValue;
+// K4. `alpha` and `beta` = 1 - alpha are each rounded once from double by
+// the caller; `taps` is a host array of 2 * radius + 1 floats, read when
+// radius <= MAX_BLUR_RADIUS; a wider blur comes as l_now in `lp` (B, HB,
+// WB) from llie_blur_illumination (NULL otherwise).
+int llie_fused_retinex_ema(const void* in, const void* carry, const float* lp,
+                           void* out, void* ncarry, int f32, int B, int HB,
+                           int WB, int halo, int rows, int m, int img_w,
+                           float alpha, float beta, float gamma, int radius,
+                           const float* taps, float eps, float strength,
+                           float inv2s2, float inv2s2_3, int kind, int joint,
+                           int sep, void* stream) {
+  if (radius < 1 || (radius > MAX_BLUR_RADIUS) != (lp != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (m < 1 || HB <= 2 * m) return (int)cudaErrorInvalidValue;
   const BoostParams bp = boost_params(radius, taps, 0.0f, eps);
   const TailParams tp = tail_params(strength, inv2s2, inv2s2_3, kind, joint, sep);
@@ -450,14 +636,21 @@ int llie_fused_retinex_ema_u8(const void* in, const void* carry, void* out,
   ep.alpha = alpha;
   ep.beta = beta;
   ep.gamma = gamma;
-  const int LH = YH + 2 * radius, LW = YW + 2 * radius;
-  const size_t smem = sizeof(float) * (LH * LW + YH * LW + YN + 3 * YN + 3 * PN);
-  const dim3 grid((WB + TILE_W - 1) / TILE_W,
-                  (HB - 2 * m + TILE_H - 1) / TILE_H, B);
-  ema_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)in, (const float*)carry, (uint8_t*)out, (float*)ncarry,
-      HB, WB, halo, rows, m, img_w, ep, bp, tp);
-  return (int)cudaGetLastError();
+  return launch_io<EmaForm>(f32, in, carry, lp, out, ncarry, B, HB, WB, halo,
+                            rows, m, img_w, ep, bp, tp, (cudaStream_t)stream);
+}
+
+// The blurred illumination of a radius past MAX_BLUR_RADIUS: `in` the
+// (B, H, W, 3) image (`hwc` 1) or the (B, 3, H, W) block, u8 or (`f32` 1)
+// f32; v scratch of B * (H + 2e) * W floats; l the (B, H + 2e, W + 2e)
+// plane; `taps` 2 * radius + 1 floats on the device.
+int llie_blur_illumination(const void* in, int f32, int hwc, float* v,
+                           float* l, int B, int H, int W, int e, int radius,
+                           const float* taps, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || e < 0 || radius < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_io<BlurForm>(f32, hwc, in, v, l, B, H, W, e, radius, taps,
+                             (cudaStream_t)stream);
 }
 
 }  // extern "C"

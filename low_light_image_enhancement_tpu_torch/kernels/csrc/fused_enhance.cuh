@@ -1,7 +1,9 @@
 // Device code shared by the fused retinex kernel (K1), the fused curve
 // tail (K3) and the fused video step (K4): the illumination blur and boost
 // and the bilateral denoise tail, on a 2-D output tile of TILE_H x TILE_W
-// pixels, one thread per output pixel.
+// pixels, one thread per output pixel; the u8 and f32 loads and stores
+// and the stage flags of K1. The guided tails (fused_guided.cu) stage
+// their tiles with blur_region and run guided.cuh.
 //
 // The arithmetic repeats the plain PyTorch versions (ops/filters.py,
 // ops/denoise.py, core.py) operation for operation: the same tap order,
@@ -32,6 +34,14 @@ constexpr int YN = YH * YW;
 constexpr int PN = TILE_H * YW;
 
 constexpr float U8_SCALE = 1.0f / 255.0f;
+
+// K1's stages (the JAX kernel's `stages`): without BLUR the illumination
+// is max RGB itself, without BOOST the gain is the clipped illumination
+// (no exp/log), without either y = x; without DENOISE no tail runs.
+constexpr int STAGE_BLUR = 1;
+constexpr int STAGE_BOOST = 2;
+constexpr int STAGE_DENOISE = 4;
+constexpr int STAGES_ALL = 7;
 
 struct BoostParams {
   int radius;                              // blur radius R
@@ -77,6 +87,18 @@ __device__ __forceinline__ uint8_t quantize(float v) {
   float q = rintf(clip01(v) * 255.0f);
   return (uint8_t)(int)fminf(fmaxf(q, 0.0f), 255.0f);
 }
+
+// The I/O types: u8 in [0, 255] or f32 in [0, 1]. A u8 value is
+// (float)(int)v * (1/255) and leaves quantized; an f32 value is itself and
+// leaves clipped to [0, 1] (the JAX kernels' _finalize_plane, u8_io False).
+__device__ __forceinline__ float load_px(const uint8_t* p) {
+  return (float)(int)*p * U8_SCALE;
+}
+__device__ __forceinline__ float load_px(const float* p) { return *p; }
+__device__ __forceinline__ void store_px(uint8_t* p, float v) {
+  *p = quantize(v);
+}
+__device__ __forceinline__ void store_px(float* p, float v) { *p = clip01(v); }
 
 __device__ __forceinline__ float range_weight(float d2, const TailParams& p) {
   if (p.kind == 0) return expf(-d2 * p.inv2s2);
@@ -126,6 +148,46 @@ __device__ inline void blur_tile(const float* __restrict__ sL0,
   __syncthreads();
 }
 
+// The separable blur of L0 on an OH x OW region of any tile shape: sL0
+// holds L0 on (OH + 2R) x (OW + 2R) at row stride OW + 2R, sV is scratch
+// of OH x (OW + 2R); epi(i, j, l) gets the blurred value of position (i,
+// j), which is (i + R, j + R) of sL0. The taps and their order are
+// blur_tile's. Every thread of the block (nthreads of them) calls it; it
+// synchronises after each pass.
+template <class Epilogue>
+__device__ inline void blur_region(const float* __restrict__ sL0,
+                                   float* __restrict__ sV,
+                                   const BoostParams& bp, int OH, int OW,
+                                   int tid, int nthreads, Epilogue epi) {
+  const int R = bp.radius;
+  const int LW = OW + 2 * R;
+  for (int e = tid; e < OH * LW; e += nthreads) {
+    const int i = e / LW, j = e - (e / LW) * LW;
+    float acc = bp.taps[0] * sL0[(i + 2 * R) * LW + j];
+    for (int k = 1; k <= 2 * R; ++k)
+      acc = acc + bp.taps[k] * sL0[(i + 2 * R - k) * LW + j];
+    sV[e] = acc;
+  }
+  __syncthreads();
+  for (int e = tid; e < OH * OW; e += nthreads) {
+    const int i = e / OW, j = e - (e / OW) * OW;
+    float l = bp.taps[0] * sV[i * LW + j + 2 * R];
+    for (int k = 1; k <= 2 * R; ++k)
+      l = l + bp.taps[k] * sV[i * LW + j + 2 * R - k];
+    epi(i, j, l);
+  }
+  __syncthreads();
+}
+
+// The retinex gain of a blurred (or, without STAGE_BLUR, raw) illumination
+// value: clipped to [eps, 1], then exp((gamma-1) * log L), or without
+// STAGE_BOOST the clipped value itself.
+__device__ __forceinline__ float boost_gain(float l, const BoostParams& bp,
+                                            bool boost) {
+  l = fminf(fmaxf(l, bp.eps), 1.0f);
+  return boost ? expf(bp.gm1 * logf(l)) : l;
+}
+
 // Illumination gain on the ring tile: blur(L0) clipped to [eps, 1], then
 // exp((gamma-1) * log L), into sG.
 __device__ inline void gain_tile(const float* __restrict__ sL0,
@@ -136,6 +198,52 @@ __device__ inline void gain_tile(const float* __restrict__ sL0,
     l = fminf(fmaxf(l, bp.eps), 1.0f);
     sG[e] = expf(bp.gm1 * logf(l));
   });
+}
+
+// The four low-res taps and two weights of one full-resolution map
+// position under upsample_int (ops/filters.py): columns first at the two
+// low-res rows, then rows, each lo * (1 - f) + hi * f with
+// lo = x[clamp((i - DS/2) / DS)], hi = x[clamp((i + DS/2) / DS)] and f the
+// phase weight of i mod DS. The clamps at the block's edges are the
+// reference's edge-replicating shifts.
+struct MapTap {
+  int r0, r1, c0, c1;
+  float fr, gr, fc, gc;  // f and 1 - f of the rows and the columns
+
+  __device__ __forceinline__ float at(const float* __restrict__ q,
+                                      int wl) const {
+    const float a0 = q[r0 * wl + c0] * gc + q[r0 * wl + c1] * fc;
+    const float a1 = q[r1 * wl + c0] * gc + q[r1 * wl + c1] * fc;
+    return a0 * gr + a1 * fr;
+  }
+};
+
+// The host-rounded weight of phase p, selected in registers (an indexed
+// read of the parameter array would copy it to local memory).
+template <int DS>
+__device__ __forceinline__ float phase_weight(const UpParams& up, int p) {
+  float f = up.f[0];
+#pragma unroll
+  for (int k = 1; k < DS; ++k) f = p == k ? up.f[k] : f;
+  return f;
+}
+
+template <int DS>
+__device__ __forceinline__ MapTap map_tap(int br, int bc, int hl, int wl,
+                                          const UpParams& up) {
+  // br, bc >= 0 and i - DS/2 > -DS, so truncating division clamps like
+  // the floor
+  constexpr int h = DS / 2;
+  MapTap t;
+  t.r0 = clampi((br - h) / DS, 0, hl - 1);
+  t.r1 = clampi((br + h) / DS, 0, hl - 1);
+  t.c0 = clampi((bc - h) / DS, 0, wl - 1);
+  t.c1 = clampi((bc + h) / DS, 0, wl - 1);
+  t.fr = phase_weight<DS>(up, br % DS);
+  t.fc = phase_weight<DS>(up, bc % DS);
+  t.gr = 1.0f - t.fr;
+  t.gc = 1.0f - t.fc;
+  return t;
 }
 
 // Denoise tail for the thread's pixel (ty, tx) of the tile. sY holds three

@@ -37,10 +37,10 @@
 // weights and bias and stored unpadded. The bf16 form holds one chunk's
 // weights in shared memory beside a ring of at least ROWS + 2 slots, each
 // slot the halo rows of a group of input pieces where whole rows do not
-// fit (conv3x3_wgmma.cuh, piece groups), so it takes up to 16 pieces of 64
-// channels (Cin 1024: curve_features up to 512) at dilation 1; past that
-// it refuses the layer (llie_conv_plan returns 0, and
-// mxu_conv.py _check_kernel_shapes raises before the launch).
+// fit (conv3x3_wgmma.cuh, piece groups), and past 16 pieces of 64
+// channels (Cin 1024: curve_features 512), or 14 at dilation 64 and more,
+// it streams one piece group's weights at a time beside the ring
+// (conv3x3_stream_kernel), so it takes any Cin in one launch.
 #include "conv3x3.cuh"
 #include "conv3x3_wgmma.cuh"
 

@@ -2,15 +2,21 @@
 retinex video step): wrappers, plain PyTorch versions and launch counts.
 
 Each wrapper dispatches on the device of its input alone: a CPU tensor goes
-to the plain version, a CUDA tensor to the hand-written kernel in
-``csrc/fused_enhance.cu`` (or the call raises). ``<wrapper>.launches``
-counts the kernel launches, and nothing else.
+to the plain version, a CUDA tensor to the hand-written kernels in
+``csrc/fused_enhance.cu`` (the bilateral tails, or none) and
+``csrc/fused_guided.cu`` (the guided tails), or the call raises.
+``<wrapper>.launches`` counts the kernel launches, and nothing else.
+
+Every form of the JAX kernels runs: u8 or f32 I/O (f32 in [0, 1], clipped
+and not quantized out), the bilateral or guided tail, any blur radius (past
+``MAX_BLUR_RADIUS`` the blur runs first as ``blur_illumination`` into an
+f32 plane that the kernel reads), and K1's ``stages``.
 
 - K1 ``fused_retinex`` replaces the JAX package's
-  ``kernels/fused_enhance.py::fused_retinex`` (``_retinex_kernel``) on u8
-  HWC images; ``fused_retinex_gain`` is its external-gain form on a block,
-  with the contract of ``video._fused_gain_tail``, and counts its launches
-  on ``fused_retinex``.
+  ``kernels/fused_enhance.py::fused_retinex`` (``_retinex_kernel``) on
+  (B, H, W, 3) images; ``fused_retinex_gain`` is its external-gain form on
+  a block, with the contract of ``video._fused_gain_tail``, and counts its
+  launches on ``fused_retinex``.
 - K3 ``fused_curve_enhance`` replaces its ``fused_curve_enhance``
   (``_curve_kernel``) with the contract of ``blocks._fused_curve_tail``:
   full-resolution maps or maps at 1/2 and 1/4 that it upsamples itself, and
@@ -33,7 +39,6 @@ from low_light_image_enhancement_tpu_torch.config import (
 )
 from low_light_image_enhancement_tpu_torch.core import (
     denoise_tail,
-    enhance_core_padded,
     illumination_boost,
     pad_edge,
     pad_planar,
@@ -51,28 +56,61 @@ from low_light_image_enhancement_tpu_torch.ops.filters import (
     gaussian_kernel_1d,
     roll2d,
     separable_blur,
+    shift2d,
     upsample_maps,
 )
 
+STAGES = ("blur", "boost", "denoise")
+_STAGE_BITS = {"blur": 1, "boost": 2, "denoise": 4}
+# blur radii the kernels run on their tiles (csrc/fused_enhance.cuh
+# MAX_BLUR_RADIUS, the size of _Boost.taps, which the library checks); a
+# wider blur runs first as blur_illumination
+MAX_BLUR_RADIUS = 8
+_IO_DTYPES = (torch.uint8, torch.float32)
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the CUDA kernels yet (ROADMAP Queue 1)")
+
+def _stage_set(stages) -> frozenset:
+    """``stages`` (None: all three) as a set, each one of STAGES."""
+    if stages is None:
+        return frozenset(STAGES)
+    stages = frozenset(stages)
+    if not stages <= set(STAGES):
+        raise ValueError(f"stages are a subset of {STAGES}: "
+                         f"{sorted(stages)}")
+    return stages
 
 
-def _check_options(cfg: PipelineConfig, stages=None) -> None:
-    if cfg.denoise_taps == "guided":
-        raise _not_ported("denoise_taps='guided'")
-    if stages is not None:
-        raise _not_ported("stage truncation (stages=)")
+def _tail_runs(cfg: PipelineConfig, stages=frozenset(STAGES)) -> bool:
+    return cfg.denoise_strength > 0.0 and "denoise" in stages
+
+
+def _guided(cfg: PipelineConfig, stages=frozenset(STAGES)) -> bool:
+    """The guided tail runs (csrc/fused_guided.cu)."""
+    return cfg.denoise_taps == "guided" and _tail_runs(cfg, stages)
+
+
+def _check_io(x: torch.Tensor, what: str) -> None:
+    if x.dtype not in _IO_DTYPES:
+        raise TypeError(f"{what} is uint8 or float32, got {x.dtype}")
 
 
 def _check_block(xb: torch.Tensor) -> None:
-    if xb.dtype != torch.uint8:
-        raise _not_ported(f"float I/O ({xb.dtype})")
+    _check_io(xb, "the block")
     if xb.ndim != 4 or xb.shape[1] != 3 or 0 in xb.shape:
         raise ValueError(f"expected a (B,3,HB,WB) block, got "
                          f"{tuple(xb.shape)}")
+
+
+def _finish(y: torch.Tensor, u8: bool) -> torch.Tensor:
+    """Clipped y out: quantized for u8 I/O, as it is for f32."""
+    y = torch.clamp(y, 0.0, 1.0)
+    return quantize_u8(y) if u8 else y
+
+
+def _to_float(x: torch.Tensor) -> torch.Tensor:
+    """A u8 tensor normalized to [0, 1]; an f32 one as it is."""
+    _check_io(x, "the input")
+    return normalize_u8(x) if x.dtype == torch.uint8 else x
 
 
 def _check_plane(t: torch.Tensor, xb: torch.Tensor, what: str) -> None:
@@ -108,9 +146,9 @@ def _check_cuda_tensor(t: torch.Tensor) -> None:
         raise ValueError("the CUDA kernels take contiguous tensors")
 
 
-def _boost_args(cfg: PipelineConfig, lib):
-    if cfg.blur_radius > lib.llie_max_blur_radius():
-        raise _not_ported(f"blur_radius > {lib.llie_max_blur_radius()}")
+def _boost_args(cfg: PipelineConfig):
+    """radius, the host taps (read up to MAX_BLUR_RADIUS), gamma - 1,
+    eps."""
     taps = gaussian_kernel_1d(cfg.blur_radius, cfg.blur_sigma)
     return (cfg.blur_radius, (ctypes.c_float * len(taps))(*taps),
             cfg.gamma - 1.0, cfg.illum_eps)
@@ -126,62 +164,225 @@ def _tail_args(cfg: PipelineConfig):
             int(cfg.denoise_taps == "sep"))
 
 
-def _denoise_quantize(y: torch.Tensor, cfg: PipelineConfig, r0: int,
-                      rows: int) -> torch.Tensor:
-    """The plain versions' common end: the denoise tail (wrap shifts),
-    clip, rows [r0, r0 + rows), u8."""
-    if cfg.denoise_strength > 0.0:
-        y = denoise_tail(y, cfg)
-    return quantize_u8(torch.clamp(y, 0.0, 1.0)[..., r0:r0 + rows, :])
-
-
 def _raise_on(rc: int, lib, what: str) -> None:
     if rc != 0:
         msg = lib.llie_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ------------------------------------------------- the guided tail's args #
+
+class _Boost(ctypes.Structure):
+    _fields_ = [("radius", ctypes.c_int),
+                ("taps", ctypes.c_float * (2 * MAX_BLUR_RADIUS + 1)),
+                ("gm1", ctypes.c_float), ("eps", ctypes.c_float)]
+
+
+class _Up(ctypes.Structure):
+    _fields_ = [("f", ctypes.c_float * 8)]
+
+
+class _Ema(ctypes.Structure):
+    _fields_ = [("alpha", ctypes.c_float), ("beta", ctypes.c_float),
+                ("gamma", ctypes.c_float)]
+
+
+class _GuidedParams(ctypes.Structure):
+    _fields_ = [("radius", ctypes.c_int), ("k", ctypes.c_float),
+                ("eps", ctypes.c_float), ("strength", ctypes.c_float),
+                ("joint", ctypes.c_int)]
+
+
+class _GuidedArgs(ctypes.Structure):
+    """csrc/fused_guided.cu FusedGuidedArgs."""
+    _fields_ = [(n, ctypes.c_void_p) for n in
+                ("inp", "out", "maps", "gain", "lp", "carry", "ncarry")] + [
+        (n, ctypes.c_int) for n in
+        ("family", "f32", "B", "H", "W", "halo", "rows", "m", "img_w",
+         "n_iter", "ds", "boost", "stages", "lpe")] + [
+        ("bp", _Boost), ("up", _Up), ("ep", _Ema), ("gp", _GuidedParams)]
+
+
+_FAMILY = {"retinex": 0, "gain": 1, "curve": 2, "ema": 3}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_guided(family: str, cfg: PipelineConfig, xin, out, *, B, H, W,
+                   stages=frozenset(STAGES), halo=0, rows=0, m=0, img_w=0,
+                   maps=None, gain=None, lp=None, lpe=0, carry=None,
+                   ncarry=None, n_iter=0, ds=1, boost=0, ema=None,
+                   what="") -> None:
+    lib = _build.load_library()
+    if lib.llie_fused_guided_args_size() != ctypes.sizeof(_GuidedArgs):
+        raise RuntimeError("csrc/fused_guided.cu FusedGuidedArgs and its "
+                           "mirror _GuidedArgs differ")
+    a = _GuidedArgs()
+    a.inp, a.out = xin.data_ptr(), out.data_ptr()
+    a.maps, a.gain, a.lp = _ptr(maps), _ptr(gain), _ptr(lp)
+    a.carry, a.ncarry = _ptr(carry), _ptr(ncarry)
+    a.family, a.f32 = _FAMILY[family], int(xin.dtype == torch.float32)
+    a.B, a.H, a.W = B, H, W
+    a.halo, a.rows, a.m, a.img_w = halo, rows, m, img_w
+    a.n_iter, a.ds, a.boost = n_iter, ds, boost
+    a.stages = sum(_STAGE_BITS[s] for s in stages)
+    a.lpe = lpe
+    radius, taps, gm1, eps = _boost_args(cfg)
+    # the taps on the tile; a wider blur comes in lp (or is not run)
+    a.bp.radius = radius if lp is None and radius <= MAX_BLUR_RADIUS else 0
+    for k in range(2 * a.bp.radius + 1):
+        a.bp.taps[k] = taps[k]
+    a.bp.gm1, a.bp.eps = gm1, eps
+    for k, f in enumerate(_phase_consts(ds)):
+        a.up.f[k] = f
+    if ema is not None:
+        a.ep.alpha, a.ep.beta, a.ep.gamma = ema
+    r = cfg.guided_radius
+    a.gp.radius, a.gp.k, a.gp.eps = r, 1.0 / (2 * r + 1), cfg.guided_eps
+    a.gp.strength = cfg.denoise_strength
+    a.gp.joint = int(cfg.denoise_guide == "luma")
+    with torch.cuda.device(xin.device):
+        rc = lib.llie_fused_guided(ctypes.byref(a), _stream(xin))
+    _raise_on(rc, lib, what)
+
+
+# ------------------------------------------- blurs past MAX_BLUR_RADIUS #
+
+_TAPS = {}
+
+
+def _device_taps(cfg: PipelineConfig, device) -> torch.Tensor:
+    key = (cfg.blur_radius, cfg.blur_sigma, str(device))
+    if key not in _TAPS:
+        _TAPS[key] = torch.tensor(
+            gaussian_kernel_1d(cfg.blur_radius, cfg.blur_sigma),
+            dtype=torch.float32, device=device)
+    return _TAPS[key]
+
+
+def blur_illumination_plain(x: torch.Tensor, cfg: PipelineConfig, e: int,
+                            hwc: bool) -> torch.Tensor:
+    """Plain version of ``blur_illumination``: max RGB of the (B, H, W, 3)
+    image (``hwc``) or the (B, 3, H, W) block, edge-padded by ``e``, blurred
+    with clamped shifts."""
+    xf = _to_float(x.permute(0, 3, 1, 2) if hwc else x)
+    l0 = pad_edge(torch.amax(xf, dim=-3), e, e, e, e)
+    return separable_blur(l0, cfg.blur_radius, cfg.blur_sigma, shift2d)
+
+
+def blur_illumination(x: torch.Tensor, cfg: PipelineConfig, e: int,
+                      hwc: bool) -> torch.Tensor:
+    """The blurred illumination of ``cfg.blur_radius`` (any radius) as an
+    f32 plane (B, H + 2e, W + 2e): grid (Y, X) <-> pixel (Y - e, X - e) of
+    the (B, H, W, 3) image (``hwc``) or the (B, 3, H, W) block, from reads
+    clamped into it, in the kernels' tap order. The kernels read it in
+    place of their own blur for radii past MAX_BLUR_RADIUS; a CPU tensor
+    gets the plain version."""
+    if x.device.type == "cpu":
+        return blur_illumination_plain(x, cfg, e, hwc)
+    _check_cuda_tensor(x)
+    lib = _build.load_library()
+    b, h, w = (x.shape[0], *x.shape[1:3]) if hwc else (x.shape[0],
+                                                        *x.shape[2:])
+    v = torch.empty((b, h + 2 * e, w), dtype=torch.float32, device=x.device)
+    lplane = torch.empty((b, h + 2 * e, w + 2 * e), dtype=torch.float32,
+                         device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.llie_blur_illumination(
+            x.data_ptr(), int(x.dtype == torch.float32), int(hwc),
+            v.data_ptr(), lplane.data_ptr(), b, h, w, e, cfg.blur_radius,
+            _device_taps(cfg, x.device).data_ptr(), _stream(x))
+    _raise_on(rc, lib, "blur_illumination")
+    blur_illumination.launches += 1
+    return lplane
+
+
+blur_illumination.launches = 0
+
+
+def _wide_blur(cfg: PipelineConfig) -> bool:
+    return cfg.blur_radius > MAX_BLUR_RADIUS
+
+
 # --------------------------------------------------------------------- K1 #
 
-def fused_retinex_plain(imgs: torch.Tensor,
-                        cfg: PipelineConfig) -> torch.Tensor:
-    """Plain version of K1: replicate-pad to the canvas, run
+def boost_stages(x: torch.Tensor, cfg: PipelineConfig,
+                 stages=frozenset(STAGES)) -> torch.Tensor:
+    """The JAX kernel's gated boost on a padded planar canvas (with both
+    stages ``core.illumination_boost``, op for op): without "blur" the
+    illumination is max RGB itself, without "boost" the gain is the
+    clipped illumination, without either x is returned as it is."""
+    blur, boost = "blur" in stages, "boost" in stages
+    if not (blur or boost):
+        return x
+    l = torch.amax(x, dim=-3)
+    if blur:
+        l = separable_blur(l, cfg.blur_radius, cfg.blur_sigma, roll2d)
+    l = torch.clamp(l, cfg.illum_eps, 1.0)
+    if boost:
+        l = torch.exp((cfg.gamma - 1.0) * torch.log(l))
+    return torch.clamp(x * l[..., None, :, :], 0.0, 1.0)
+
+
+def fused_retinex_plain(imgs: torch.Tensor, cfg: PipelineConfig,
+                        stages=None) -> torch.Tensor:
+    """Plain version of K1: replicate-pad to the canvas, the stages of
     ``core.enhance_core_padded`` with wrap shifts, crop."""
+    stages = _stage_set(stages)
     _, h, w, _ = imgs.shape
     plan = plan_canvas(h, w, canvas_margin(cfg))
-    xp = pad_planar(normalize_u8(imgs.permute(0, 3, 1, 2)), plan, h, w)
-    y = enhance_core_padded(xp, cfg)
+    xp = pad_planar(_to_float(imgs.permute(0, 3, 1, 2)), plan, h, w)
+    y = boost_stages(xp, cfg, stages)
+    if _tail_runs(cfg, stages):
+        y = denoise_tail(y, cfg)
     m = plan.margin
-    return quantize_u8(y[..., m:m + h, m:m + w]).permute(0, 2, 3, 1) \
-        .contiguous()
+    return _finish(y[..., m:m + h, m:m + w], imgs.dtype == torch.uint8) \
+        .permute(0, 2, 3, 1).contiguous()
 
 
 def fused_retinex(imgs: torch.Tensor, cfg: PipelineConfig, *,
                   stages=None) -> torch.Tensor:
-    """K1: (B, H, W, 3) uint8 -> (B, H, W, 3) uint8, the default retinex
-    graph (max-RGB illumination, blur, boost, denoise, quantize). Its form
-    with an external gain plane is ``fused_retinex_gain``."""
+    """K1: (B, H, W, 3) uint8 or float32 -> the same, the default retinex
+    graph (max-RGB illumination, blur, boost, denoise, quantize or clip).
+    ``stages``: a subset of ("blur", "boost", "denoise") that gates them as
+    the JAX kernel does (for per-stage timing; None runs all). Its form with
+    an external gain plane is ``fused_retinex_gain``."""
     if cfg.method != "retinex":
         raise ValueError(f"fused_retinex runs method='retinex', not "
                          f"{cfg.method!r}")
-    _check_options(cfg, stages)
-    if imgs.dtype != torch.uint8:
-        raise _not_ported(f"float I/O ({imgs.dtype})")
+    stages = _stage_set(stages)
+    _check_io(imgs, "the image")
     if imgs.ndim != 4 or imgs.shape[-1] != 3 or 0 in imgs.shape:
         raise ValueError(f"expected non-empty (B,H,W,3), got "
                          f"{tuple(imgs.shape)}")
     if imgs.device.type == "cpu":
-        return fused_retinex_plain(imgs, cfg)
+        return fused_retinex_plain(imgs, cfg, stages)
     _check_cuda_tensor(imgs)
     lib = _build.load_library()
     b, h, w, _ = imgs.shape
     out = torch.empty_like(imgs)
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.llie_fused_retinex_u8(
-            imgs.data_ptr(), out.data_ptr(), b, h, w,
-            *_boost_args(cfg, lib), *_tail_args(cfg), stream)
-    _raise_on(rc, lib, "fused_retinex")
+    guided = _guided(cfg, stages)
+    # the ring the kernel reads the illumination on: the tail's reach
+    e = 2 * cfg.guided_radius if guided else 1
+    lp = (blur_illumination(imgs, cfg, e, hwc=True)
+          if _wide_blur(cfg) and "blur" in stages else None)
+    if guided:
+        _launch_guided("retinex", cfg, imgs, out, B=b, H=h, W=w,
+                       stages=stages, lp=lp, lpe=e, what="fused_retinex")
+    else:
+        with torch.cuda.device(imgs.device):
+            rc = lib.llie_fused_retinex(
+                imgs.data_ptr(), out.data_ptr(),
+                int(imgs.dtype == torch.float32), _ptr(lp), b, h, w,
+                sum(_STAGE_BITS[s] for s in stages), *_boost_args(cfg),
+                *_tail_args(cfg), _stream(imgs))
+        _raise_on(rc, lib, "fused_retinex")
     fused_retinex.launches += 1
     return out
 
@@ -191,42 +392,55 @@ fused_retinex.launches = 0
 
 def fused_retinex_gain_plain(xb, gain, cfg, halo, rows):
     """Plain version of K1's gain form: ``y = clip(x * gain)``, the denoise
-    tail and quantize on the window ``[halo - m, halo + rows + m)``, with
-    wrap shifts."""
+    tail and quantize (u8) or clip (f32) on the window ``[halo - m, halo +
+    rows + m)``, with wrap shifts."""
     m = canvas_margin(cfg)
     win = slice(halo - m, halo + rows + m)
-    y = torch.clamp(normalize_u8(xb[..., win, :]) * gain[:, None, win, :],
+    y = torch.clamp(_to_float(xb[..., win, :]) * gain[:, None, win, :],
                     0.0, 1.0)
-    return _denoise_quantize(y, cfg, m, rows)
+    return _denoise_finish(y, cfg, m, rows, xb.dtype == torch.uint8)
+
+
+def _denoise_finish(y: torch.Tensor, cfg: PipelineConfig, r0: int,
+                    rows: int, u8: bool) -> torch.Tensor:
+    """The plain versions' common end: the denoise tail (wrap shifts),
+    rows [r0, r0 + rows), clipped, u8 or f32."""
+    if cfg.denoise_strength > 0.0:
+        y = denoise_tail(y, cfg)
+    return _finish(y[..., r0:r0 + rows, :], u8)
 
 
 def fused_retinex_gain(xb: torch.Tensor, gain: torch.Tensor,
                        cfg: PipelineConfig, halo: int,
                        rows: int) -> torch.Tensor:
-    """K1 with an external gain plane: u8 block (B, 3, HB, WB) + f32 gain
-    (B, HB, WB) -> u8 (B, 3, rows, WB), the block's rows [halo, halo +
-    rows). The gain is read where it lies: it already carries the margin
-    column replica. Counts its launches on ``fused_retinex``."""
+    """K1 with an external gain plane: u8 or f32 block (B, 3, HB, WB) + f32
+    gain (B, HB, WB) -> (B, 3, rows, WB) of the block's dtype, the block's
+    rows [halo, halo + rows). The gain is read where it lies: it already
+    carries the margin column replica. Counts its launches on
+    ``fused_retinex``."""
     if cfg.method != "retinex":
         raise ValueError(f"fused_retinex_gain runs method='retinex', not "
                          f"{cfg.method!r}")
-    _check_options(cfg)
     _check_block(xb)
     _check_plane(gain, xb, "gain")
-    _check_window(cfg, xb, halo, rows)
+    m = _check_window(cfg, xb, halo, rows)
     if xb.device.type == "cpu":
         return fused_retinex_gain_plain(xb, gain, cfg, halo, rows)
     _check_cuda_tensor(xb)
     _check_cuda_tensor(gain)
     lib = _build.load_library()
     b, _, hb, wb = xb.shape
-    out = torch.empty((b, 3, rows, wb), dtype=torch.uint8, device=xb.device)
-    with torch.cuda.device(xb.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.llie_fused_retinex_gain_u8(
-            xb.data_ptr(), gain.data_ptr(), out.data_ptr(), b, hb, wb, halo,
-            rows, *_tail_args(cfg), stream)
-    _raise_on(rc, lib, "fused_retinex_gain")
+    out = torch.empty((b, 3, rows, wb), dtype=xb.dtype, device=xb.device)
+    if _guided(cfg):
+        _launch_guided("gain", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
+                       rows=rows, m=m, gain=gain, what="fused_retinex_gain")
+    else:
+        with torch.cuda.device(xb.device):
+            rc = lib.llie_fused_retinex_gain(
+                xb.data_ptr(), gain.data_ptr(), out.data_ptr(),
+                int(xb.dtype == torch.float32), b, hb, wb, halo, rows,
+                *_tail_args(cfg), _stream(xb))
+        _raise_on(rc, lib, "fused_retinex_gain")
     fused_retinex.launches += 1
     return out
 
@@ -241,14 +455,14 @@ def fused_curve_enhance_plain(xb, maps, cfg, halo, rows, img_w, ds=1,
     columns then rows, clamped at the block's edges)."""
     m = canvas_margin(cfg)
     win = slice(halo - m, halo + rows + m)
-    y = normalize_u8(xb[..., win, :])
+    y = _to_float(xb[..., win, :])
     if gain is not None:
         y = torch.clamp(y * gain[:, None, win, :], 0.0, 1.0)
     elif cfg.method == "hybrid":
         y = replicate_margin_cols(illumination_boost(y, cfg), img_w, m)
     maps = upsample_maps(maps, ds)
     y = torch.clamp(apply_curves(y, maps[..., win, :]), 0.0, 1.0)
-    return _denoise_quantize(y, cfg, m, rows)
+    return _denoise_finish(y, cfg, m, rows, xb.dtype == torch.uint8)
 
 
 def fused_curve_enhance(
@@ -262,9 +476,9 @@ def fused_curve_enhance(
     ds: int = 1,
     gain=None,
 ) -> torch.Tensor:
-    """K3: u8 block (B, 3, HB, WB) + f32 curve maps (B, n_iter, 3, HB/ds,
-    WB/ds), ds 1, 2 or 4, -> u8 (B, 3, rows, WB), the block's rows
-    [halo, halo + rows).
+    """K3: u8 or f32 block (B, 3, HB, WB) + f32 curve maps (B, n_iter, 3,
+    HB/ds, WB/ds), ds 1, 2 or 4, -> (B, 3, rows, WB) of the block's dtype,
+    the block's rows [halo, halo + rows).
 
     The block has ``canvas_margin(cfg)`` replicate columns before the
     image's column 0 and ``img_w`` image columns. Output columns outside
@@ -275,7 +489,6 @@ def fused_curve_enhance(
     if cfg.method not in ("curve", "hybrid"):
         raise ValueError(f"fused_curve_enhance runs curve/hybrid, not "
                          f"{cfg.method!r}")
-    _check_options(cfg)
     _check_block(xb)
     b, _, hb, wb = xb.shape
     if ds not in (1, 2, 4) or hb % ds or wb % ds:
@@ -300,17 +513,24 @@ def fused_curve_enhance(
     if gain is not None:
         _check_cuda_tensor(gain)
     lib = _build.load_library()
-    phases = (ctypes.c_float * 8)(*_phase_consts(ds))
-    out = torch.empty((b, 3, rows, wb), dtype=torch.uint8, device=xb.device)
-    with torch.cuda.device(xb.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.llie_fused_curve_u8(
-            xb.data_ptr(), maps.data_ptr(),
-            None if gain is None else gain.data_ptr(), out.data_ptr(), b,
-            hb, wb, halo, rows, maps.shape[1],
-            int(cfg.method == "hybrid" and gain is None), m, img_w, ds,
-            phases, *_boost_args(cfg, lib), *_tail_args(cfg), stream)
-    _raise_on(rc, lib, "fused_curve_enhance")
+    out = torch.empty((b, 3, rows, wb), dtype=xb.dtype, device=xb.device)
+    boost = int(cfg.method == "hybrid" and gain is None)
+    lp = (blur_illumination(xb, cfg, 0, hwc=False)
+          if boost and _wide_blur(cfg) else None)
+    if _guided(cfg):
+        _launch_guided("curve", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
+                       rows=rows, m=m, img_w=img_w, maps=maps, gain=gain,
+                       lp=lp, n_iter=maps.shape[1], ds=ds, boost=boost,
+                       what="fused_curve_enhance")
+    else:
+        phases = (ctypes.c_float * 8)(*_phase_consts(ds))
+        with torch.cuda.device(xb.device):
+            rc = lib.llie_fused_curve(
+                xb.data_ptr(), maps.data_ptr(), _ptr(gain), _ptr(lp),
+                out.data_ptr(), int(xb.dtype == torch.float32), b, hb, wb,
+                halo, rows, maps.shape[1], boost, m, img_w, ds, phases,
+                *_boost_args(cfg), *_tail_args(cfg), _stream(xb))
+        _raise_on(rc, lib, "fused_curve_enhance")
     fused_curve_enhance.launches += 1
     return out
 
@@ -325,7 +545,7 @@ def fused_retinex_ema_plain(xb, carry, cfg, halo, rows, img_w, alpha):
     wrap shifts; the new carry is l_mix on the band [m, HB - m),
     edge-padded by m rows."""
     m = canvas_margin(cfg)
-    x = normalize_u8(xb)
+    x = _to_float(xb)
     l_now = separable_blur(torch.amax(x, dim=-3), cfg.blur_radius,
                            cfg.blur_sigma, roll2d)
     l_mix = torch.where(carry < 0.0, l_now,
@@ -334,8 +554,8 @@ def fused_retinex_ema_plain(xb, carry, cfg, halo, rows, img_w, alpha):
         cfg.gamma * torch.log(torch.clamp(l_mix, cfg.illum_eps, 1.0))
         - torch.log(torch.clamp(l_now, cfg.illum_eps, 1.0)))
     gain = replicate_margin_cols(gain, img_w, m)
-    out = _denoise_quantize(torch.clamp(x * gain[:, None], 0.0, 1.0), cfg,
-                            halo, rows)
+    out = _denoise_finish(torch.clamp(x * gain[:, None], 0.0, 1.0), cfg,
+                          halo, rows, xb.dtype == torch.uint8)
     band = l_mix[..., m:xb.shape[-2] - m, :]
     return out, pad_edge(band, m, m, 0, 0)
 
@@ -349,16 +569,17 @@ def fused_retinex_ema(
     img_w: int,
     alpha: float,
 ):
-    """K4, one temporally smoothed retinex video step on a block: u8 block
-    (B, 3, HB, WB) + f32 EMA carry (B, HB, WB) -> (u8 (B, 3, rows, WB), the
-    block's rows [halo, halo + rows); the new f32 carry (B, HB, WB)).
+    """K4, one temporally smoothed retinex video step on a block: u8 or f32
+    block (B, 3, HB, WB) + f32 EMA carry (B, HB, WB) -> ((B, 3, rows, WB) of
+    the block's dtype, the block's rows [halo, halo + rows); the new f32
+    carry (B, HB, WB)).
 
     Per pixel: l_now = blur(max RGB); l_mix = l_now where the carry is
     negative (the not-set-yet sentinel), else alpha * l_now + (1 - alpha) *
     carry; gain = exp(gamma * log l_mix - log l_now), both clipped to
     [eps, 1], read at the nearest image column; then y = clip(x * gain),
-    the denoise tail and quantize. The new carry is l_mix on the band
-    [m, HB - m) and its edge rows repeated m times above and below; the
+    the denoise tail and quantize (or clip). The new carry is l_mix on the
+    band [m, HB - m) and its edge rows repeated m times above and below; the
     carry rows outside the band are never read by a consumed pixel. Columns
     outside [m, m + img_w) of the output are not defined; those of the
     carry within the blur radius of the block's edges differ between the
@@ -369,7 +590,6 @@ def fused_retinex_ema(
     if not isinstance(alpha, numbers.Real):
         raise TypeError(f"alpha is a Python number, got {type(alpha)}")
     alpha = float(alpha)
-    _check_options(cfg)
     _check_block(xb)
     _check_plane(carry, xb, "carry")
     m = _check_window(cfg, xb, halo, rows, img_w)
@@ -380,17 +600,25 @@ def fused_retinex_ema(
     _check_cuda_tensor(carry)
     lib = _build.load_library()
     b, _, hb, wb = xb.shape
-    out = torch.empty((b, 3, rows, wb), dtype=torch.uint8, device=xb.device)
+    out = torch.empty((b, 3, rows, wb), dtype=xb.dtype, device=xb.device)
     new_carry = torch.empty_like(carry)
-    radius, taps, _, eps = _boost_args(cfg, lib)
-    with torch.cuda.device(xb.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.llie_fused_retinex_ema_u8(
-            xb.data_ptr(), carry.data_ptr(), out.data_ptr(),
-            new_carry.data_ptr(), b, hb, wb, halo, rows, m, img_w, alpha,
-            1.0 - alpha, cfg.gamma, radius, taps, eps, *_tail_args(cfg),
-            stream)
-    _raise_on(rc, lib, "fused_retinex_ema")
+    lp = blur_illumination(xb, cfg, 0, hwc=False) if _wide_blur(cfg) \
+        else None
+    if _guided(cfg):
+        _launch_guided("ema", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
+                       rows=rows, m=m, img_w=img_w, lp=lp, carry=carry,
+                       ncarry=new_carry,
+                       ema=(alpha, 1.0 - alpha, cfg.gamma),
+                       what="fused_retinex_ema")
+    else:
+        radius, taps, _, eps = _boost_args(cfg)
+        with torch.cuda.device(xb.device):
+            rc = lib.llie_fused_retinex_ema(
+                xb.data_ptr(), carry.data_ptr(), _ptr(lp), out.data_ptr(),
+                new_carry.data_ptr(), int(xb.dtype == torch.float32), b, hb,
+                wb, halo, rows, m, img_w, alpha, 1.0 - alpha, cfg.gamma,
+                radius, taps, eps, *_tail_args(cfg), _stream(xb))
+        _raise_on(rc, lib, "fused_retinex_ema")
     fused_retinex_ema.launches += 1
     return out, new_carry
 

@@ -8,8 +8,10 @@ no transpose is needed. K1's CUDA kernel (``csrc/fused_enhance.cu``,
 ``retinex_kernel``) already reads and writes u8 HWC in place, so K8 is that
 kernel in the per-channel, full-3x3 configuration the JAX function
 implements, behind its own wrapper and launch count. Like the JAX function,
-it raises for the other denoise guides and taps. A CPU tensor goes to the
-plain version, a CUDA tensor to the kernel (or the call raises).
+it raises for the other denoise guides and taps, and takes u8 alone. A
+blur radius past ``MAX_BLUR_RADIUS`` is blurred first into a plane
+(``blur_illumination``), as K1 does. A CPU tensor goes to the plain
+version, a CUDA tensor to the kernel (or the call raises).
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ from low_light_image_enhancement_tpu_torch.kernels import _build
 from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
     _boost_args,
     _check_cuda_tensor,
-    _not_ported,
+    _ptr,
     _raise_on,
+    _stream,
     _tail_args,
+    _wide_blur,
+    blur_illumination,
     fused_retinex_plain,
 )
 
@@ -40,7 +45,8 @@ def _check(imgs: torch.Tensor, cfg: PipelineConfig) -> None:
             "planar path (fused_retinex) takes denoise_guide='luma' and "
             "denoise_taps='sep'")
     if imgs.dtype != torch.uint8:
-        raise _not_ported(f"float I/O ({imgs.dtype})")
+        raise TypeError(f"enhance_hwc_u8 takes uint8 images, got "
+                        f"{imgs.dtype}")
     if imgs.ndim != 4 or imgs.shape[-1] != 3 or 0 in imgs.shape:
         raise ValueError(f"expected non-empty (B,H,W,3), got "
                          f"{tuple(imgs.shape)}")
@@ -65,11 +71,12 @@ def enhance_hwc_u8(imgs: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     lib = _build.load_library()
     b, h, w, _ = imgs.shape
     out = torch.empty_like(imgs)
+    lp = blur_illumination(imgs, cfg, 1, hwc=True) if _wide_blur(cfg) \
+        else None
     with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.llie_fused_retinex_u8(
-            imgs.data_ptr(), out.data_ptr(), b, h, w,
-            *_boost_args(cfg, lib), *_tail_args(cfg), stream)
+        rc = lib.llie_fused_retinex(
+            imgs.data_ptr(), out.data_ptr(), 0, _ptr(lp), b, h, w, 7,
+            *_boost_args(cfg), *_tail_args(cfg), _stream(imgs))
     _raise_on(rc, lib, "enhance_hwc_u8")
     enhance_hwc_u8.launches += 1
     return out

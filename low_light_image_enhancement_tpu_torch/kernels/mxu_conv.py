@@ -25,8 +25,9 @@ Widths: every width the nets' configs reach. Cout runs in chunks of
 with zero weights and bias and stored unpadded (curve_iters 4's head is 12
 channels); an input group whose width is not a multiple of 8 (a
 ``curve_features`` of 20) is copied once, zero-padded, since TMA reads
-16-byte strides. Only the bf16 form has a limit, its shared memory and
-its table of input pieces (``_check_kernel_shapes``).
+16-byte strides. The bf16 form takes any Cin: past one chunk's weights
+beside a ring of halo rows it streams the weights by group of input pieces
+(``_check_kernel_shapes``).
 """
 
 from __future__ import annotations
@@ -217,22 +218,20 @@ def _check_layer(xs: Sequence[torch.Tensor], w: torch.Tensor,
 def _check_kernel_shapes(lib, cins: Sequence[int], cout: int,
                          dilation: int, bf16: bool) -> int:
     """The chunk width the kernel runs the layer at (for bf16 the library's
-    ``llie_conv_plan``, for f32 ``chunk_channels``). Raises where it cannot
-    take the layer: only the bf16 form, whose block holds one chunk of the
-    weights beside a ring of at least four slots of halo rows (of a group
-    of input pieces each) in 227 KB of shared memory, and at most 16
-    pieces: Cin up to 1024 at dilation 1 (curve_features up to 512)."""
+    ``llie_conv_plan``, for f32 ``chunk_channels``). The bf16 form takes
+    every width: past what one chunk's weights beside a ring of halo rows
+    leave room for (Cin > 1024, or 14 pieces of 64 channels at dilation 64
+    and more) it streams the weights of one piece group at a time. It
+    raises only where not even one 64-channel piece's halo rows and weights
+    fit 227 KB of shared memory, which no 3x3 layer reaches."""
     if not bf16:
         return chunk_channels(cout)
     ca, cb = (padded(c) for c in (tuple(cins) + (0,))[:2])
     nc = lib.llie_conv_plan(ca, cb, cout, dilation)
     if nc == 0:
         raise ValueError(
-            f"the bf16 conv kernel takes at most 16 pieces of 64 input "
-            f"channels (Cin 1024, curve_features up to 512) and holds one "
-            f"chunk of the weights beside four slots of halo rows in 227 KB "
-            f"of shared memory; groups {tuple(cins)} -> {cout} at dilation "
-            f"{dilation} do not fit")
+            f"the bf16 conv kernel found no plan in 227 KB of shared memory "
+            f"for groups {tuple(cins)} -> {cout} at dilation {dilation}")
     return nc
 
 

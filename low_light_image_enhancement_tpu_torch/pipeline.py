@@ -3,7 +3,8 @@
 u8 HWC in, u8 HWC out. ``device`` is explicit: a pipeline on ``"cuda"``
 runs the CUDA kernels (K1 for retinex; the curve CNN and K3 for
 curve/hybrid, at every ``curve_downsample``; the fcn or decom net and K5
-for their denoise tail; the nets' convs through ``F.conv2d``, or under
+for their denoise tail; every method with the bilateral or the guided
+tail and any blur radius; the nets' convs through ``F.conv2d``, or under
 ``conv_impl="pallas"`` through K6 and ``"cascade"`` through K7), one on
 ``"cpu"`` their plain versions. There is no fallback from one to the
 other.
@@ -54,11 +55,6 @@ def check_ported(cfg: PipelineConfig) -> None:
             "Queue 1: parallel)")
     if cfg.method != "retinex":
         resolve_conv_impl(cfg)  # raises for the conv arms not ported
-    if cfg.denoise_taps == "guided" and cfg.method not in ("fcn", "decom"):
-        raise NotImplementedError(
-            f"denoise_taps='guided' on method={cfg.method!r} is not ported "
-            "yet (ROADMAP Queue 1: K1's, K3's and K4's guided tails); fcn "
-            "and decom run it")
 
 
 def resolve_device(device, who: str) -> torch.device:

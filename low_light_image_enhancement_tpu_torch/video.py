@@ -49,11 +49,11 @@ from low_light_image_enhancement_tpu_torch.core import (
     replicate_margin_cols,
 )
 from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
+    _to_float,
     fused_curve_enhance,
     fused_retinex_ema,
     fused_retinex_gain,
 )
-from low_light_image_enhancement_tpu_torch.ops.colorspace import normalize_u8
 from low_light_image_enhancement_tpu_torch.ops.filters import (
     roll2d,
     separable_blur,
@@ -108,18 +108,16 @@ def video_step(
     row0: Optional[int] = None,
     ema_in_kernel: bool = True,
 ) -> Tuple[State, torch.Tensor]:
-    """One frame per stream on a halo'd u8 block (S, 3, HB, WB): HB = rows
-    + 2 * ``learned_halo(cfg)``, ``canvas_margin`` replicate columns before
-    the image. The state is a bool flag (S,) and the carry: (S, HB, WB) for
-    retinex/hybrid, (S, n_iter, 3, HB/ds, WB/ds) for curve. Returns the new
-    state and the u8 rows (S, 3, rows, WB), columns uncropped.
+    """One frame per stream on a halo'd u8 or f32 block (S, 3, HB, WB):
+    HB = rows + 2 * ``learned_halo(cfg)``, ``canvas_margin`` replicate
+    columns before the image. The state is a bool flag (S,) and the carry:
+    (S, HB, WB) for retinex/hybrid, (S, n_iter, 3, HB/ds, WB/ds) for curve.
+    Returns the new state and the rows (S, 3, rows, WB) of the block's
+    dtype (f32 clipped to [0, 1]), columns uncropped.
 
     ``ema_in_kernel`` picks K4 for retinex; ``h``, ``w`` (the image's size)
     and ``row0`` (the image row of block row 0) default to a single block
     holding the whole image."""
-    if xb.dtype != torch.uint8:
-        raise NotImplementedError(
-            "float video blocks are not ported yet (ROADMAP Queue 1: f32 I/O)")
     initialized, carry = state
     cfg = resolve_conv_impl(cfg)
     m = canvas_margin(cfg)
@@ -137,7 +135,7 @@ def video_step(
         out, new_carry = fused_retinex_ema(xb, carry_eff, cfg, halo, rows, w,
                                            alpha)
         return (done, new_carry), out
-    xf = normalize_u8(xb)
+    xf = _to_float(xb)
     if cfg.method in ("retinex", "hybrid"):
         gain, l_mix = ema_gain(xf, initialized, carry, cfg, alpha, w)
         if cfg.method == "retinex":

@@ -19,8 +19,11 @@ that walk are held here to ``conv3x3_plain``:
   of output chunks each holding its own weights, the epilogue storing
   only the layer's channels, and the piece groups of the widest layers
   (a slot holding some of a row's pieces, the accumulators held across
-  them), with the geometry of this file's mirror of the kernel's plan
-  (``wgmma_plan``: llie_conv_plan's chunk width and plan()).
+  them), and the streamed weights of the widest (each piece group's
+  weights copied into one of two buffers with its rows, the pieces
+  worked out from the groups' widths as the device does), with the
+  geometry of this file's mirror of the kernel's plan (``wgmma_plan``:
+  llie_conv_plan's chunk width and plan()).
 
 Bars: float32 within 1e-5, bf16 within one bf16 step of the value (see
 tests/test_torch_mxu_conv.py ``assert_within``).
@@ -62,6 +65,12 @@ _CASES = {
     # curve_iters 8 at 512, the widest the kernel takes)
     "320cat-160-relu": ((160, 160), 160, "relu", 1, (5, 45)),
     "1024cat-24-tanh": ((512, 512), 24, "tanh", 1, (3, 40)),
+    # past 16 pieces (curve_features 640 and 1024) and at dilation 64 past
+    # 14: the weights streamed by piece group, the pieces worked out on the
+    # device
+    "1280cat-24-tanh": ((640, 640), 24, "tanh", 1, (3, 40)),
+    "2048cat-16-relu": ((1024, 1024), 16, "relu", 1, (2, 24)),
+    "1024-8-leaky-d64": ((1024,), 8, "leaky", 64, (3, 40)),
 }
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -175,42 +184,92 @@ def _round(v, m):
     return -(-v // m) * m
 
 
-def plan_layer(groups, cout, dil, nc, ppg=MAX_PIECES):
+def plan_layer(groups, cout, dil, nc, ppg=MAX_PIECES, table=True):
     """conv3x3_wgmma.cuh plan_layer() for input groups of ``groups``
     channels (multiples of 8) at chunk width nc: the pieces (group, first
     channel, CP, bytes a pixel, offset in its piece group's slot, bytes of
     a box region, weights' offset in a tap), ``ppg`` pieces a slot at most;
-    None past MAX_PIECES pieces."""
-    g = {"nc": nc, "nseg": 1 if TILE_X + 2 * dil <= MAX_BOX_X else 3}
+    with ``table`` None past MAX_PIECES pieces. Also what the streamed form
+    reads: group a's pieces and the bytes a pixel of each group's pieces,
+    the bytes a tap of the widest piece group's weights."""
+    g = {"nc": nc, "nseg": 1 if TILE_X + 2 * dil <= MAX_BOX_X else 3,
+         "dil": dil, "stream": False}
     g["box_x"] = _round(TILE_X + 2 * dil, 8) if g["nseg"] == 1 else TILE_X
-    aoff = woff = row = 0
+    aoff = woff = row = gw = wpg = 0
     g["pieces"] = []
     for m, c in enumerate(groups):
         cp = tmx.piece_channels(c)
         for c0 in range(0, c, cp):
-            if len(g["pieces"]) == MAX_PIECES:
+            if table and len(g["pieces"]) == MAX_PIECES:
                 return None
             if len(g["pieces"]) % ppg == 0:
-                aoff = 0
+                aoff = gw = 0
             sp = 2 * cp
             areg = _round(g["box_x"] * sp, ALIGN)
             g["pieces"].append({"group": m, "c0": c0, "cp": cp, "sp": sp,
                                 "aoff": aoff, "areg": areg, "woff": woff})
             aoff += g["nseg"] * areg
             woff += _round(nc * sp, ALIGN)
+            gw += _round(nc * sp, ALIGN)
             row = max(row, aoff)
+            wpg = max(wpg, gw)
     g["ppg"] = min(ppg, len(g["pieces"]))
     g["pgroups"] = -(-len(g["pieces"]) // g["ppg"])
-    g.update(row=row, wtap=woff, wchunk=9 * woff,
-             nchunks=tmx.padded(cout) // nc)
+    cpa = tmx.piece_channels(groups[0])
+    g.update(row=row, wtap=woff, wchunk=9 * woff, wpg=wpg,
+             nchunks=tmx.padded(cout) // nc, npa=-(-groups[0] // cpa),
+             spa=2 * cpa,
+             spb=2 * tmx.piece_channels(groups[1]) if len(groups) > 1
+             else 2 * cpa)
     return g
+
+
+def piece_at(g, p, p0):
+    """conv3x3_wgmma.cuh piece_at(): piece p of the streamed form from the
+    groups' widths alone, its slot region and weights from piece p0's."""
+    a = p < g["npa"]
+    sp = g["spa"] if a else g["spb"]
+    areg_a, areg_b = (_round(g["box_x"] * v, ALIGN)
+                      for v in (g["spa"], g["spb"]))
+    wp_a, wp_b = (_round(g["nc"] * v, ALIGN) for v in (g["spa"], g["spb"]))
+    na = max(0, min(p, g["npa"]) - p0)
+    nb = p - p0 - na
+    return {"group": 0 if a else 1,
+            "c0": (p if a else p - g["npa"]) * (sp // 2), "cp": sp // 2,
+            "sp": sp, "areg": areg_a if a else areg_b,
+            "aoff": g["nseg"] * (na * areg_a + nb * areg_b),
+            "woff": na * wp_a + nb * wp_b}
+
+
+def plan_stream(groups, cout, dil, nc):
+    """conv3x3_wgmma.cuh plan_stream(): the fewest piece groups whose two
+    weight buffers (9 taps of a piece group each) and a ring of ROWS + 2
+    slots fit, one chunk a block."""
+    g = plan_layer(groups, cout, dil, nc, table=False)
+    pieces = len(g["pieces"])
+    for pgroups in range(1, pieces + 1):
+        ppg = -(-pieces // pgroups)
+        if -(-pieces // ppg) != pgroups:
+            continue
+        g = plan_layer(groups, cout, dil, nc, ppg, table=False)
+        fixed = ALIGN + 2 * 9 * g["wpg"] + 4 * nc + 8 + 32
+        fit = (SMEM_LIMIT - fixed) // (g["row"] + 16)
+        if fit >= ROWS + 2:
+            slots = min(fit, MAX_SLOTS)
+            g.update(npass=1, nsplit=g["nchunks"], slots=slots, stream=True,
+                     smem=fixed + (g["row"] + 16) * slots)
+            return g
+    return None
 
 
 def plan_stage(groups, cout, dil, nc, stage):
     """conv3x3_wgmma.cuh plan_stage(): at stages 0 and 1 whole halo rows a
     slot and the most chunks a block holds beside a ring of 2 * ROWS + 4,
     then ROWS + 2 slots; at stages 2 and 3 the same rings with the fewest
-    piece groups and one chunk a block; None where nothing fits."""
+    piece groups and one chunk a block; at stage 4 streamed weights; None
+    where nothing fits."""
+    if stage == 4:
+        return plan_stream(groups, cout, dil, nc)
     want = ROWS + 2 if stage % 2 else 2 * ROWS + 4
     g = plan_layer(groups, cout, dil, nc)
     if g is None:
@@ -240,7 +299,7 @@ def wgmma_plan(groups, cout, dil):
     first stage where any fits, the widest nc dividing Cout's padding; None
     where none fits (llie_conv_plan's 0)."""
     c8 = tmx.padded(cout) // 8
-    for stage in range(4):
+    for stage in range(5):
         for d in range(MAX_N // 8, 0, -1):
             if c8 % d == 0:
                 g = plan_stage(groups, cout, dil, 8 * d, stage)
@@ -305,12 +364,38 @@ def _kernel_walk(xs, w, bias, act, dil):
     wall = packed.float().numpy().reshape(-1)
     bpad = np.pad(bias, (0, tmx.padded(cout) - cout))
     out = np.full((bsz, h, wd, cout), np.nan, np.float32)
-    piece_groups = [g["pieces"][p:p + g["ppg"]]
-                    for p in range(0, len(g["pieces"]), g["ppg"])]
+    npieces = len(g["pieces"])
+    firsts = range(0, npieces, g["ppg"])
+    if g["stream"]:
+        # the device's pieces, from the groups' widths
+        piece_groups = [[piece_at(g, p, p0)
+                         for p in range(p0, min(p0 + g["ppg"], npieces))]
+                        for p0 in firsts]
+    else:
+        piece_groups = [g["pieces"][p:p + g["ppg"]] for p in firsts]
     assert len(piece_groups) == g["pgroups"]
     for split in range(g["nsplit"]):
         wbytes = g["npass"] * g["wchunk"]
         wsm = wall[split * wbytes // 2:(split + 1) * wbytes // 2]
+        wbuf = [np.full(9 * g["wpg"] // 2, np.nan, np.float32)
+                for _ in range(2)]
+        wc = 0  # piece groups of weights copied, the producer's count
+
+        def load_weights(p0, p1):
+            # the weights of pieces p0 .. p1 - 1, each tap's together, into
+            # buffer wc % 2 at g["wpg"] bytes a tap
+            nonlocal wc
+            buf = wbuf[wc % 2]
+            buf[:] = np.nan
+            first = piece_at(g, p0, 0)["woff"]
+            nbytes = piece_at(g, p1, p0)["woff"]
+            assert nbytes <= g["wpg"]
+            for tap in range(9):
+                src = (tap * g["wtap"] + first) // 2
+                buf[tap * g["wpg"] // 2:(tap * g["wpg"] + nbytes) // 2] = \
+                    wsm[src:src + nbytes // 2]
+            wc += 1
+            return buf
         ring = np.full(slots * g["row"] // 2, np.nan, np.float32)
         owed = [0] * slots  # arrivals a slot still waits for
         rc = 0  # rows issued, the producer's count
@@ -340,8 +425,9 @@ def _kernel_walk(xs, w, bias, act, dil):
                     ring[(dst + el) // 2] = box.reshape(-1)
             return s
 
-        def mma(acc, slot, k, pieces, ch0):
-            # output row k of a group: 9 taps x the pieces x k16 steps
+        def mma(acc, slot, k, pieces, ch0, buf=None):
+            # output row k of a group: 9 taps x the pieces x k16 steps; the
+            # streamed form reads its weight buffer, a tap every wpg bytes
             for tap in range(9):
                 dy, dx = tap // 3, tap % 3
                 for pc in pieces:
@@ -349,10 +435,14 @@ def _kernel_walk(xs, w, bias, act, dil):
                     a0 = slot[k + dy] * g["row"] + pc["aoff"] + (
                         dx * dil * sp if g["nseg"] == 1
                         else dx * pc["areg"])
-                    b0 = ch0 * g["wchunk"] + tap * g["wtap"] + pc["woff"]
+                    if buf is None:
+                        wsrc = wsm
+                        b0 = ch0 * g["wchunk"] + tap * g["wtap"] + pc["woff"]
+                    else:
+                        wsrc, b0 = buf, tap * g["wpg"] + pc["woff"]
                     for kk in range(pc["cp"] // 16):
                         am = _operand(ring, a0 + 32 * kk, sp, TILE_X)
-                        bm = _operand(wsm, b0 + 32 * kk, sp, nc)
+                        bm = _operand(wsrc, b0 + 32 * kk, sp, nc)
                         acc += am @ bm.T
 
         def store(acc, b, x0, y, cb):
@@ -372,15 +462,17 @@ def _kernel_walk(xs, w, bias, act, dil):
                 continue
             ngroups = -(-min(n, STRIP_ROWS) // ROWS)
             x0, y0 = xt * TILE_X, p + c * STRIP_ROWS * dil
-            if g["pgroups"] > 1:
+            if g["pgroups"] > 1 or g["stream"]:
                 for q in range(ngroups):
                     acc = [np.zeros((TILE_X, nc), np.float32)
                            for _ in range(ROWS)]
-                    for pieces in piece_groups:
+                    for p0, pieces in zip(firsts, piece_groups):
+                        buf = (load_weights(p0, p0 + len(pieces))
+                               if g["stream"] else None)
                         slot = [load(b, x0, y0 + (q * ROWS + j - 1) * dil,
                                      pieces) for j in range(ROWS + 2)]
                         for k in range(ROWS):
-                            mma(acc[k], slot, k, pieces, 0)
+                            mma(acc[k], slot, k, pieces, 0, buf)
                         # the reader's arrival and the other consumer's
                         for s in slot:
                             owed[s] -= 2
@@ -417,6 +509,40 @@ def test_kernel_walk_over_packed_weights_matches_plain(case):
     assert_within(got.to(torch.bfloat16),
                   _reference(xs, wt, b, act, dil, torch.bfloat16),
                   torch.bfloat16)
+
+
+@pytest.mark.parametrize("groups,dil,ppg", [((24,), 1, 16), ((64, 64), 1, 1),
+                                            ((160, 160), 1, 3),
+                                            ((512, 24), 66, 4),
+                                            ((40, 8), 2, 16)])
+def test_device_pieces_equal_the_plan_table(groups, dil, ppg):
+    """piece_at's pieces, worked out from the groups' widths, are the
+    plan's table (group, channels, slot region and weights within their
+    piece group), so the streamed form reads what the table names."""
+    g = plan_layer(groups, 24, dil, 24, ppg)
+    for p, want in enumerate(g["pieces"]):
+        p0 = p - p % g["ppg"]
+        got = piece_at(g, p, p0)
+        first = g["pieces"][p0]["woff"]
+        assert got["woff"] == want["woff"] - first
+        for key in ("group", "c0", "cp", "sp", "aoff", "areg"):
+            assert got[key] == want[key], (p, key)
+
+
+@pytest.mark.parametrize("groups,cout,dil", [((1024, 1024), 24, 1),
+                                             ((640, 640), 160, 1),
+                                             ((1024,), 8, 64),
+                                             ((1024,), 24, 128),
+                                             ((2048,), 64, 1)])
+def test_wide_layers_plan_streamed_weights(groups, cout, dil):
+    """Past 16 pieces, and past 14 at dilation 64 and more, the plan
+    streams the weights: two buffers of a piece group's 9 taps and a ring
+    of at least ROWS + 2 slots within shared memory, one chunk a block."""
+    g = wgmma_plan(groups, cout, dil)
+    assert g is not None and g["stream"]
+    assert g["slots"] >= ROWS + 2 and g["smem"] <= SMEM_LIMIT
+    assert g["npass"] == 1 and g["nsplit"] * g["nc"] == tmx.padded(cout)
+    assert g["pgroups"] * g["ppg"] >= len(g["pieces"])
 
 
 @pytest.mark.parametrize("groups,cout", [((24,), 24), ((32, 32), 32),

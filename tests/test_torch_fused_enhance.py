@@ -8,19 +8,16 @@ isolated u8 rounding tie. The CUDA kernels themselves are held to these
 plain versions on the card by chip_smoke.py.
 """
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from low_light_image_enhancement_tpu import blocks as jblocks
-from low_light_image_enhancement_tpu import pipeline as jpipe
 from low_light_image_enhancement_tpu import video as jvideo
 from low_light_image_enhancement_tpu.config import PipelineConfig as JConfig
 from low_light_image_enhancement_tpu.config import canvas_margin
+from low_light_image_enhancement_tpu.kernels import fused_enhance as jfe
 from low_light_image_enhancement_tpu.kernels.fused_enhance import (
     retinex_plan_bytes_per_px,
 )
@@ -35,15 +32,29 @@ def _assert_u8_close(got, want):
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
 
 
-def _jax_retinex(lows, kw):
+def _jax_k1(imgs, kw, stages=("blur", "boost", "denoise")):
+    """The JAX kernel in interpret mode on the replicate-padded planar
+    canvas of (B, H, W, 3) u8 or f32 images, cropped back to HWC."""
     cfg = JConfig(**kw)
-    _, h, w, _ = lows.shape
-    plan = plan_stripes(h, w, canvas_margin(cfg), cfg.stripe_rows,
+    _, h, w, _ = imgs.shape
+    m = canvas_margin(cfg)
+    plan = plan_stripes(h, w, m, cfg.stripe_rows,
                         bytes_per_px=retinex_plan_bytes_per_px(cfg))
-    fn = jax.jit(functools.partial(
-        jpipe._enhance_u8_batch, cfg=cfg, plan=plan, use_pallas=True,
-        pallas_interpret=True))
-    return np.asarray(fn(jnp.asarray(lows), None))
+    xp = np.pad(imgs.transpose(0, 3, 1, 2),
+                ((0, 0), (0, 0), (m, plan.padded_h - h - m),
+                 (m, plan.padded_w - w - m)), mode="edge")
+    out = jfe.fused_retinex(jnp.asarray(xp), cfg, plan, interpret=True,
+                            stages=stages)
+    return np.asarray(out)[..., :h, m:m + w].transpose(0, 2, 3, 1)
+
+
+def _assert_io_close(got, want):
+    """u8: the bar above; f32: within 1e-5."""
+    got = np.asarray(got)
+    if got.dtype == np.uint8:
+        _assert_u8_close(got, want)
+    else:
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("size", [(40, 72), (33, 47)])
@@ -54,7 +65,7 @@ def test_k1_plain_matches_jax_kernel(kw, size):
     lows, _ = synth_batch(2, *size)
     got = fe.fused_retinex(torch.from_numpy(lows), PipelineConfig(**kw))
     assert got.shape == lows.shape and got.dtype == torch.uint8
-    _assert_u8_close(got.numpy(), _jax_retinex(lows, kw))
+    _assert_u8_close(got.numpy(), _jax_k1(lows, kw))
 
 
 @pytest.mark.parametrize("kw", [
@@ -66,13 +77,15 @@ def test_k1_plain_matches_jax_kernel(kw, size):
 def test_k1_plain_variants_match_jax_kernel(kw):
     lows, _ = synth_batch(1, 40, 72, seed=1)
     got = fe.fused_retinex(torch.from_numpy(lows), PipelineConfig(**kw))
-    _assert_u8_close(got.numpy(), _jax_retinex(lows, kw))
+    _assert_u8_close(got.numpy(), _jax_k1(lows, kw))
 
 
-def _curve_block(method, h, w, seed, ds=1, halo_fn=jblocks.single_block_halo):
+def _curve_block(method, h, w, seed, ds=1, halo_fn=jblocks.single_block_halo,
+                 **kw):
     """A u8 block as the pipeline (or, with ``learned_halo``, the video
-    step) pads it, and random maps on it at 1/ds."""
-    cfg = JConfig(method=method, curve_downsample=ds)
+    step) pads it for ``JConfig(method, curve_downsample=ds, **kw)``, and
+    random maps on it at 1/ds."""
+    cfg = JConfig(method=method, curve_downsample=ds, **kw)
     m = canvas_margin(cfg)
     halo = halo_fn(cfg)
     h_core, wp = jblocks.block_geometry(cfg, h, w)
@@ -199,32 +212,68 @@ def test_cpu_calls_launch_nothing():
     assert [wr.launches for wr in wrappers] == before
 
 
-@pytest.mark.parametrize("call", [
-    lambda x: fe.fused_retinex(x, PipelineConfig(denoise_taps="guided")),
-    lambda x: fe.fused_retinex(x, PipelineConfig(
-        denoise_taps="guided", denoise_guide="perchannel")),
-    lambda x: fe.fused_retinex(x, PipelineConfig(), stages=("blur",)),
-    lambda x: fe.fused_retinex(x.float() / 255, PipelineConfig()),
+@pytest.mark.parametrize("kw,stages,f32", [
+    (dict(denoise_taps="guided"), None, False),
+    (dict(denoise_taps="guided", denoise_guide="perchannel"), None, False),
+    (dict(), ("blur",), False),
+    (dict(), None, True),
 ])
-def test_unported_k1_options_raise(call):
-    x = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(x)
+def test_unported_k1_options_raise(kw, stages, f32):
+    """The K1 forms that raised before they were ported (the guided tail in
+    both guides, stage truncation, f32 I/O) now run: each plain version
+    against the JAX kernel in interpret mode on the same input."""
+    lows, _ = synth_batch(1, 33, 47, seed=12)
+    x = lows.astype(np.float32) / 255.0 if f32 else lows
+    got = fe.fused_retinex(torch.from_numpy(x), PipelineConfig(**kw),
+                           stages=stages)
+    assert got.dtype == (torch.float32 if f32 else torch.uint8)
+    _assert_io_close(got.numpy(),
+                     _jax_k1(x, kw, stages or ("blur", "boost", "denoise")))
 
 
 def test_unported_k3_options_and_bad_inputs_raise():
-    xb, maps, halo, rows, _ = _curve_block("hybrid", 16, 24, seed=5)
+    """K3's and K4's forms that raised before they were ported (the guided
+    tail, f32 blocks) against the JAX kernels in interpret mode; then the
+    inputs every form still refuses."""
+    gkw = dict(denoise_taps="guided")
+    xg, mg, hg, rg, mm = _curve_block("hybrid", 16, 24, seed=5, **gkw)
+    want = jblocks._fused_curve_tail(
+        jnp.asarray(xg), jnp.asarray(mg), JConfig(method="hybrid", **gkw),
+        hg, rg, interpret=True, img_w=24)
+    got = fe.fused_curve_enhance(
+        torch.from_numpy(xg), torch.from_numpy(mg),
+        PipelineConfig(method="hybrid", **gkw), hg, rg, 24)
+    _assert_u8_close(got.numpy()[..., mm:mm + 24],
+                     np.asarray(want)[..., mm:mm + 24])
+    xg, _, hg, rg, mm = _curve_block("retinex", 16, 24, seed=5,
+                                     halo_fn=jblocks.learned_halo, **gkw)
+    carry = np.full((2,) + xg.shape[-2:], -1.0, np.float32)
+    want, _ = jvideo._fused_ema_tail(jnp.asarray(xg), jnp.asarray(carry),
+                                     JConfig(**gkw), hg, rg, 24, 0.3,
+                                     interpret=True)
+    got, _ = fe.fused_retinex_ema(torch.from_numpy(xg),
+                                  torch.from_numpy(carry),
+                                  PipelineConfig(**gkw), hg, rg, 24, 0.3)
+    _assert_u8_close(got.numpy()[..., mm:mm + 24],
+                     np.asarray(want)[..., mm:mm + 24])
+    xb, maps, halo, rows, m = _curve_block("hybrid", 16, 24, seed=5)
+    xf = xb.astype(np.float32) / 255.0
+    want = jblocks._fused_curve_tail(
+        jnp.asarray(xf), jnp.asarray(maps), JConfig(method="hybrid"), halo,
+        rows, interpret=True, img_w=24)
+    got = fe.fused_curve_enhance(torch.from_numpy(xf), torch.from_numpy(maps),
+                                 PipelineConfig(method="hybrid"), halo, rows,
+                                 24)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy()[..., m:m + 24],
+                               np.asarray(want)[..., m:m + 24], atol=1e-5,
+                               rtol=0)
     xb, maps = torch.from_numpy(xb), torch.from_numpy(maps)
     cfg = PipelineConfig(method="hybrid")
     plane = torch.ones_like(maps[:, 0, 0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fe.fused_curve_enhance(xb, maps, cfg.replace(denoise_taps="guided"),
-                               halo, rows, 24)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fe.fused_retinex_ema(xb, plane, PipelineConfig(denoise_taps="guided"),
-                             halo, rows, 24, 0.3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fe.fused_curve_enhance(xb.float(), maps, cfg, halo, rows, 24)
+    # an I/O type the kernels do not take
+    with pytest.raises(TypeError):
+        fe.fused_curve_enhance(xb.double(), maps, cfg, halo, rows, 24)
     # maps at a resolution the ds does not name, ds 8, a gain of the wrong
     # shape, a traced (tensor) alpha
     with pytest.raises(ValueError):

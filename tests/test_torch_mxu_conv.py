@@ -177,13 +177,19 @@ def test_kernel_takes_the_curve_cnn_widths(features, n_iter):
 
 def test_kernel_shapes_raise_only_past_shared_memory():
     # past 16 pieces of 64 channels, and 16 pieces at dilation 64, whose
-    # halo rows of 192 pixels leave no room for four slots
-    with pytest.raises(ValueError, match="shared memory"):
-        tmx._check_kernel_shapes(_PlanLib, (1032,), 8, 1, True)
-    with pytest.raises(ValueError, match="shared memory"):
-        tmx._check_kernel_shapes(_PlanLib, (520, 520), 64, 1, True)
-    with pytest.raises(ValueError, match="shared memory"):
-        tmx._check_kernel_shapes(_PlanLib, (1024,), 8, 64, True)
+    # halo rows of 192 pixels leave no room for four slots beside a chunk's
+    # weights: these refused until the weights were streamed by piece group
+    assert tmx._check_kernel_shapes(_PlanLib, (1032,), 8, 1, True) == 8
+    assert tmx._check_kernel_shapes(_PlanLib, (520, 520), 64, 1, True) == 64
+    assert tmx._check_kernel_shapes(_PlanLib, (1024,), 8, 64, True) == 8
+    for cins, cout, d in (((1032,), 8, 1), ((520, 520), 64, 1),
+                          ((1024,), 8, 64), ((1024, 1024), 24, 1),
+                          ((2048,), 8, 128)):
+        assert wgmma_plan([tmx.padded(c) for c in cins], cout, d)["stream"]
+    # nothing a 3x3 layer reaches is refused
+    for cin in range(8, 2049, 40):
+        for d in (1, 64, 128):
+            assert tmx._check_kernel_shapes(_PlanLib, (cin,), 24, d, True)
     # wider than whole halo rows leave room for: piece groups
     assert tmx._check_kernel_shapes(_PlanLib, (384,), 8, 1, True) == 8
     assert tmx._check_kernel_shapes(_PlanLib, (160, 160), 64, 1, True) == 16

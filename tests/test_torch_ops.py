@@ -23,6 +23,7 @@ from low_light_image_enhancement_tpu_torch.ops import colorspace as tcs
 from low_light_image_enhancement_tpu_torch.ops import curves as tcurves
 from low_light_image_enhancement_tpu_torch.ops import denoise as tdn
 from low_light_image_enhancement_tpu_torch.ops import filters as tf
+from low_light_image_enhancement_tpu_torch.ops import guided as tguided
 
 ATOL = 1e-6
 
@@ -107,14 +108,21 @@ def test_bilateral_cores_match(guide, taps, kind):
 
 
 def test_guided_taps_raise_not_ported():
-    """The guided cores run (tests/test_torch_guided.py); the tails that do
-    not take them yet, K1's and K3's, raise."""
+    """The guided cores run (tests/test_torch_guided.py) and every method
+    takes them since K1's, K3's and K4's guided tails were ported; the
+    cores bind the radius and eps they are given, and an unknown tap
+    form raises."""
+    x = torch.from_numpy(np.random.default_rng(13).random(
+        (3, 20, 24), dtype=np.float32))
     core1, corej = tdn.plane_cores("luma", "guided", 4, 1e-2)
     assert callable(core1) and callable(corej)
-    for method in ("retinex", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.check_ported(PipelineConfig(method=method,
-                                              denoise_taps="guided"))
+    torch.testing.assert_close(
+        core1(x[0], 0.0, 0.7, tf.roll2d),
+        tguided.guided_core_shift(x[0], 1e-2, 0.7, tf.roll2d, 4),
+        rtol=0, atol=0)
+    for method in ("retinex", "curve", "hybrid"):
+        tpipe.check_ported(PipelineConfig(method=method,
+                                          denoise_taps="guided"))
     with pytest.raises(ValueError):
         tdn.plane_cores("luma", "box")
 

@@ -113,17 +113,30 @@ def test_default_params_are_the_shipped_weights():
                                b.model_params["c2"]["w"], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(method="hybrid", denoise_taps="guided"),
-    dict(method="curve", denoise_taps="guided"), dict(spatial_shards=2),
-    dict(data_shards=2), dict(denoise_taps="guided"),
-    dict(method="hybrid", curve_downsample=4, denoise_taps="guided"),
-    dict(method="fcn", conv_impl="gemm"),
-    dict(method="hybrid", conv_impl="packed12"),
+@pytest.mark.parametrize("kw,ported", [
+    (dict(method="hybrid", denoise_taps="guided", compute_dtype="float32"),
+     True),
+    (dict(method="curve", denoise_taps="guided", compute_dtype="float32"),
+     True),
+    (dict(spatial_shards=2), False),
+    (dict(data_shards=2), False), (dict(denoise_taps="guided"), True),
+    (dict(method="hybrid", curve_downsample=4, denoise_taps="guided",
+          compute_dtype="float32"), True),
+    (dict(method="fcn", conv_impl="gemm"), False),
+    (dict(method="hybrid", conv_impl="packed12"), False),
 ])
-def test_unported_configs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.EnhancePipeline(PipelineConfig(**kw), device="cpu")
+def test_unported_configs_raise(kw, ported):
+    """The configs still to port raise; the guided tails on retinex, curve
+    and hybrid, which raised before they were ported, match the JAX
+    package's jnp path."""
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpipe.EnhancePipeline(PipelineConfig(**kw), device="cpu")
+        return
+    lows, _ = synth_batch(2, 33, 47, seed=4)
+    port, ref = _pair(kw)
+    dmax, share = _delta(port.enhance_batch(lows), ref.enhance_batch(lows))
+    assert dmax <= 1 and share < 1e-3, (dmax, share)
 
 
 def test_device_is_explicit_and_inputs_are_checked():

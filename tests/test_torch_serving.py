@@ -72,3 +72,30 @@ def test_full_group_dispatches_without_waiting_and_checks_args():
         EnhanceServer(PipelineConfig(), device="cpu", overflow="drop")
     with pytest.raises(NotImplementedError):
         EnhanceServer(PipelineConfig(data_shards=2), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(denoise_taps="guided"),
+                                dict(method="hybrid", denoise_taps="guided",
+                                     compute_dtype="float32")])
+def test_guided_server_matches_jax_jnp_path(kw):
+    """The guided tails through the server: its answers equal the JAX
+    package's jnp pipeline on the same image and weights (max |du8| <= 1,
+    changed share < 1e-3). The image is a multiple of the server's bucket:
+    a bucket pads it with replicas, which the curve CNN of hybrid sees where
+    it would see zeros past the margin."""
+    from low_light_image_enhancement_tpu import pipeline as jpipe
+    from low_light_image_enhancement_tpu.config import PipelineConfig as JC
+    from low_light_image_enhancement_tpu_torch.models.weights import (
+        params_from_numpy,
+    )
+
+    ref = jpipe.EnhancePipeline(JC(**kw), force_jnp=True)
+    params = None if ref.model_params is None else \
+        params_from_numpy(ref.model_params)
+    img = synth_pair(5, 64, 64)[0]
+    pipe = EnhancePipeline(PipelineConfig(**kw), model_params=params,
+                           device="cpu", bucket=64)
+    with EnhanceServer(pipeline=pipe, max_delay_ms=1.0) as srv:
+        got = srv.submit(img).result(timeout=120)
+    d = np.abs(got.astype(int) - ref.enhance(img).astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())

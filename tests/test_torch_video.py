@@ -66,6 +66,10 @@ def _run(port, ref, frames):
     (dict(method="curve"), True),
     (dict(method="curve", curve_downsample=4), True),
     (dict(method="hybrid", curve_downsample=4), True),
+    (dict(denoise_taps="guided"), True),
+    (dict(denoise_taps="guided", guided_radius=4,
+          denoise_guide="perchannel"), False),
+    (dict(method="hybrid", curve_downsample=4, denoise_taps="guided"), True),
 ])
 def test_video_matches_jax(kw, ema_in_kernel):
     kw = dict(kw, compute_dtype="float32")
@@ -171,9 +175,11 @@ def test_video_options_and_inputs_are_checked():
     for method in ("fcn", "decom"):
         with pytest.raises(ValueError, match="no temporal carry"):
             tvideo.VideoEnhancer(PipelineConfig(method=method), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvideo.VideoEnhancer(PipelineConfig(denoise_taps="guided"),
-                             device="cpu")
+    # the guided tail, refused before K4's was ported, runs
+    guided = tvideo.VideoEnhancer(PipelineConfig(denoise_taps="guided"),
+                                  device="cpu")
+    assert guided.process(np.zeros((16, 24, 3), np.uint8)).shape == (16, 24,
+                                                                     3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tvideo.VideoEnhancer(device="cuda")
@@ -190,3 +196,44 @@ def test_video_options_and_inputs_are_checked():
         multi.process(np.zeros((3, 16, 24, 3), np.uint8))
     with pytest.raises(ValueError):
         multi.reset(2)
+
+
+@pytest.mark.parametrize("kw,ema_in_kernel", [
+    (dict(), True), (dict(denoise_taps="guided"), False),
+    (dict(method="hybrid", curve_downsample=4), True),
+])
+def test_video_step_takes_f32_blocks(kw, ema_in_kernel):
+    """video_step on an f32 block (refused before f32 I/O was ported)
+    against the JAX video_step on the same block: two chained frames, f32
+    out within 1e-5 on the consumed columns, the carries within 1e-6."""
+    kw = dict(kw, compute_dtype="float32")
+    cfg, jcfg = PipelineConfig(**kw), JConfig(**kw)
+    frames, _ = synth_batch(2, 33, 47, seed=9)
+    params = None
+    if cfg.method != "retinex":
+        jparams = jvideo.VideoEnhancer(jcfg).model_params
+        params = params_from_numpy(jparams)
+    m = canvas_margin(cfg)
+    tstate, jstate = (torch.zeros((1,), dtype=torch.bool), None), None
+    for f in frames:
+        xb = tvideo.pad_video_block(torch.from_numpy(f[None]), cfg)
+        xf = xb.float() * (1.0 / 255.0)
+        if tstate[1] is None:
+            tstate = (tstate[0], torch.zeros((1,) + xb.shape[-2:]))
+            jstate = (np.zeros((1,), bool), np.zeros((1,) + xb.shape[-2:],
+                                                     np.float32))
+        tstate, got = tvideo.video_step(tstate, xf, cfg, 0.3, params, 33,
+                                        47, ema_in_kernel=ema_in_kernel)
+        jstate, want = jvideo.video_step(
+            jstate, xf.numpy(), jcfg, 0.3,
+            None if params is None else jparams, 33, 47,
+            ema_in_kernel=ema_in_kernel)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy()[..., :33, m:m + 47],
+                                   np.asarray(want)[..., :33, m:m + 47],
+                                   atol=1e-5, rtol=0)
+        halo = learned_halo(cfg)
+        np.testing.assert_allclose(
+            tstate[1].numpy()[:, halo:-halo, m:m + 47],
+            np.asarray(jstate[1])[:, halo:-halo, m:m + 47], atol=1e-6,
+            rtol=0)

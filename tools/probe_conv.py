@@ -16,7 +16,9 @@ layer times beside one cuDNN call and the bound.
    groups of 20 channels (padded), the curve CNN at 64 features (64 -> 64,
    128 -> 64 in two groups, 128 -> 48), one group of 320 channels, and the
    widths past whole halo rows (piece groups: 160 + 160 -> 160, 384 -> 8,
-   512 + 512 -> 24), relu/tanh/leaky, every fcn dilation and one
+   512 + 512 -> 24) and past one chunk's weights (streamed: 640 + 640
+   -> 640, 1024 + 1024 -> 24, 1024 -> 24 at d 64 and 128), relu/tanh/leaky,
+   every fcn dilation and one
    past the contiguous halo row (d 66), at small odd shapes and on the
    nets' blocks; f32 (the CUDA cores) on one shape each, but for the
    piece-group widths; bar: one bf16 step (or 1e-5 where the sum
@@ -29,7 +31,8 @@ layer times beside one cuDNN call and the bound.
    d 2 and d 32 on fcn's block, each beside one F.conv2d (bf16,
    channels_last) and the bound (bytes over 3.35 TB/s, operations over 989
    TFLOP/s); the curve CNN's c2 and c5 at 64 features and c5 at 160;
-   K7's six layers beside six K6b launches.
+   K7's six layers beside six K6b launches; the streamed form at
+   curve_features 1024's c7 (2048 -> 24, b2).
 
 Needs a CUDA card and nvcc; run from the repository root:
 ``python3 tools/probe_conv.py``; ``--times`` runs the build and part 3
@@ -68,6 +71,10 @@ FCN_DILATIONS = (2, 4, 8, 16, 32, 1)
 HYBRID_BLOCK, FCN_BLOCK = (416, 640), (528, 640)
 # layers past whole halo rows: the kernel loads them in groups of pieces
 PIECE_GROUP_CASES = (((160, 160), 160), ((384,), 8), ((512, 512), 24))
+# past one chunk's weights beside a ring (16 pieces of 64 channels, 14 at
+# dilation 64 and more): the weights streamed by piece group
+STREAM_CASES = (((640, 640), 640, "relu", 1), ((1024, 1024), 24, "tanh", 1),
+                ((1024,), 24, "leaky", 64), ((1024,), 24, "leaky", 128))
 
 
 def card_line() -> str:
@@ -123,8 +130,9 @@ def plan_report(lib) -> None:
     from test_torch_conv_wgmma import wgmma_plan
 
     layers = [((24,), 24, d) for d in FCN_DILATIONS + (64, 66)]
+    layers += [((c,), 24, d) for c in (1024, 2048) for d in (64, 128)]
     for f in (8, 16, 20, 24, 32, 40, 48, 64, 96, 128, 160, 192, 256, 384,
-              512, 520):
+              512, 520, 640, 1024):
         fp = mx.padded(f)
         for n_iter in (4, 8, 16):
             layers += [((fp,), fp, 1), ((fp, fp), fp, 1),
@@ -237,16 +245,21 @@ def main() -> int:
         cases += [(g, c, "tanh" if c == 24 else "relu", 1)
                   for g, c in PIECE_GROUP_CASES]
         cases += [((24,), 24, "leaky", d) for d in FCN_DILATIONS + (66,)]
+        cases += list(STREAM_CASES)
         for groups, cout, act, d in cases:
             w, b = params(sum(groups), cout)
             shapes = [(2, 37, 45), (1, 70, 150)]
-            shapes.append((2,) + (FCN_BLOCK if d != 1 or groups == (24,)
-                                  else HYBRID_BLOCK))
+            if (groups, cout, act, d) not in STREAM_CASES:
+                shapes.append((2,) + (FCN_BLOCK if d != 1 or groups == (24,)
+                                      else HYBRID_BLOCK))
+            else:
+                shapes.append((1, 140, 200))  # two strips of each phase
             # f32 (the CUDA-core form) on the first shape, but for the piece
             # group widths, a bf16 path: at 320 -> 160 the f32 sums of 2,880
             # products differ from cuDNN's order by ~1.1e-5 (found), past the
             # 1e-5 bar set at the nets' widths
-            f32 = (groups, cout) not in PIECE_GROUP_CASES
+            f32 = ((groups, cout) not in PIECE_GROUP_CASES
+                   and (groups, cout, act, d) not in STREAM_CASES)
             for shape in shapes:
                 first = shape == shapes[0] and f32
                 for dt in ((torch.bfloat16, torch.float32) if first
@@ -298,8 +311,11 @@ def main() -> int:
             ("K6a f64 c2 64->64 relu", (64,), 64, 1, HYBRID_BLOCK),
             ("K6a f64 c5 128->64 relu", (64, 64), 64, 1, HYBRID_BLOCK),
             ("K6a f160 c5 320->160 relu", (160, 160), 160, 1,
+             HYBRID_BLOCK),
+            ("K6a f1024 c7 2048->24 b2 relu", (1024, 1024), 24, 1,
              HYBRID_BLOCK)):
-        xs = [urand((48, h, wd, c), bf) for c in groups]
+        bsz = 2 if " b2 " in name else 48
+        xs = [urand((bsz, h, wd, c), bf) for c in groups]
         w, b = params(sum(groups), cout)
         act = "leaky" if d != 1 else "relu"
         if name.startswith("K6a"):
@@ -317,7 +333,7 @@ def main() -> int:
             continue
         t_l = cuda_ms(lambda: F.conv2d(xcat, wl, b.to(bf), padding=d,
                                        dilation=d), 5)
-        bd = bound_ms(48 * h * wd, sum(groups), cout)
+        bd = bound_ms(bsz * h * wd, sum(groups), cout)
         print(f"  {name} {h}x{wd}: kernel {t_k:.4f}, one F.conv2d "
               f"{t_l:.4f}, bound {bd:.4f} ({t_k / bd:.2f}x)")
         del xs, xcat

@@ -9,16 +9,31 @@ at 1080p with its state fed forward, alternating two frames. Each runs
 under ``torch.profiler`` for a few calls after a warm-up. It prints, per
 call, the wall time, the device-busy time (the sum of the CUDA kernels' and
 copies' own device times), the idle share (1 - busy / wall), and the
-kernels that take the most device time with their shares. Needs a CUDA
-card; run from the repository root:
+kernels that take the most device time with their shares. The guided
+paths (``*_guided``) run the guided tail at r 4 (retinex at r 2 too).
+
+``stages`` is the port's counterpart of the JAX package's
+``scripts/profile_stages.py``: K1 alone on the 600x400 b48 images, compiled
+with its stages enabled in turn (none: u8 in, quantize, u8 out; + blur; +
+boost; + denoise), each timed with CUDA events (the calls queued behind a
+spin, so that the device alone is timed), and the differences are each
+stage's device time; then the whole pipeline call, whose difference from
+the full kernel is the host-to-kernel glue. ``stages_guided`` does the same
+with the guided tail at r 4.
+
+Needs a CUDA card; run from the repository root:
 
     python3 tools/profile_torch.py [quality quality_fast retinex hybrid
                                     hybrid_pallas quality_pallas
                                     quality_fast_pallas quality_fast_cascade
                                     hybrid_pallas_f64 hybrid_pallas_f160
+                                    retinex_guided retinex_guided_r2
+                                    hybrid_guided hybrid_pallas_guided
                                     video_retinex
                                     video_retinex_extgain video_curve_ds4
-                                    video_hybrid_ds4]
+                                    video_hybrid_ds4 video_retinex_guided
+                                    video_hybrid_ds4_guided
+                                    stages stages_guided]
 """
 
 from __future__ import annotations
@@ -55,6 +70,17 @@ PATHS = {
     "hybrid_pallas_f160": llt.PipelineConfig(method="hybrid",
                                              conv_impl="pallas",
                                              curve_features=160),
+    # the guided tail (K1's and K3's)
+    "retinex_guided": llt.PipelineConfig(denoise_taps="guided",
+                                         guided_radius=4),
+    "retinex_guided_r2": llt.PipelineConfig(denoise_taps="guided"),
+    "hybrid_guided": llt.PipelineConfig(method="hybrid",
+                                        denoise_taps="guided",
+                                        guided_radius=4),
+    "hybrid_pallas_guided": llt.PipelineConfig(method="hybrid",
+                                               conv_impl="pallas",
+                                               denoise_taps="guided",
+                                               guided_radius=4),
 }
 # (config, ema_in_kernel) of the video benchmark's arms, alpha 0.3
 VIDEO_PATHS = {
@@ -64,8 +90,20 @@ VIDEO_PATHS = {
                                            curve_downsample=4), True),
     "video_hybrid_ds4": (llt.PipelineConfig(method="hybrid",
                                             curve_downsample=4), True),
+    "video_retinex_guided": (llt.PipelineConfig(denoise_taps="guided"),
+                             True),
+    "video_hybrid_ds4_guided": (llt.PipelineConfig(
+        method="hybrid", curve_downsample=4, denoise_taps="guided"), True),
 }
+# K1's stages enabled in turn, as the JAX package's profile_stages.py
+STAGE_STEPS = (("none", ()), ("blur", ("blur",)),
+               ("boost", ("blur", "boost")),
+               ("denoise", ("blur", "boost", "denoise")))
+STAGE_PATHS = {"stages": llt.PipelineConfig(),
+               "stages_guided": llt.PipelineConfig(denoise_taps="guided",
+                                                   guided_radius=4)}
 CALLS, TOP = 3, 12
+SPIN_CYCLES = 50_000_000
 
 
 def _device_us(evt) -> float:
@@ -123,19 +161,61 @@ def profile_video(name: str, frame: torch.Tensor) -> None:
     _report(f"{name}: 1080p step", step)
 
 
+def _device_ms(fn, iters: int = 20) -> float:
+    """ms a call of the device alone: the calls queued behind a spin."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_stages(name: str, x: torch.Tensor) -> None:
+    """K1's truncated forms differenced: each stage's device time."""
+    from low_light_image_enhancement_tpu_torch.kernels import (
+        fused_enhance as fe,
+    )
+
+    cfg = STAGE_PATHS[name]
+    card = torch.cuda.get_device_name(0)
+    ms = {}
+    for step, stages in STAGE_STEPS:
+        ms[step] = min(_device_ms(lambda: fe.fused_retinex(x, cfg,
+                                                           stages=stages))
+                       for _ in range(2))
+    pipe = llt.EnhancePipeline(cfg, device="cuda")
+    ms["pipeline"] = min(_device_ms(lambda: pipe.enhance_batch_device(x))
+                         for _ in range(2))
+    prev = 0.0
+    print(f"{name}: K1 by stage, 600x400 b{x.shape[0]} on {card} (ms a call, "
+          f"the device alone)")
+    for step, _ in STAGE_STEPS:
+        print(f"  + {step:<8s} {ms[step]:.4f} total, {ms[step] - prev:+.4f}")
+        prev = ms[step]
+    print(f"  pipeline  {ms['pipeline']:.4f} total, "
+          f"{ms['pipeline'] - prev:+.4f} (the glue around the kernel)")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), torch.__version__)
-    names = argv or list(PATHS) + list(VIDEO_PATHS)
-    unknown = set(names) - set(PATHS) - set(VIDEO_PATHS)
+    names = argv or list(PATHS) + list(VIDEO_PATHS) + list(STAGE_PATHS)
+    unknown = (set(names) - set(PATHS) - set(VIDEO_PATHS)
+               - set(STAGE_PATHS))
     if unknown:
         print(f"profile_torch: unknown paths {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    if any(n in PATHS for n in names):
+    if any(n in PATHS or n in STAGE_PATHS for n in names):
         x = torch.from_numpy(synth_batch(48, 400, 600, seed=5)[0]).cuda()
     if any(n in VIDEO_PATHS for n in names):
         frame = torch.from_numpy(synth_batch(1, 1080, 1920, seed=13)[0][0])
@@ -143,6 +223,8 @@ def main(argv) -> int:
     for name in names:
         if name in PATHS:
             profile(name, x)
+        elif name in STAGE_PATHS:
+            profile_stages(name, x)
         else:
             profile_video(name, frame)
     return 0
