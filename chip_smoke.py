@@ -24,7 +24,9 @@ curve_features 640 (K6 streaming its weights by piece group).
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
-  2. the kernel build from the sources in the checkout (nvcc, sm_90a);
+  2. the kernel build from the sources in the checkout (nvcc, sm_90a),
+     and the tile plan of K1/K4 (llie_retinex_tile_plan) against its CPU
+     mirror in tests/test_torch_retinex_tile.py;
   3. each kernel (K1 fused_retinex and its gain form, K3
      fused_curve_enhance with maps at 1/1, 1/2, 1/4 and with the gain
      plane, K4 fused_retinex_ema over chained frames, K5 tiled_denoise, K8
@@ -44,7 +46,11 @@ Phases (each raises on failure, so the script exits non-zero):
      its one-layer launches and, in both dtypes, to K6b layer by layer;
      the forms of K1, K3 and K4 beyond the default ones against their plain
      versions (the guided tail at r 2 and 4 in both guides, f32 I/O, blur
-     radii 9, 16 and 32, K1's stages; f32 within 1e-5), K6 at 640+640->640,
+     radii 9, 16 and 32, K1's every stages subset; f32 within 1e-5), the
+     edges of K1/K4's 32 x 64 tile (one tile and one tile + 1, widths off
+     a multiple of 4 and of 64, 1-pixel-wide and -tall images, radii 1, 8
+     and 9; K4 over 4 chained frames with a stream re-seeded at those
+     sizes), K6 at 640+640->640,
      1024+1024->24 and 1024->24 at d 64 (streamed weights) against float64
      sums within one bf16 step or the f32 sum's rounding; then
      each kernel's time beside its plain version's, its bound and (K6) one
@@ -95,6 +101,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -409,6 +416,17 @@ def main() -> int:
     _build.load_library()
     print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s -> "
           f"{lib_path.name}")
+    # the tile plan of K1/K4 (retinex_tile.cuh) against its CPU mirror
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_retinex_tile import tile_plan
+    lib = _build.load_library()
+    bad = [(f, r, w) for f in (0, 1) for r in range(9) for w in range(6)
+           if lib.llie_retinex_tile_plan(f, r, w) != tile_plan(f, r, w)]
+    if bad:
+        raise AssertionError(f"llie_retinex_tile_plan differs from its "
+                             f"mirror at {bad}")
+    print("  llie_retinex_tile_plan equals its CPU mirror (K1 and K4, "
+          "radii 0-8, 6 values each)")
 
     dev = torch.device("cuda")
     cfg0 = llt.PipelineConfig()
@@ -454,6 +472,28 @@ def main() -> int:
         ("blur r8 101x67 b2",
          llt.PipelineConfig(blur_radius=8, blur_sigma=3.0), (2, 67, 101)),
     ]
+    # edges of the 32 x 64 tile of retinex_tile.cu: exactly one tile and
+    # one tile + 1 in each direction, widths off a multiple of 4 (HWC rows
+    # whose words start at every byte offset) and of 64, 1-pixel-wide and
+    # 1-pixel-tall images, at the radii 1, 8 and 9 (its plane); the full
+    # 3x3 tails hand their pairs across rows between lanes (lane 31's
+    # row below from the whole warp)
+    k1_cases += [(f"{n} {w}x{h} b{b}", cfg, (b, h, w))
+                 for n, cfg in (("default", llt.PipelineConfig()),
+                                ("perchannel/full", llt.PipelineConfig(
+                                    denoise_guide="perchannel",
+                                    denoise_taps="full")),
+                                ("luma/full/epan", llt.PipelineConfig(
+                                    denoise_taps="full",
+                                    denoise_kernel="epan")))
+                 for b, h, w in ((1, 32, 64), (2, 33, 65), (1, 31, 63),
+                                 (2, 130, 1), (2, 1, 130), (1, 40, 262),
+                                 (2, 35, 263))]
+    k1_cases += [(f"blur r{r} {w}x{h} b{b}",
+                  llt.PipelineConfig(blur_radius=r, blur_sigma=r / 3),
+                  (b, h, w))
+                 for r in (1, 8, 9)
+                 for b, h, w in ((2, 33, 65), (2, 130, 1), (1, 35, 263))]
     for name, cfg, (b, h, w) in k1_cases:
         x = torch.from_numpy(synth_batch(b, h, w, seed=3)[0]).to(dev)
         got = fe.fused_retinex(x, cfg).cpu().numpy()
@@ -578,7 +618,9 @@ def main() -> int:
     # carry: frame 1 starts from the all-sentinel carry; before frame 3
     # stream 1 of a batch is re-seeded (its carry set to the sentinel)
     k4_carry_err = 0.0
-    for b, h, w, n in ((1, 1080, 1920, 4), (8, 400, 600, 4), (2, 33, 47, 2)):
+    for b, h, w, n in ((1, 1080, 1920, 4), (8, 400, 600, 4), (2, 33, 47, 2),
+                       (2, 32, 64, 4), (2, 33, 65, 4), (2, 130, 1, 4),
+                       (2, 1, 130, 4), (2, 35, 263, 4)):
         base = synth_batch(b, h, w, seed=10)[0]
         halo, m = learned_halo(cfg0), canvas_margin(cfg0)
         ck = cp = None
@@ -719,8 +761,15 @@ def main() -> int:
                   (2, 67, 101), None, False) for r in (9, 16, 32)]
     k1_forms += [(f"stages {'+'.join(st) or 'none'} 600x400 b2", cfg0,
                   (2, 400, 600), st, False)
-                 for st in ((), ("blur",), ("blur", "boost"),
-                            ("boost", "denoise"), ("denoise",))]
+                 for st in ((), ("blur",), ("boost",), ("denoise",),
+                            ("blur", "boost"), ("blur", "denoise"),
+                            ("boost", "denoise"),
+                            ("blur", "boost", "denoise"))]
+    k1_forms += [(f"blur r9 stages {'+'.join(st) or 'none'} 65x33 b2",
+                  cfg0.replace(blur_radius=9, blur_sigma=3.0), (2, 33, 65),
+                  st, False)
+                 for st in (("blur",), ("blur", "boost"),
+                            ("blur", "denoise"))]
     for name, cfg, (b, h, w), stages, f32 in k1_forms:
         x = torch.from_numpy(lows_of(b, h, w)).to(dev)
         if f32:
@@ -1568,11 +1617,11 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library}
 
     print(json.dumps({"kernels": [
-        row("fused_retinex (K1)", "k1", "fused_enhance.cu",
+        row("fused_retinex (K1)", "k1", "retinex_tile.cu",
             "fused_enhance.py:476", k1_ms, k1_plain_ms, k1_b),
         row("fused_curve_enhance (K3)", "k3", "fused_enhance.cu",
             "fused_enhance.py:257", k3_ms, k3_plain_ms, k3_b),
-        row("fused_retinex_ema (K4)", "k4", "fused_enhance.cu",
+        row("fused_retinex_ema (K4)", "k4", "retinex_tile.cu",
             "fused_enhance.py:350", *video_ms["K4 1920x1080 b1"][-1]),
         row("tiled_denoise (K5)", "k5", "tiled_denoise.cu",
             "tiled_denoise.py:42", k5_t, k5_plain_ms, k5_b),
@@ -1582,7 +1631,7 @@ def main() -> int:
             "mxu_conv.py:288", k6b_ms, k6b_plain_ms, k6b_b, k6b_lib_ms),
         row("fcn_cascade_mxu (K7)", "k7", "fcn_cascade.cu",
             "fcn_cascade.py:169", k7_ms, k7_plain_ms, k7_b),
-        row("enhance_hwc_u8 (K8)", "k8", "fused_enhance.cu",
+        row("enhance_hwc_u8 (K8)", "k8", "retinex_tile.cu",
             "fused_enhance_hwc.py:178", k8_ms, k8_plain_ms, k8_b),
         row("blur_illumination (K1/K3/K4 blur past the tiles)", "kb",
             "fused_enhance.cu", "fused_enhance.py:146", kb_ms, kb_plain_ms,

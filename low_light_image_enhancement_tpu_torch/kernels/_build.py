@@ -90,6 +90,7 @@ _SIGNATURES = {
         _P,                          # stream
     ],
     "llie_conv_plan": [_I, _I, _I, _I],  # ca, cb, cout, dilation
+    "llie_retinex_tile_plan": [_I, _I, _I],  # family, radius, what
     "llie_fcn_cascade": [
         _P, _P, _P, _P, _P,          # x, scratch, out, packed w, biases
         ctypes.POINTER(_I), _I, _I,  # dilations, layers, channels

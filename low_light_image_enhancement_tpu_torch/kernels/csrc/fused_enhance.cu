@@ -1,55 +1,40 @@
-// Fused enhance kernels for Hopper (sm_90a): K1 (retinex), K3 (curve /
-// hybrid tail) and K4 (the retinex video step), bound to PyTorch through
-// ctypes (kernels/fused_enhance.py).
+// Fused enhance kernels for Hopper (sm_90a): K3 (curve / hybrid tail), K1's
+// gain form and the blur of radii past the tiles, bound to PyTorch through
+// ctypes (kernels/fused_enhance.py). K1 and K4 are retinex_tile.cu.
 //
-// What they replace. K1 replaces the TPU kernel fused_retinex ->
-// _retinex_kernel (low_light_image_enhancement_tpu/kernels/fused_enhance.py,
-// the non-EMA branch), and its ext_gain arm; K3 replaces fused_curve_enhance
-// -> _curve_kernel in the same file, with maps at 1/1, 1/2 and 1/4 and the
-// ext_gain arm; K4 replaces fused_retinex_ema -> _retinex_kernel(ema_alpha).
-// K1's gain form is K3's kernel with the gain and no curve iteration: the
-// TPU kernel's two ext_gain arms compute the same thing. This file holds
-// the bilateral tails (and no tail); the guided tails of all three are
-// fused_guided.cu.
+// What they replace. K3 replaces the TPU kernel fused_curve_enhance ->
+// _curve_kernel (low_light_image_enhancement_tpu/kernels/fused_enhance.py),
+// with maps at 1/1, 1/2 and 1/4 and the ext_gain arm; K1's gain form is
+// K3's kernel with the gain and no curve iteration: the TPU kernel's two
+// ext_gain arms (_retinex_kernel's and _curve_kernel's) compute the same
+// thing. This file holds the bilateral tails (and no tail); the guided
+// tails are fused_guided.cu.
 //
 // Forms. Every kernel reads and writes u8 or f32 (a template parameter on
 // the loads and the store: f32 in [0, 1] in, clipped and not quantized
-// out). K1's stages (blur, boost, denoise) are template flags. Blur radii
-// up to MAX_BLUR_RADIUS run on the tile, the taps in the launch's
-// parameters; a wider blur runs first as blur_vertical_kernel and
+// out). Blur radii up to MAX_BLUR_RADIUS run on the tile, the taps in the
+// launch's parameters; a wider blur runs first as blur_vertical_kernel and
 // blur_horizontal_kernel into an f32 illumination plane (the taps in a
-// device buffer), which the kernels' LPLANE forms read in place of their
-// own blur: the same sums in the same order, so the result is the same.
+// device buffer), which the kernels' LPLANE forms (here and in
+// retinex_tile.cu) read in place of their own blur: the same sums in the
+// same order, so the result is the same.
 //
-// What bounds them. All are stencils of a few hundred float operations per
-// pixel on data that is read once. K1 moves 3 bytes in and 3 bytes out per
-// pixel, too few for device memory to be its limit: the exp/log of the
-// boost and the range weights' exps (6 of them in the default separable
-// joint bilateral, 27 in the full per-channel one) bound it. K3 reads 3
-// bytes plus n_iter * 3 float maps (96 bytes at n_iter 8) and writes 3 bytes
-// per pixel, so device memory bounds it; with maps at 1/4 it reads 6 map
-// bytes a pixel and the exp/log-free curve arithmetic (plus the upsample's
-// 4 taps and 6 operations per map value) bounds it. K4 moves 7 bytes in
-// (u8 RGB, the f32 carry) and 7 out (u8 RGB, the new carry) per pixel and
-// adds one exp and two logs to K1's work: with the carry, device memory
-// bounds it, by a small margin over its operations.
+// What bounds them. K3 reads 3 bytes plus n_iter * 3 float maps (96 bytes
+// at n_iter 8) and writes 3 bytes per pixel, so device memory bounds it;
+// with maps at 1/4 it reads 6 map bytes a pixel and the exp/log-free curve
+// arithmetic (plus the upsample's 4 taps and 6 operations per map value)
+// bounds it.
 //
 // What the design does about it. One thread per output pixel on a 16 x 32
 // tile. The tile's input and its halo are staged once in shared memory (a
-// halo of 1 + R for K1, 1 for the curve tail and 1 + R for hybrid, R the
-// blur radius), and every intermediate (max RGB, the vertical blur, the
-// gain, the boosted and curved planes, the first pass of the separable
-// bilateral) stays there, so device memory sees each input byte once per
-// tile plus the halo's overlap. K1 reads u8 HWC and writes u8 HWC directly:
-// the transpose, pad, crop and transpose around the TPU kernel fold into
-// its clamped reads. K3 reads each map value where the curve step needs it;
-// at 1/ds it reads the four low-res taps of the upsample through the cache
-// instead of a full-resolution map. K4 tiles the carry's band [m, HB - m)
-// rather than the output rows, computes l_mix on the ring tile from the
-// carry read there, writes it for its own pixels (and the band's edge rows
-// over the m rows beyond them), and its output rows. Speed (tensor-memory
-// loads, more pixels per thread) is later work; this version is held to its
-// plain PyTorch version.
+// halo of 1 for the curve tail and 1 + R for hybrid, R the blur radius),
+// and every intermediate (max RGB, the vertical blur, the gain, the boosted
+// and curved planes, the first pass of the separable bilateral) stays
+// there, so device memory sees each input byte once per tile plus the
+// halo's overlap. K3 reads each map value where the curve step needs it; at
+// 1/ds it reads the four low-res taps of the upsample through the cache
+// instead of a full-resolution map. More pixels per thread, as
+// retinex_tile.cuh does for K1 and K4, is later work here.
 //
 // Numerics. --fmad=false and no --use_fast_math (see _build.py), rintf for
 // round-half-even, u8 -> f32 as (float)(int)v * (1/255). The intermediates
@@ -59,82 +44,6 @@
 #include "fused_enhance.cuh"
 
 namespace llie {
-
-// K1: (B, H, W, 3) T -> (B, H, W, 3) T, T uint8_t or float. STAGES:
-// STAGE_* flags. LPLANE: the blurred illumination is read from lp, (B, H
-// + 2, W + 2) with image pixel (y, x) at (y + 1, x + 1), instead of being
-// blurred on the tile.
-template <class T, int STAGES, bool LPLANE>
-__global__ void __launch_bounds__(NTHREADS)
-retinex_kernel(const T* __restrict__ in, T* __restrict__ out,
-               const float* __restrict__ lp, int H, int W, BoostParams bp,
-               TailParams tp) {
-  constexpr bool BLUR = STAGES & STAGE_BLUR, BOOST = STAGES & STAGE_BOOST;
-  constexpr bool GAIN = BLUR || BOOST;
-  constexpr bool INBLUR = BLUR && !LPLANE;  // the blur runs on the tile
-  extern __shared__ float smem[];
-  const int R = INBLUR ? bp.radius : 0;
-  const int LH = YH + 2 * R, LW = YW + 2 * R;
-  float* sL0 = smem;            // LH x LW: max RGB
-  float* sV = sL0 + LH * LW;    // YH x LW: vertical blur
-  float* sG = sV + YH * LW;     // YH x YW: gain
-  float* sY = sG + YN;          // 3 x YH x YW: x, then the boosted y
-  float* sP = sY + 3 * YN;      // 3 x TILE_H x YW: separable pass 1
-
-  const int tid = threadIdx.x;
-  const int ty = tid / TILE_W, tx = tid - (tid / TILE_W) * TILE_W;
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
-  const T* img = in + (size_t)blockIdx.z * H * W * 3;
-
-  for (int e = tid; e < LH * LW; e += NTHREADS) {
-    const int i = e / LW, j = e - (e / LW) * LW;
-    const int gy = clampi(y0 - 1 - R + i, 0, H - 1);
-    const int gx = clampi(x0 - 1 - R + j, 0, W - 1);
-    const T* px = img + ((size_t)gy * W + gx) * 3;
-    const float r = load_px(px);
-    const float g = load_px(px + 1);
-    const float b = load_px(px + 2);
-    if constexpr (INBLUR) sL0[e] = fmaxf(fmaxf(r, g), b);
-    const int yi = i - R, yj = j - R;
-    if (yi >= 0 && yi < YH && yj >= 0 && yj < YW) {
-      const int ye = yi * YW + yj;
-      sY[ye] = r;
-      sY[YN + ye] = g;
-      sY[2 * YN + ye] = b;
-      if constexpr (GAIN && !INBLUR) {
-        float l = fmaxf(fmaxf(r, g), b);
-        if constexpr (LPLANE)
-          l = lp[((size_t)blockIdx.z * (H + 2) + clampi(y0 + yi, 0, H + 1))
-                     * (W + 2) + clampi(x0 + yj, 0, W + 1)];
-        sG[ye] = boost_gain(l, bp, BOOST);
-      }
-    }
-  }
-  __syncthreads();
-  if constexpr (INBLUR)
-    blur_tile(sL0, sV, bp, tid,
-              [&](int e, float l) { sG[e] = boost_gain(l, bp, BOOST); });
-  if constexpr (GAIN) {
-    for (int e = tid; e < YN; e += NTHREADS) {
-      const float gain = sG[e];
-      for (int c = 0; c < 3; ++c)
-        sY[c * YN + e] = clip01(sY[c * YN + e] * gain);
-    }
-    __syncthreads();
-  }
-
-  float o[3];
-  if constexpr ((STAGES & STAGE_DENOISE) != 0) {
-    denoise_tile(sY, sP, tp, tid, ty, tx, o);
-  } else {
-    for (int c = 0; c < 3; ++c) o[c] = sY[c * YN + (ty + 1) * YW + tx + 1];
-  }
-  const int gy = y0 + ty, gx = x0 + tx;
-  if (gy < H && gx < W) {
-    T* q = out + (((size_t)blockIdx.z * H + gy) * W + gx) * 3;
-    for (int c = 0; c < 3; ++c) store_px(q + c, o[c]);
-  }
-}
 
 // K3: block (B, 3, HB, WB) T + maps (B, n_iter, 3, HB/DS, WB/DS) f32 ->
 // (B, 3, rows, WB) T, output row r <-> block row halo + r. With `boost`
@@ -243,101 +152,6 @@ curve_kernel(const T* __restrict__ in, const float* __restrict__ maps,
   }
 }
 
-// K4: block (B, 3, HB, WB) T + carry (B, HB, WB) f32 -> (B, 3, rows, WB)
-// T, output row r <-> block row halo + r, and the new carry (B, HB, WB).
-// The tiles cover the band [m, HB - m): ring-tile position (i, j) <-> block
-// (m + y0 - 1 + i, x0 - 1 + j). A negative carry marks a pixel with no
-// state yet: it takes l_now. LPLANE: l_now is read from lp, (B, HB, WB).
-template <class T, bool LPLANE>
-__global__ void __launch_bounds__(NTHREADS)
-ema_kernel(const T* __restrict__ in, const float* __restrict__ carry,
-           const float* __restrict__ lp, T* __restrict__ out,
-           float* __restrict__ ncarry, int HB, int WB, int halo, int rows,
-           int m, int img_w, EmaParams ep, BoostParams bp, TailParams tp) {
-  extern __shared__ float smem[];
-  const int R = LPLANE ? 0 : bp.radius;
-  const int LH = YH + 2 * R, LW = YW + 2 * R;
-  float* sL0 = smem;            // LH x LW: max RGB
-  float* sV = sL0 + LH * LW;    // YH x LW: vertical blur
-  float* sG = sV + YH * LW;     // YH x YW: gain
-  float* sY = sG + YN;          // 3 x YH x YW: x, then y = clip(x * gain)
-  float* sP = sY + 3 * YN;      // 3 x TILE_H x YW: separable pass 1
-
-  const int tid = threadIdx.x;
-  const int ty = tid / TILE_W, tx = tid - (tid / TILE_W) * TILE_W;
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
-  const size_t plane = (size_t)HB * WB;
-  const T* blk = in + (size_t)blockIdx.z * 3 * plane;
-  const float* cp = carry + (size_t)blockIdx.z * plane;
-  float* np = ncarry + (size_t)blockIdx.z * plane;
-  const int r0 = m + y0 - 1, c0 = x0 - 1;
-  const int band_end = HB - m;
-
-  for (int e = tid; e < LH * LW; e += NTHREADS) {
-    const int i = e / LW, j = e - (e / LW) * LW;
-    const size_t at = (size_t)clampi(r0 - R + i, 0, HB - 1) * WB
-                      + clampi(c0 - R + j, 0, WB - 1);
-    const float r = load_px(blk + at);
-    const float g = load_px(blk + plane + at);
-    const float b = load_px(blk + 2 * plane + at);
-    if constexpr (!LPLANE) sL0[e] = fmaxf(fmaxf(r, g), b);
-    const int yi = i - R, yj = j - R;
-    if (yi >= 0 && yi < YH && yj >= 0 && yj < YW) {
-      const int ye = yi * YW + yj;
-      sY[ye] = r;
-      sY[YN + ye] = g;
-      sY[2 * YN + ye] = b;
-    }
-  }
-  __syncthreads();
-  auto ema = [&](int e, float l_now) {
-    const int i = e / YW, j = e - (e / YW) * YW;
-    const int row = r0 + i, col = c0 + j;
-    const float c = cp[(size_t)clampi(row, 0, HB - 1) * WB
-                       + clampi(col, 0, WB - 1)];
-    const float l_mix = c < 0.0f ? l_now : ep.alpha * l_now + ep.beta * c;
-    sG[e] = expf(ep.gamma * logf(fminf(fmaxf(l_mix, bp.eps), 1.0f))
-                 - logf(fminf(fmaxf(l_now, bp.eps), 1.0f)));
-    // the tile's own pixels on the band write the new carry; the band's
-    // first and last rows also fill the m rows beyond them
-    if (i >= 1 && i <= TILE_H && j >= 1 && j <= TILE_W && row < band_end
-        && col < WB) {
-      np[(size_t)row * WB + col] = l_mix;
-      if (row == m)
-        for (int k = 0; k < m; ++k) np[(size_t)k * WB + col] = l_mix;
-      if (row == band_end - 1)
-        for (int k = band_end; k < HB; ++k) np[(size_t)k * WB + col] = l_mix;
-    }
-  };
-  if constexpr (LPLANE) {
-    const float* lq = lp + (size_t)blockIdx.z * plane;
-    for (int e = tid; e < YN; e += NTHREADS) {
-      const int i = e / YW, j = e - (e / YW) * YW;
-      ema(e, lq[(size_t)clampi(r0 + i, 0, HB - 1) * WB
-                + clampi(c0 + j, 0, WB - 1)]);
-    }
-    __syncthreads();
-  } else {
-    blur_tile(sL0, sV, bp, tid, ema);
-  }
-  for (int e = tid; e < YN; e += NTHREADS) {
-    const int i = e / YW, j = e - (e / YW) * YW;
-    // the gain of the nearest image column (_kreplicate_cols)
-    const int jr = clampi(clampi(c0 + j, m, m + img_w - 1) - c0, 0, YW - 1);
-    const float gain = sG[i * YW + jr];
-    for (int c = 0; c < 3; ++c) sY[c * YN + e] = clip01(sY[c * YN + e] * gain);
-  }
-  __syncthreads();
-
-  float o[3];
-  denoise_tile(sY, sP, tp, tid, ty, tx, o);
-  const int r = m + y0 + ty - halo, c = x0 + tx;
-  if (r >= 0 && r < rows && c < WB) {
-    T* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
-    for (int ch = 0; ch < 3; ++ch) store_px(q + (size_t)ch * rows * WB, o[ch]);
-  }
-}
-
 // The illumination of blur radii past MAX_BLUR_RADIUS, for the LPLANE
 // forms (and the guided tails'): L = blur(max RGB) on an (H + 2e) x (W +
 // 2e) grid, grid (Y, X) <-> pixel (Y - e, X - e) of the (B, H, W, 3) image
@@ -400,79 +214,11 @@ blur_horizontal_kernel(const float* __restrict__ v, float* __restrict__ l,
   }
 }
 
-static BoostParams boost_params(int radius, const float* taps, float gm1,
-                                float eps) {
-  BoostParams bp = {};
-  // a radius past MAX_BLUR_RADIUS is blurred into a plane first
-  bp.radius = radius <= MAX_BLUR_RADIUS ? radius : 0;
-  for (int k = 0; k <= 2 * bp.radius; ++k) bp.taps[k] = taps[k];
-  bp.gm1 = gm1;
-  bp.eps = eps;
-  return bp;
-}
-
-static TailParams tail_params(float strength, float inv2s2, float inv2s2_3,
-                              int kind, int joint, int sep) {
-  TailParams tp;
-  tp.strength = strength;
-  tp.inv2s2 = inv2s2;
-  tp.inv2s2_3 = inv2s2_3;
-  tp.kind = kind;
-  tp.joint = joint;
-  tp.sep = sep;
-  return tp;
-}
-
 // The kernel of one form: instantiated for both I/O types.
 template <template <class> class Form, class... Args>
 int launch_io(int f32, Args... args) {
   return f32 ? Form<float>::run(args...) : Form<uint8_t>::run(args...);
 }
-
-template <class T>
-struct RetinexForm {
-  template <int STAGES, bool LPLANE>
-  static void go(const dim3& grid, size_t smem, cudaStream_t st,
-                 const void* in, void* out, const float* lp, int H, int W,
-                 const BoostParams& bp, const TailParams& tp) {
-    retinex_kernel<T, STAGES, LPLANE><<<grid, NTHREADS, smem, st>>>(
-        (const T*)in, (T*)out, lp, H, W, bp, tp);
-  }
-  static int run(const void* in, void* out, const float* lp, int B, int H,
-                 int W, int stages, const BoostParams& bp,
-                 const TailParams& tp, cudaStream_t st) {
-    const int R = (stages & STAGE_BLUR) && !lp ? bp.radius : 0;
-    const int LH = YH + 2 * R, LW = YW + 2 * R;
-    const size_t smem =
-        sizeof(float) * (LH * LW + YH * LW + YN + 3 * YN + 3 * PN);
-    const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
-    if (lp) {
-      switch (stages) {
-        case 1: go<1, true>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
-        case 3: go<3, true>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
-        case 5: go<5, true>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
-        case 7: go<7, true>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
-        default: return (int)cudaErrorInvalidValue;
-      }
-      return (int)cudaGetLastError();
-    }
-    switch (stages) {
-#define LLIE_STAGES_CASE(S) \
-  case S: go<S, false>(grid, smem, st, in, out, lp, H, W, bp, tp); break;
-      LLIE_STAGES_CASE(0)
-      LLIE_STAGES_CASE(1)
-      LLIE_STAGES_CASE(2)
-      LLIE_STAGES_CASE(3)
-      LLIE_STAGES_CASE(4)
-      LLIE_STAGES_CASE(5)
-      LLIE_STAGES_CASE(6)
-      LLIE_STAGES_CASE(7)
-#undef LLIE_STAGES_CASE
-      default: return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
-  }
-};
 
 template <class T>
 struct CurveForm {
@@ -497,27 +243,6 @@ struct CurveForm {
     kernel<<<grid, NTHREADS, smem, st>>>(
         (const T*)in, (const float*)maps, (const float*)gain, lp, (T*)out,
         HB, WB, halo, rows, n_iter, boost, m, img_w, up, bp, tp);
-    return (int)cudaGetLastError();
-  }
-};
-
-template <class T>
-struct EmaForm {
-  static int run(const void* in, const void* carry, const float* lp,
-                 void* out, void* ncarry, int B, int HB, int WB, int halo,
-                 int rows, int m, int img_w, const EmaParams& ep,
-                 const BoostParams& bp, const TailParams& tp,
-                 cudaStream_t st) {
-    const int R = lp ? 0 : bp.radius;
-    const int LH = YH + 2 * R, LW = YW + 2 * R;
-    const size_t smem =
-        sizeof(float) * (LH * LW + YH * LW + YN + 3 * YN + 3 * PN);
-    const dim3 grid((WB + TILE_W - 1) / TILE_W,
-                    (HB - 2 * m + TILE_H - 1) / TILE_H, B);
-    auto kernel = lp ? ema_kernel<T, true> : ema_kernel<T, false>;
-    kernel<<<grid, NTHREADS, smem, st>>>(
-        (const T*)in, (const float*)carry, lp, (T*)out, (float*)ncarry, HB,
-        WB, halo, rows, m, img_w, ep, bp, tp);
     return (int)cudaGetLastError();
   }
 };
@@ -550,31 +275,6 @@ struct BlurForm {
 using namespace llie;
 
 extern "C" {
-
-const char* llie_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-// K1. `in`/`out` (B, H, W, 3), u8 or (`f32` 1) f32. `stages`: STAGE_*
-// flags. `taps` is a host array of 2 * radius + 1 floats, read when radius
-// <= MAX_BLUR_RADIUS; a wider blur comes in `lp` (B, H + 2, W + 2) from
-// llie_blur_illumination at e 1 (NULL otherwise). Returns
-// cudaGetLastError() after the launch (0 when it was accepted).
-int llie_fused_retinex(const void* in, void* out, int f32, const float* lp,
-                       int B, int H, int W, int stages, int radius,
-                       const float* taps, float gm1, float eps,
-                       float strength, float inv2s2, float inv2s2_3, int kind,
-                       int joint, int sep, void* stream) {
-  if (radius < 1 || stages < 0 || stages > STAGES_ALL) 
-    return (int)cudaErrorInvalidValue;
-  if ((stages & STAGE_BLUR) && (radius > MAX_BLUR_RADIUS) != (lp != nullptr))
-    return (int)cudaErrorInvalidValue;
-  const BoostParams bp = boost_params(radius, taps, gm1, eps);
-  const TailParams tp = tail_params(strength, inv2s2, inv2s2_3, kind, joint, sep);
-  return launch_io<RetinexForm>(f32, in, out,
-                                (stages & STAGE_BLUR) ? lp : nullptr, B, H,
-                                W, stages, bp, tp, (cudaStream_t)stream);
-}
 
 // K3. `phases` is a host array of 8 floats: upsample_int's phase weights
 // for ds (ops.filters._phase_consts). `gain` may be NULL; `lp` (B, HB, WB)
@@ -614,30 +314,6 @@ int llie_fused_retinex_gain(const void* in, const void* gain, void* out,
                               (const float*)nullptr, out, B, HB, WB, halo,
                               rows, 0, 0, 0, 1, 1, up, bp, tp,
                               (cudaStream_t)stream);
-}
-
-// K4. `alpha` and `beta` = 1 - alpha are each rounded once from double by
-// the caller; `taps` is a host array of 2 * radius + 1 floats, read when
-// radius <= MAX_BLUR_RADIUS; a wider blur comes as l_now in `lp` (B, HB,
-// WB) from llie_blur_illumination (NULL otherwise).
-int llie_fused_retinex_ema(const void* in, const void* carry, const float* lp,
-                           void* out, void* ncarry, int f32, int B, int HB,
-                           int WB, int halo, int rows, int m, int img_w,
-                           float alpha, float beta, float gamma, int radius,
-                           const float* taps, float eps, float strength,
-                           float inv2s2, float inv2s2_3, int kind, int joint,
-                           int sep, void* stream) {
-  if (radius < 1 || (radius > MAX_BLUR_RADIUS) != (lp != nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (m < 1 || HB <= 2 * m) return (int)cudaErrorInvalidValue;
-  const BoostParams bp = boost_params(radius, taps, 0.0f, eps);
-  const TailParams tp = tail_params(strength, inv2s2, inv2s2_3, kind, joint, sep);
-  EmaParams ep;
-  ep.alpha = alpha;
-  ep.beta = beta;
-  ep.gamma = gamma;
-  return launch_io<EmaForm>(f32, in, carry, lp, out, ncarry, B, HB, WB, halo,
-                            rows, m, img_w, ep, bp, tp, (cudaStream_t)stream);
 }
 
 // The blurred illumination of a radius past MAX_BLUR_RADIUS: `in` the

@@ -1,9 +1,9 @@
-// Device code shared by the fused retinex kernel (K1), the fused curve
-// tail (K3) and the fused video step (K4): the illumination blur and boost
-// and the bilateral denoise tail, on a 2-D output tile of TILE_H x TILE_W
-// pixels, one thread per output pixel; the u8 and f32 loads and stores
-// and the stage flags of K1. The guided tails (fused_guided.cu) stage
-// their tiles with blur_region and run guided.cuh.
+// Device code shared by the fused curve tail (K3, its gain form) and the
+// guided tails (fused_guided.cu), and the parameter structs and I/O helpers
+// of K1 and K4 (retinex_tile.cuh): the illumination blur and boost and the
+// bilateral denoise tail on a 2-D output tile of TILE_H x TILE_W pixels, one
+// thread per output pixel; the u8 and f32 loads and stores. The guided
+// tails stage their tiles with blur_region and run guided.cuh.
 //
 // The arithmetic repeats the plain PyTorch versions (ops/filters.py,
 // ops/denoise.py, core.py) operation for operation: the same tap order,
@@ -35,9 +35,10 @@ constexpr int PN = TILE_H * YW;
 
 constexpr float U8_SCALE = 1.0f / 255.0f;
 
-// K1's stages (the JAX kernel's `stages`): without BLUR the illumination
-// is max RGB itself, without BOOST the gain is the clipped illumination
-// (no exp/log), without either y = x; without DENOISE no tail runs.
+// K1's stages (the JAX kernel's `stages`; retinex_tile.cu, fused_guided.cu):
+// without BLUR the illumination is max RGB itself, without BOOST the gain
+// is the clipped illumination (no exp/log), without either y = x; without
+// DENOISE no tail runs.
 constexpr int STAGE_BLUR = 1;
 constexpr int STAGE_BOOST = 2;
 constexpr int STAGE_DENOISE = 4;
@@ -73,6 +74,30 @@ struct TailParams {
   int joint;       // 1: luma-guided joint bilateral, 0: per channel
   int sep;         // 1: separable 3+3 taps, 0: full 3x3
 };
+
+// The launch parameters from the C interfaces' arguments (host code).
+inline BoostParams boost_params(int radius, const float* taps, float gm1,
+                                float eps) {
+  BoostParams bp = {};
+  // a radius past MAX_BLUR_RADIUS is blurred into a plane first
+  bp.radius = radius <= MAX_BLUR_RADIUS ? radius : 0;
+  for (int k = 0; k <= 2 * bp.radius; ++k) bp.taps[k] = taps[k];
+  bp.gm1 = gm1;
+  bp.eps = eps;
+  return bp;
+}
+
+inline TailParams tail_params(float strength, float inv2s2, float inv2s2_3,
+                              int kind, int joint, int sep) {
+  TailParams tp;
+  tp.strength = strength;
+  tp.inv2s2 = inv2s2;
+  tp.inv2s2_3 = inv2s2_3;
+  tp.kind = kind;
+  tp.joint = joint;
+  tp.sep = sep;
+  return tp;
+}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);

@@ -3,8 +3,10 @@ retinex video step): wrappers, plain PyTorch versions and launch counts.
 
 Each wrapper dispatches on the device of its input alone: a CPU tensor goes
 to the plain version, a CUDA tensor to the hand-written kernels in
-``csrc/fused_enhance.cu`` (the bilateral tails, or none) and
-``csrc/fused_guided.cu`` (the guided tails), or the call raises.
+``csrc/retinex_tile.cu`` (K1 and K4 with the bilateral tails, or none, on
+the tile engine of ``csrc/retinex_tile.cuh``), ``csrc/fused_enhance.cu``
+(K3 and K1's gain form, the same tails) and ``csrc/fused_guided.cu`` (the
+guided tails), or the call raises.
 ``<wrapper>.launches`` counts the kernel launches, and nothing else.
 
 Every form of the JAX kernels runs: u8 or f32 I/O (f32 in [0, 1], clipped

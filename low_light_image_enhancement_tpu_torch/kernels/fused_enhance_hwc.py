@@ -4,9 +4,9 @@ version and launch count.
 ``enhance_hwc_u8`` replaces the JAX package's
 ``kernels/fused_enhance_hwc.py::enhance_hwc_u8`` (``fused_retinex_hwc`` ->
 ``_retinex_hwc_kernel``), which runs K1's graph on (H, 3W) u8 rows so that
-no transpose is needed. K1's CUDA kernel (``csrc/fused_enhance.cu``,
-``retinex_kernel``) already reads and writes u8 HWC in place, so K8 is that
-kernel in the per-channel, full-3x3 configuration the JAX function
+no transpose is needed. K1's CUDA kernel (``csrc/retinex_tile.cu``,
+``retinex_tile_kernel``) already reads and writes u8 HWC in place, so K8 is
+that kernel in the per-channel, full-3x3 configuration the JAX function
 implements, behind its own wrapper and launch count. Like the JAX function,
 it raises for the other denoise guides and taps, and takes u8 alone. A
 blur radius past ``MAX_BLUR_RADIUS`` is blurred first into a plane

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""K1/K4's tile engine (``csrc/retinex_tile.cu``): what its compiler says.
+
+``nvcc -Xptxas -v`` of the sources that hold K1, K4 and K3 (this tree's
+``csrc/retinex_tile.cu`` and ``csrc/fused_enhance.cu``; copied into an
+older tree, whichever of them it has): registers, stack frame, spills and
+shared memory of each kernel. A tile kernel with a stack frame or a spill
+fails the probe. The kernels' agreement with their plain versions and the
+plan's with its CPU mirror are ``chip_smoke.py``'s; their times are
+``tools/time_fused.py``'s.
+
+``--sass FILE`` instead writes the SASS of the built library's tile
+kernels (``cuobjdump -sass``) to FILE, for reading off the card.
+
+Needs a CUDA card and nvcc; run from the root of a tree:
+``python3 tools/probe_tile.py``.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from low_light_image_enhancement_tpu_torch.kernels import (  # noqa: E402
+    _build,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _demangle(names):
+    tool = Path(_build.find_nvcc()).with_name("cu++filt")
+    if not tool.exists() and not shutil.which("c++filt"):
+        return {n: n for n in names}
+    cmd = [str(tool)] if tool.exists() else ["c++filt"]
+    out = subprocess.run(cmd, input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {
+        n: n for n in names}
+
+
+def compiler_report() -> None:
+    """ptxas -v of the sources holding K1, K4 and K3, compiled at once."""
+    names = [n for n in ("retinex_tile.cu", "fused_enhance.cu")
+             if (_build._CSRC / n).exists()]
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        procs = [(n, subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             "-o", str(Path(tmp) / f"{n}.o"), str(_build._CSRC / n)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for n in names]
+        reports = [(n, p.communicate(timeout=1200)[1]) for n, p in procs]
+    bad = []
+    for name, err in reports:
+        props, fn = {}, None
+        for line in err.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line)
+            if m:
+                fn = m.group(1)
+                props.setdefault(fn, [])
+            elif fn and ("stack frame" in line or "registers" in line):
+                props[fn].append(line.split("info    :")[-1].strip())
+            elif "arning" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+        pretty = _demangle(list(props))
+        for fn, lines in props.items():
+            short = pretty[fn]
+            if not re.search(r"retinex|ema|curve", short):
+                continue
+            short = short.split(">(")[0].replace("llie::", "") + ">"
+            print(f"  ptxas {name} {short}: {' | '.join(lines)}")
+            if "tile::" in pretty[fn]:
+                text = " ".join(lines)
+                frame = re.search(r"(\d+) bytes stack frame", text)
+                spill = re.findall(r"(\d+) bytes spill", text)
+                if (frame and int(frame.group(1))) or any(
+                        int(s) for s in spill):
+                    bad.append(short)
+    if bad:
+        raise AssertionError(f"stack or spills in {', '.join(bad)}")
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("probe_tile: CUDA is not available", file=sys.stderr)
+        return 1
+    print(f"{card_line()} | torch {torch.__version__} | {ROOT}")
+    if argv[:1] == ["--sass"]:
+        _build.load_library()
+        dump = Path(_build.find_nvcc()).with_name("cuobjdump")
+        sass = subprocess.run([str(dump), "-sass", str(_build.library_path())],
+                              capture_output=True, text=True,
+                              timeout=600).stdout
+        keep, out = False, []
+        for line in sass.splitlines():
+            if "Function :" in line:
+                keep = "tile" in line
+            if keep:
+                out.append(line)
+        Path(argv[1]).write_text("\n".join(out) + "\n")
+        print(f"  {len(out)} lines of tile kernels' SASS -> {argv[1]}")
+        return 0
+    t0 = time.perf_counter()
+    compiler_report()
+    print(f"  ptxas report {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
