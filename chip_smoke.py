@@ -25,8 +25,8 @@ curve_features 640 (K6 streaming its weights by piece group).
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
   2. the kernel build from the sources in the checkout (nvcc, sm_90a),
-     and the tile plan of K1/K4 (llie_retinex_tile_plan) against its CPU
-     mirror in tests/test_torch_retinex_tile.py;
+     and the tile plan of K1/K4/K3 (llie_retinex_tile_plan) against its
+     CPU mirror in tests/test_torch_retinex_tile.py;
   3. each kernel (K1 fused_retinex and its gain form, K3
      fused_curve_enhance with maps at 1/1, 1/2, 1/4 and with the gain
      plane, K4 fused_retinex_ema over chained frames, K5 tiled_denoise, K8
@@ -47,10 +47,13 @@ Phases (each raises on failure, so the script exits non-zero):
      the forms of K1, K3 and K4 beyond the default ones against their plain
      versions (the guided tail at r 2 and 4 in both guides, f32 I/O, blur
      radii 9, 16 and 32, K1's every stages subset; f32 within 1e-5), the
-     edges of K1/K4's 32 x 64 tile (one tile and one tile + 1, widths off
-     a multiple of 4 and of 64, 1-pixel-wide and -tall images, radii 1, 8
-     and 9; K4 over 4 chained frames with a stream re-seeded at those
-     sizes), K6 at 640+640->640,
+     edges of the 32 x 64 tile of K1/K4/K3 (one tile and one tile + 1,
+     widths off a multiple of 4 and of 64, 1-pixel-wide and -tall images,
+     radii 1, 8 and 9; K4 over 4 chained frames with a stream re-seeded at
+     those sizes; K3 at ds 1, 2 and 4, also with curve_iters 4 and 16,
+     strength 0, f32, the per-channel full tail, blur r 8 and 16, each with
+     and without the gain plane; K3 and K1's gain form bit-equal to their
+     plain versions), K6 at 640+640->640,
      1024+1024->24 and 1024->24 at d 64 (streamed weights) against float64
      sums within one bf16 step or the f32 sum's rounding; then
      each kernel's time beside its plain version's, its bound and (K6) one
@@ -416,17 +419,19 @@ def main() -> int:
     _build.load_library()
     print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s -> "
           f"{lib_path.name}")
-    # the tile plan of K1/K4 (retinex_tile.cuh) against its CPU mirror
+    # the tile plan of K1/K4/K3 (retinex_tile.cuh) against its CPU mirror
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from test_torch_retinex_tile import tile_plan
     lib = _build.load_library()
-    bad = [(f, r, w) for f in (0, 1) for r in range(9) for w in range(6)
+    bad = [(f, r, w) for f in (0, 1, 2, 3) for r in range(10)
+           for w in range(12)
            if lib.llie_retinex_tile_plan(f, r, w) != tile_plan(f, r, w)]
     if bad:
         raise AssertionError(f"llie_retinex_tile_plan differs from its "
                              f"mirror at {bad}")
-    print("  llie_retinex_tile_plan equals its CPU mirror (K1 and K4, "
-          "radii 0-8, 6 values each)")
+    print("  llie_retinex_tile_plan equals its CPU mirror (K1, K4 and K3, "
+          "radii 0-8, 11 values each: K3's curve strips and the low-res "
+          "rows they blend at ds 2 and 4; out-of-range arguments)")
 
     dev = torch.device("cuda")
     cfg0 = llt.PipelineConfig()
@@ -549,6 +554,68 @@ def main() -> int:
         err["k3"] = max(err["k3"], st["max_abs"])
         del xb, maps, got, want
 
+    # edges of K3's 32 x 64 tile (curve_tile.cu) at every ds: one tile and
+    # one tile + 1, widths off a multiple of 4 and of 64 (blocks whose
+    # planes are read a value at a time, or as words only where aligned),
+    # 1-pixel-tall images; curve_iters 4 and 16 (random maps), strength 0,
+    # f32, the per-channel full tail, blur r 8 (on the tile) and r 16 (its
+    # plane), and the gain plane with each
+    def rand_maps(xb, n_iter, ds, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        b, _, hb, wb = xb.shape
+        return torch.rand((b, n_iter, 3, hb // ds, wb // ds), generator=g,
+                          device=dev) * 2.0 - 1.0
+
+    k3_tile_cases = [(f"{c.method} ds{ds} {w}x{h} b{b}",
+                      c.replace(curve_downsample=ds), (b, h, w), None, False)
+                     for c in (hybrid, curve) for ds in (1, 2, 4)
+                     for b, h, w in ((1, 32, 64), (2, 33, 65), (1, 35, 263),
+                                     (2, 1, 130))]
+    k3_tile_cases += [
+        (f"{n} ds{ds} 263x35 b2", c.replace(curve_downsample=ds), (2, 35, 263),
+         it, f32)
+        for ds in (1, 2, 4)
+        for n, c, it, f32 in (
+            ("curve iters 4", curve, 4, False),
+            ("hybrid iters 16", hybrid, 16, False),
+            ("hybrid strength 0", hybrid.replace(denoise_strength=0.0), None,
+             False),
+            ("hybrid f32", hybrid, None, True),
+            ("hybrid perchannel/full", hybrid.replace(
+                denoise_guide="perchannel", denoise_taps="full"), None,
+             False),
+            ("hybrid luma/full/epan blur r8", hybrid.replace(
+                denoise_taps="full", denoise_kernel="epan", blur_radius=8,
+                blur_sigma=3.0), None, False),
+            ("hybrid blur r16 f32", hybrid.replace(
+                blur_radius=16, blur_sigma=5.0), None, True))]
+    for name, cfg, (b, h, w), n_iter, f32 in k3_tile_cases:
+        lows = synth_batch(b, h, w, seed=12)[0]
+        xb, maps, halo, rows, iw, m = curve_case(cfg, lows)
+        ds = kernel_maps_ds(cfg)
+        if n_iter:
+            maps = rand_maps(xb, n_iter, ds, b * h + w)
+        if f32:
+            xb = normalize_u8(xb)
+        for gain in (None, torch.rand_like(xb[:, 0], dtype=torch.float32)
+                     * 2.5 + 0.5):
+            got = fe.fused_curve_enhance(xb, maps, cfg, halo, rows, iw, ds=ds,
+                                         gain=gain)
+            want = fe.fused_curve_enhance_plain(xb, maps, cfg, halo, rows,
+                                                iw, ds, gain)
+            what = f"K3 {name}{'' if gain is None else ' + gain'}"
+            if f32:
+                d = float((got - want)[..., :h, m:m + iw].abs().max())
+                print(f"  {what}: max|df32|={d:.3e}")
+                if d:
+                    raise AssertionError(f"{what}: f32 off by {d}")
+                continue
+            st = delta_stats(got[..., :h, m:m + iw].cpu().numpy(),
+                             want[..., :h, m:m + iw].cpu().numpy())
+            check_bar(what, st)
+            err["k3"] = max(err["k3"], st["max_abs"])
+        del xb, maps, got, want
+
     def frames_of(base, t):
         """Frame t of a synthetic clip: the scene under a flickering
         exposure."""
@@ -603,6 +670,7 @@ def main() -> int:
         del xb, gain, maps, got, want
 
     # K1's gain form
+    gain_err = 0
     for b, h, w in ((1, 1080, 1920), (8, 400, 600)):
         xb, gain, _, halo, rows, iw, m = video_case(
             cfg0, synth_batch(b, h, w, seed=9)[0])
@@ -612,7 +680,12 @@ def main() -> int:
                          want[..., :h, m:m + iw].cpu().numpy())
         check_bar(f"K1 gain form {w}x{h} b{b}", st)
         err["k1"] = max(err["k1"], st["max_abs"])
+        gain_err = max(gain_err, st["max_abs"])
         del xb, gain, got, want
+    # K3 and K1's gain form (curve_tile.cu) equal their plain versions
+    if err["k3"] or gain_err:
+        raise AssertionError(f"K3 max|du8| {err['k3']}, K1's gain form "
+                             f"{gain_err}: not bit-equal")
 
     # K4 over chained frames, kernel and plain version each fed its own
     # carry: frame 1 starts from the all-sentinel carry; before frame 3
@@ -1619,7 +1692,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("fused_retinex (K1)", "k1", "retinex_tile.cu",
             "fused_enhance.py:476", k1_ms, k1_plain_ms, k1_b),
-        row("fused_curve_enhance (K3)", "k3", "fused_enhance.cu",
+        row("fused_curve_enhance (K3)", "k3", "curve_tile.cu",
             "fused_enhance.py:257", k3_ms, k3_plain_ms, k3_b),
         row("fused_retinex_ema (K4)", "k4", "retinex_tile.cu",
             "fused_enhance.py:350", *video_ms["K4 1920x1080 b1"][-1]),

@@ -1,9 +1,11 @@
-// Device code shared by the fused curve tail (K3, its gain form) and the
-// guided tails (fused_guided.cu), and the parameter structs and I/O helpers
-// of K1 and K4 (retinex_tile.cuh): the illumination blur and boost and the
-// bilateral denoise tail on a 2-D output tile of TILE_H x TILE_W pixels, one
-// thread per output pixel; the u8 and f32 loads and stores. The guided
-// tails stage their tiles with blur_region and run guided.cuh.
+// Device code shared by the guided tails (fused_guided.cu) and K5's
+// bilateral arm (tiled_denoise.cu), and the parameter structs and I/O
+// helpers of the tile engine (retinex_tile.cuh: K1, K3, K4): the
+// illumination blur of a region and the boost, the curve maps' upsample
+// taps, and the bilateral denoise tail on a 2-D output tile of TILE_H x
+// TILE_W pixels, one thread per output pixel; the u8 and f32 loads and
+// stores. The guided tails stage their tiles with blur_region and run
+// guided.cuh.
 //
 // The arithmetic repeats the plain PyTorch versions (ops/filters.py,
 // ops/denoise.py, core.py) operation for operation: the same tap order,
@@ -53,7 +55,8 @@ struct BoostParams {
 
 // Curve maps at 1/ds (K3; ds is the kernel's template argument):
 // upsample_int's phase weights by index mod ds, each rounded once from
-// double on the host.
+// double on the host; K3 (curve_tile.cu) also carries each weight's 1 - f
+// at f[4 + p] (ds <= 4), the guided tails read f[p] alone.
 struct UpParams {
   float f[8];
 };
@@ -99,6 +102,12 @@ inline TailParams tail_params(float strength, float inv2s2, float inv2s2_3,
   return tp;
 }
 
+// The launch of one form's kernel (Form<T>::run), for both I/O types.
+template <template <class> class Form, class... Args>
+int launch_io(int f32, Args... args) {
+  return f32 ? Form<float>::run(args...) : Form<uint8_t>::run(args...);
+}
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -141,44 +150,13 @@ __device__ __forceinline__ float spatial(int k) {
   return k == 1 ? 0.5f : 0.25f;
 }
 
-// Blurred illumination on the YH x YW ring tile: the separable blur of
-// L0 = max(R,G,B), handed to `epi(e, l)` for each ring position e (the
-// caller's epilogue writes what it needs from it). sL0 holds L0 on
-// (YH + 2R) x (YW + 2R) positions; sV is scratch of YH x (YW + 2R).
-// Position (i, j) of the ring tile is (i + R, j + R) of sL0. Every thread
-// of the block calls it; it synchronises after each pass.
-template <class Epilogue>
-__device__ inline void blur_tile(const float* __restrict__ sL0,
-                                 float* __restrict__ sV,
-                                 const BoostParams& bp, int tid,
-                                 Epilogue epi) {
-  const int R = bp.radius;
-  const int LW = YW + 2 * R;
-  // Vertical taps first: term k reads row y + R - k, k ascending.
-  for (int e = tid; e < YH * LW; e += NTHREADS) {
-    const int i = e / LW, j = e - (e / LW) * LW;
-    float acc = bp.taps[0] * sL0[(i + 2 * R) * LW + j];
-    for (int k = 1; k <= 2 * R; ++k)
-      acc = acc + bp.taps[k] * sL0[(i + 2 * R - k) * LW + j];
-    sV[e] = acc;
-  }
-  __syncthreads();
-  for (int e = tid; e < YN; e += NTHREADS) {
-    const int i = e / YW, j = e - (e / YW) * YW;
-    float l = bp.taps[0] * sV[i * LW + j + 2 * R];
-    for (int k = 1; k <= 2 * R; ++k)
-      l = l + bp.taps[k] * sV[i * LW + j + 2 * R - k];
-    epi(e, l);
-  }
-  __syncthreads();
-}
-
 // The separable blur of L0 on an OH x OW region of any tile shape: sL0
 // holds L0 on (OH + 2R) x (OW + 2R) at row stride OW + 2R, sV is scratch
 // of OH x (OW + 2R); epi(i, j, l) gets the blurred value of position (i,
-// j), which is (i + R, j + R) of sL0. The taps and their order are
-// blur_tile's. Every thread of the block (nthreads of them) calls it; it
-// synchronises after each pass.
+// j), which is (i + R, j + R) of sL0. Vertical taps first, term k reading
+// row y + R - k, k ascending, each pass starting from its first term (the
+// order of ops/filters.py separable_blur). Every thread of the block
+// (nthreads of them) calls it; it synchronises after each pass.
 template <class Epilogue>
 __device__ inline void blur_region(const float* __restrict__ sL0,
                                    float* __restrict__ sV,
@@ -211,18 +189,6 @@ __device__ __forceinline__ float boost_gain(float l, const BoostParams& bp,
                                             bool boost) {
   l = fminf(fmaxf(l, bp.eps), 1.0f);
   return boost ? expf(bp.gm1 * logf(l)) : l;
-}
-
-// Illumination gain on the ring tile: blur(L0) clipped to [eps, 1], then
-// exp((gamma-1) * log L), into sG.
-__device__ inline void gain_tile(const float* __restrict__ sL0,
-                                 float* __restrict__ sV,
-                                 float* __restrict__ sG,
-                                 const BoostParams& bp, int tid) {
-  blur_tile(sL0, sV, bp, tid, [&](int e, float l) {
-    l = fminf(fmaxf(l, bp.eps), 1.0f);
-    sG[e] = expf(bp.gm1 * logf(l));
-  });
 }
 
 // The four low-res taps and two weights of one full-resolution map

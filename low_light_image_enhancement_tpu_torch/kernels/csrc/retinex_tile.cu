@@ -1,7 +1,7 @@
 // K1 (fused retinex, also K8's kernel) and K4 (the fused retinex video
 // step) for Hopper (sm_90a) on the tile engine of retinex_tile.cuh, bound
 // to PyTorch through ctypes (kernels/fused_enhance.py,
-// kernels/fused_enhance_hwc.py).
+// kernels/fused_enhance_hwc.py); the engine's plan. K3 is curve_tile.cu.
 //
 // What they replace. K1 replaces the TPU kernel fused_retinex ->
 // _retinex_kernel (low_light_image_enhancement_tpu/kernels/fused_enhance.py,
@@ -44,35 +44,6 @@
 
 namespace llie {
 namespace tile {
-
-// The u8 output words of the thread's K2 pixels, into its row of the word
-// buffer: HWC (bytes r g b r g b ...; 6 words at 6 * warp) or planar (2
-// words a channel at 16 * ch + 2 * warp).
-template <bool HWC>
-__device__ inline void pack_out(const Outs& o, uint32_t* __restrict__ buf,
-                                int tid) {
-  const int t = tid & 31, wq = tid >> 5;
-  uint32_t* row = buf + t * OP;
-  if constexpr (HWC) {
-    uint32_t q[3 * K2];
-#pragma unroll
-    for (int k = 0; k < K2; ++k)
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) q[3 * k + ch] = q8(o.v[k][ch]);
-#pragma unroll
-    for (int w = 0; w < 3 * K2 / 4; ++w)
-      row[(3 * K2 / 4) * wq + w] =
-          pack4(q[4 * w], q[4 * w + 1], q[4 * w + 2], q[4 * w + 3]);
-  } else {
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-#pragma unroll
-      for (int w = 0; w < K2 / 4; ++w)
-        row[(TW / 4) * ch + (K2 / 4) * wq + w] =
-            pack4(q8(o.v[4 * w][ch]), q8(o.v[4 * w + 1][ch]),
-                  q8(o.v[4 * w + 2][ch]), q8(o.v[4 * w + 3][ch]));
-  }
-}
 
 // K1's work on one tile: staging from the raw rows (u8, `cur`) or from
 // global memory (f32), the blur, boost and gain, the tail and the output.
@@ -421,23 +392,6 @@ ema_tile_kernel(const T* __restrict__ in, const float* __restrict__ carry,
   }
 }
 
-// The largest block any form asks for: K1 on u8 or K4 at MAX_BLUR_RADIUS.
-constexpr int MAX_SMEM_BYTES =
-    (int)sizeof(float) * (smem_floats(0, MAX_BLUR_RADIUS, true)
-                          > smem_floats(1, MAX_BLUR_RADIUS)
-                              ? smem_floats(0, MAX_BLUR_RADIUS, true)
-                              : smem_floats(1, MAX_BLUR_RADIUS));
-static_assert(MAX_SMEM_BYTES <= 227 * 1024, "a block's shared memory");
-
-// Every form asks for more than the default 48 KB of shared memory. The
-// attribute holds for the device current when it is set, so it is set
-// before every launch (the caller has made the tensors' device current).
-template <class K>
-int prepare(K kernel) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM_BYTES);
-}
-
 template <class T>
 struct RetinexTileForm {
   static int run(const void* in, void* out, const float* lp, int B, int H,
@@ -489,17 +443,19 @@ const char* llie_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The tile plan of K1 (`family` 0) and K4 (1) at a blur radius on the tile
-// (0 for none: a plane past MAX_BLUR_RADIUS, or K1 without its blur
-// stage): `what` 0 the tile's output rows, 1 its columns, 2 threads a
-// block, 3 dynamic shared memory bytes on u8, 4 the plane pitch in floats,
-// 5 the grid column of the ring's first column, 6 shared memory bytes on
-// f32, 7 the 16-byte chunks of a raw row (K1 on u8). -1 for an argument
-// out of range.
+// The tile plan of K1 (`family` 0), K4 (1) and K3 (2, curve_tile.cu) at a
+// blur radius on the tile (0 for none: a plane past MAX_BLUR_RADIUS, K1
+// without its blur stage, K3 without hybrid's boost): `what` 0 the tile's
+// output rows, 1 its columns, 2 threads a block, 3 dynamic shared memory
+// bytes on u8, 4 the plane pitch in floats, 5 the grid column of the ring's
+// first column, 6 shared memory bytes on f32, 7 the 16-byte chunks of a raw
+// row (K1 on u8), 8 the rows of K3's curve strips, 9 and 10 the low-res rows
+// a strip reads at most with maps at 1/2 and 1/4 (0 where the family has
+// none). -1 for an argument out of range.
 int llie_retinex_tile_plan(int family, int radius, int what) {
-  if (family < 0 || family > 1 || radius < 0 || radius > MAX_BLUR_RADIUS)
+  if (family < 0 || family > 2 || radius < 0 || radius > MAX_BLUR_RADIUS)
     return -1;
-  const bool raw = family == 0;
+  const bool raw = family == 0, curve = family == 2;
   switch (what) {
     case 0: return tile::TH;
     case 1: return tile::TW;
@@ -510,6 +466,9 @@ int llie_retinex_tile_plan(int family, int radius, int what) {
     case 5: return tile::grid_off(radius) + radius;
     case 6: return (int)sizeof(float) * tile::smem_floats(family, radius);
     case 7: return raw ? tile::raw_chunks(radius) : 0;
+    case 8: return curve ? tile::VS : 0;
+    case 9: return curve ? tile::walk_rows(2, 1) : 0;
+    case 10: return curve ? tile::walk_rows(4, 3) : 0;
     default: return -1;
   }
 }

@@ -1,19 +1,22 @@
 // The tile engine of K1 (retinex_tile.cu retinex_tile_kernel, also K8's
-// kernel) and K4 (ema_tile_kernel): a 32 x 64 output tile a block of 256
-// threads, each thread owning a strip of several outputs in every pass.
+// kernel), K4 (ema_tile_kernel) and K3 (curve_tile.cu curve_tile_kernel, also
+// K1's gain form): a 32 x 64 output tile a block of 256 threads, each thread
+// owning a strip of several outputs in every pass.
 //
 // Passes, each followed by one __syncthreads():
 //   1. staging: 4-pixel groups of the tile's rows plus halo (grid columns
 //      4g .. 4g + 3) into max RGB (sL, when the blur runs on the tile) and
 //      RGB on the ring (sY). K1 on u8 first copies the rows as async
 //      16-byte chunks into shared memory (one wait for all of them) and
-//      decodes the groups there; K4 reads each plane's group as one word
-//      (u8) or float4 (f32) where it is inside and aligned; elsewhere, and
-//      at the image's edges, each value is read at its clamped column;
+//      decodes the groups there; K4 and K3 read each plane's group as one
+//      word (u8) or float4 (f32) where it is inside and aligned; elsewhere,
+//      and at the image's edges, each value is read at its clamped column;
 //   2. the vertical blur: a column strip of VS rows a thread, the window of
 //      VS + 2R values of sL held in registers, into sV;
 //   3. the horizontal blur: a row segment of HK ring columns a thread, then
-//      the caller's epilogue (K1: boost and gain into sY; K4: the EMA);
+//      the caller's epilogue (K1 and K3: boost and gain into sY; K4: the
+//      EMA); K3 then runs its curves on the ring, a column strip of VS rows
+//      a thread (curve_tile.cu);
 //   4. the bilateral tail: pass 1 (vertical) a column strip of S1 rows,
 //      pass 2 (horizontal) or the full 3x3 a row segment of K2 outputs,
 //      each neighbour pair's range weight computed once and used at both
@@ -25,8 +28,8 @@
 // The blur radius R (1..MAX_BLUR_RADIUS) is a template parameter of passes
 // 2 and 3, dispatched at run time once a tile, so the taps sit in
 // registers and every window index is a constant. Every sum keeps the plain
-// version's order (fused_enhance.cuh's blur_tile and denoise_tile, which
-// K3 keeps): vertical blur term k reads row y + R - k, k ascending, then the
+// version's order (fused_enhance.cuh's blur_region and denoise_tile): vertical
+// blur term k reads row y + R - k, k ascending, then the
 // horizontal; the bilateral taps in the order of ops/denoise.py, starting
 // from 0, the per-channel forms dividing and the joint ones multiplying by
 // 1 / wacc. A pair's weight is one float whichever end computes it: d and
@@ -66,6 +69,8 @@ static_assert(TW == K2 * (NT / 32) && TH == 32,
               "pass 2: a warp a column segment, a lane a row");
 static_assert(VSEG * YW <= NT && HSEG * YH <= NT && S1SEG * YW <= NT,
               "one item a thread in the strip passes");
+static_assert(VS % 4 == 0,
+              "K3's curve strips start at one phase of the maps' rows");
 
 // ---------------------------------------------------------- the plan -- //
 // x0 is a multiple of 4, so the grid's offset and pitch depend on R alone.
@@ -98,11 +103,12 @@ __host__ __device__ constexpr int raw_offset(int planes) {
   return (planes + 3) / 4 * 4;
 }
 
-// Shared memory of a block in floats: three ring planes of RGB (sY), then
-// the blur phase (sL: LH + 2 rows, sV: YH rows; K4 also sC and sG, YH rows
-// each; K4 without a tile blur: l_now in sV's place) or, aliasing it, the
-// tail phase (sP: 3 x TH rows; the u8 output words: TH x OP); then K1's raw
-// rows on u8 (`raw`).
+// Shared memory of a block in floats, for K1 (`family` 0), K4 (1) and K3
+// (2): three ring planes of RGB (sY), then the blur phase (sL: LH + 2 rows,
+// sV: YH rows; K4 also sC and sG, YH rows each; K4 without a tile blur:
+// l_now in sV's place) or, aliasing it, the tail phase (sP: 3 x TH rows;
+// the u8 output words: TH x OP); then K1's raw rows on u8 (`raw`). K3 reads
+// its curve maps through the cache and needs nothing beyond K1's planes.
 __host__ __device__ constexpr int smem_floats(int family, int R,
                                               bool raw = false) {
   const int P = pitch(R);
@@ -111,6 +117,15 @@ __host__ __device__ constexpr int smem_floats(int family, int R,
   const int tail = 3 * TH * P + TH * OP;
   const int planes = 3 * ring_plane(R) + (blur > tail ? blur : tail);
   return raw ? raw_offset(planes) + raw_floats(R) : planes;
+}
+
+// K3's curve pass (curve_tile.cu): a column strip of VS ring rows a
+// thread. With maps at 1/ds (2 or 4) a strip whose first block row r has
+// phase s = (r - ds/2) mod ds blends the maps' columns at walk_rows(ds, s)
+// consecutive low-res rows from floor((r - ds/2) / ds), each clamped into
+// the maps; at ds 1 it reads the VS rows themselves.
+__host__ __device__ constexpr int walk_rows(int ds, int s) {
+  return ds == 1 ? VS : (s + VS - 1) / ds + 2;
 }
 
 struct Geo {
@@ -194,14 +209,14 @@ __device__ __forceinline__ void load_raw(const float* __restrict__ row,
       a.f[3 * q + c] = row[3 * clampi(x + q, 0, W - 1) + c];
 }
 
-// Planar blocks (K4): a group of 4 columns of one plane row. u8: one
+// Planar blocks (K4, K3): a group of 4 columns of one plane row. u8: one
 // aligned word where `words` says the group is inside the row and
 // aligned, else each byte at its clamped column; f32: a float4, or each
 // value at its clamped column.
 struct RawPlanes {
   uint32_t r[12];  // u8: a word a plane (or 4 bytes); f32: the bits
-  float c[4];      // the carry
-  float l[4];      // l_now (LPLANE)
+  float c[4];      // the carry (K4)
+  float l[4];      // l_now (K4 LPLANE); K3's gain or illumination plane
 };
 
 __device__ __forceinline__ void load_plane(const uint8_t* __restrict__ row,
@@ -818,6 +833,58 @@ __device__ inline void tail(const float* __restrict__ sY,
     tail_form<true>(sY, sP, g, p, tid, out);
   else
     tail_form<false>(sY, sP, g, p, tid, out);
+}
+
+// ------------------------------------------------------ out, launch -- //
+// The u8 output words of the thread's K2 pixels, into its row of the word
+// buffer: HWC (bytes r g b r g b ...; 6 words at 6 * warp) or planar (2
+// words a channel at 16 * ch + 2 * warp).
+template <bool HWC>
+__device__ inline void pack_out(const Outs& o, uint32_t* __restrict__ buf,
+                                int tid) {
+  const int t = tid & 31, wq = tid >> 5;
+  uint32_t* row = buf + t * OP;
+  if constexpr (HWC) {
+    uint32_t q[3 * K2];
+#pragma unroll
+    for (int k = 0; k < K2; ++k)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) q[3 * k + ch] = q8(o.v[k][ch]);
+#pragma unroll
+    for (int w = 0; w < 3 * K2 / 4; ++w)
+      row[(3 * K2 / 4) * wq + w] =
+          pack4(q[4 * w], q[4 * w + 1], q[4 * w + 2], q[4 * w + 3]);
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int w = 0; w < K2 / 4; ++w)
+        row[(TW / 4) * ch + (K2 / 4) * wq + w] =
+            pack4(q8(o.v[4 * w][ch]), q8(o.v[4 * w + 1][ch]),
+                  q8(o.v[4 * w + 2][ch]), q8(o.v[4 * w + 3][ch]));
+  }
+}
+
+// The largest block any form asks for: K1 on u8 or K4 at MAX_BLUR_RADIUS
+// (K3's planes are K1's without the raw rows).
+constexpr int MAX_SMEM_BYTES =
+    (int)sizeof(float) * (smem_floats(0, MAX_BLUR_RADIUS, true)
+                          > smem_floats(1, MAX_BLUR_RADIUS)
+                              ? smem_floats(0, MAX_BLUR_RADIUS, true)
+                              : smem_floats(1, MAX_BLUR_RADIUS));
+static_assert(MAX_SMEM_BYTES <= 227 * 1024, "a block's shared memory");
+static_assert(smem_floats(2, MAX_BLUR_RADIUS) <= smem_floats(0,
+                                                             MAX_BLUR_RADIUS,
+                                                             true),
+              "K3's block within the opt-in");
+
+// Every form asks for more than the default 48 KB of shared memory. The
+// attribute holds for the device current when it is set, so it is set
+// before every launch (the caller has made the tensors' device current).
+template <class K>
+int prepare(K kernel) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM_BYTES);
 }
 
 }  // namespace tile

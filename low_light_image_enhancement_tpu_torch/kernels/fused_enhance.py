@@ -2,11 +2,11 @@
 retinex video step): wrappers, plain PyTorch versions and launch counts.
 
 Each wrapper dispatches on the device of its input alone: a CPU tensor goes
-to the plain version, a CUDA tensor to the hand-written kernels in
-``csrc/retinex_tile.cu`` (K1 and K4 with the bilateral tails, or none, on
-the tile engine of ``csrc/retinex_tile.cuh``), ``csrc/fused_enhance.cu``
-(K3 and K1's gain form, the same tails) and ``csrc/fused_guided.cu`` (the
-guided tails), or the call raises.
+to the plain version, a CUDA tensor to the hand-written kernels on the tile
+engine of ``csrc/retinex_tile.cuh`` with the bilateral tails, or none
+(``csrc/retinex_tile.cu``: K1 and K4; ``csrc/curve_tile.cu``: K3 and K1's
+gain form), to ``csrc/fused_guided.cu`` (the guided tails) and
+``csrc/fused_enhance.cu`` (the blur past the tiles), or the call raises.
 ``<wrapper>.launches`` counts the kernel launches, and nothing else.
 
 Every form of the JAX kernels runs: u8 or f32 I/O (f32 in [0, 1], clipped

@@ -1,5 +1,5 @@
-"""The numerics and the plan of K1/K4's tile engine (``csrc/retinex_tile.cuh``)
-on the CPU.
+"""The numerics and the plan of the tile engine (``csrc/retinex_tile.cuh``:
+K1, K4 and K3) on the CPU.
 
 The engine's bilateral computes each neighbour pair's range weight once and
 uses it at both ends, and the centre's weight once: a model of that in
@@ -7,7 +7,8 @@ plain torch, in the kernel's order of operations, is held bit for bit
 (``torch.equal``) to ``ops/denoise.py``'s four cores (separable or full,
 joint or per channel) under both range kernels. The tile plan
 (``llie_retinex_tile_plan``: tile shape, threads, shared memory, plane
-pitch, ring column, per blur radius and kernel) has its mirror here,
+pitch, ring column, K3's curve strips, per blur radius and kernel) has its
+mirror here,
 ``tile_plan``; the tests check it for every output size from 1x1 to 1080p,
 and ``chip_smoke.py`` holds it equal to the library on the card.
 """
@@ -189,22 +190,36 @@ def smem_floats(family: int, r: int, raw: bool = False) -> int:
     return (planes + 3) // 4 * 4 + (YH + 2 * r) * raw_chunks(r) * 4
 
 
+VS = 12      # rows of K3's curve strips (and of the vertical blur's)
+
+
+def walk_rows(ds: int, s: int) -> int:
+    """Low-res rows a curve strip blends at 1/ds whose first block row r
+    has phase s = (r - ds/2) mod ds; at ds 1 the strip's rows."""
+    return VS if ds == 1 else (s + VS - 1) // ds + 2
+
+
 def tile_plan(family: int, radius: int, what: int) -> int:
-    """llie_retinex_tile_plan: K1 (family 0) or K4 (1) at a blur radius on
-    the tile (0: none): 0 rows, 1 columns, 2 threads, 3 shared memory bytes
-    on u8 (K1's with its raw-row buffer), 4 plane pitch, 5 the ring's
-    first grid column, 6 shared memory bytes on f32, 7 K1's raw chunks a
-    row."""
-    if family not in (0, 1) or not 0 <= radius <= MAX_BLUR_RADIUS:
+    """llie_retinex_tile_plan: K1 (family 0), K4 (1) or K3 (2) at a blur
+    radius on the tile (0: none): 0 rows, 1 columns, 2 threads, 3 shared
+    memory bytes on u8 (K1's with its raw-row buffer), 4 plane pitch, 5 the
+    ring's first grid column, 6 shared memory bytes on f32, 7 K1's raw
+    chunks a row, 8 K3's curve strip rows, 9 and 10 the low-res rows a K3
+    strip blends at most at 1/2 and 1/4."""
+    if family not in (0, 1, 2) or not 0 <= radius <= MAX_BLUR_RADIUS:
         return -1
+    curve = family == 2
     return {0: TH, 1: TW, 2: NT,
             3: 4 * smem_floats(family, radius, family == 0),
             4: pitch(radius), 5: grid_off(radius) + radius,
             6: 4 * smem_floats(family, radius),
-            7: raw_chunks(radius) if family == 0 else 0}.get(what, -1)
+            7: raw_chunks(radius) if family == 0 else 0,
+            8: VS if curve else 0,
+            9: walk_rows(2, 1) if curve else 0,
+            10: walk_rows(4, 3) if curve else 0}.get(what, -1)
 
 
-@pytest.mark.parametrize("family", (0, 1))
+@pytest.mark.parametrize("family", (0, 1, 2))
 def test_tile_plan_fits_two_blocks_an_sm(family):
     for r in range(MAX_BLUR_RADIUS + 1):
         for what in (3, 6):
@@ -218,11 +233,11 @@ def test_tile_plan_fits_two_blocks_an_sm(family):
         assert tile_plan(family, r, 5) == grid_off(r) + r
         # K1's raw buffers end the block on a 16-byte boundary
         assert family == 1 or tile_plan(0, r, 3) % 16 == 0
-        # K1 is built for 3 blocks an SM: they fit up to radius 3
-        if family == 0 and r <= 3:
+        # K1 and K3 are built for 3 blocks an SM: they fit up to radius 3
+        if family != 1 and r <= 3:
             for what in (3, 6):
-                assert 3 * (tile_plan(0, r, what) + 1024) <= SMEM_PER_SM
-    assert tile_plan(2, 0, 0) == tile_plan(0, 9, 0) == -1
+                assert 3 * (tile_plan(family, r, what) + 1024) <= SMEM_PER_SM
+    assert tile_plan(3, 0, 0) == tile_plan(0, 9, 0) == -1
 
 
 def test_tile_reads_stay_in_the_row_for_every_width():
@@ -231,9 +246,10 @@ def test_tile_reads_stay_in_the_row_for_every_width():
     words decode_raw reads for a group inside the image (x >= 0, x + 3 <
     W) lie in the chunks issue_raw copies (from chunk_of(row) while a
     chunk starts before the row's byte 3 c1, at most raw_chunks of them),
-    at every alignment of the row. K4: the groups of a tile it reads as
-    words (``inside``) lie in the row, on word (u8) and 16-byte (f32)
-    boundaries when WB % 4 == 0."""
+    at every alignment of the row. K4 and K3 (its planes and the gain or
+    illumination plane): the groups of a tile they read as words
+    (``inside``) lie in the row, on word (u8) and 16-byte (f32) boundaries
+    when WB % 4 == 0."""
     w = np.arange(1, 1921)[:, None, None]
     x0 = TW * np.arange(0, 1920 // TW + 1)[None, :, None]
     tile = x0 < w                                       # the grid's tiles

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""K1/K4's tile engine (``csrc/retinex_tile.cu``): what its compiler says.
+"""The tile engine's kernels (K1 and K4 in ``csrc/retinex_tile.cu``, K3 in
+``csrc/curve_tile.cu``): what their compiler says.
 
 ``nvcc -Xptxas -v`` of the sources that hold K1, K4 and K3 (this tree's
-``csrc/retinex_tile.cu`` and ``csrc/fused_enhance.cu``; copied into an
-older tree, whichever of them it has): registers, stack frame, spills and
-shared memory of each kernel. A tile kernel with a stack frame or a spill
-fails the probe. The kernels' agreement with their plain versions and the
+``csrc/retinex_tile.cu`` and ``csrc/curve_tile.cu``, and
+``csrc/fused_enhance.cu``, where K3 lived before the engine took it;
+copied into an older tree, whichever of them it has): registers, stack
+frame, spills and shared memory of each kernel. A tile kernel with a stack
+frame or a spill fails the probe. The kernels' agreement with their plain versions and the
 plan's with its CPU mirror are ``chip_smoke.py``'s; their times are
 ``tools/time_fused.py``'s.
 
@@ -57,7 +59,8 @@ def _demangle(names):
 
 def compiler_report() -> None:
     """ptxas -v of the sources holding K1, K4 and K3, compiled at once."""
-    names = [n for n in ("retinex_tile.cu", "fused_enhance.cu")
+    names = [n for n in ("retinex_tile.cu", "curve_tile.cu",
+                         "fused_enhance.cu")
              if (_build._CSRC / n).exists()]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:

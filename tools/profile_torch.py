@@ -19,7 +19,12 @@ boost; + denoise), each timed with CUDA events (the calls queued behind a
 spin, so that the device alone is timed), and the differences are each
 stage's device time; then the whole pipeline call, whose difference from
 the full kernel is the host-to-kernel glue. ``stages_guided`` does the same
-with the guided tail at r 4.
+with the guided tail at r 4. ``stages_k3`` does the same for K3 (its
+forms truncated instead: the tail off by strength 0, the curves off by
+K1's gain form, which is K3's kernel without them): the video step's form
+at 1080p b1 (the gain plane and maps at 1/4: u8 in, gain, u8 out; +
+curves; + the bilateral tail) and hybrid's at 600x400 b48 (maps at 1/1:
+curve's u8 in, curves, u8 out; + hybrid's blur and boost; + the tail).
 
 Needs a CUDA card; run from the repository root:
 
@@ -33,7 +38,7 @@ Needs a CUDA card; run from the repository root:
                                     video_retinex_extgain video_curve_ds4
                                     video_hybrid_ds4 video_retinex_guided
                                     video_hybrid_ds4_guided
-                                    stages stages_guided]
+                                    stages stages_guided stages_k3]
 """
 
 from __future__ import annotations
@@ -202,22 +207,87 @@ def profile_stages(name: str, x: torch.Tensor) -> None:
           f"{ms['pipeline'] - prev:+.4f} (the glue around the kernel)")
 
 
+def profile_stages_k3(x: torch.Tensor, frame: torch.Tensor) -> None:
+    """K3's truncated forms differenced: each stage's device time."""
+    from low_light_image_enhancement_tpu_torch import video as tvideo
+    from low_light_image_enhancement_tpu_torch.blocks import (
+        _mask_extent,
+        block_curve_maps,
+        curve_maps_for_kernel,
+        learned_halo,
+    )
+    from low_light_image_enhancement_tpu_torch.config import canvas_margin
+    from low_light_image_enhancement_tpu_torch.kernels import (
+        fused_enhance as fe,
+    )
+    from low_light_image_enhancement_tpu_torch.ops.colorspace import (
+        normalize_u8,
+    )
+    from low_light_image_enhancement_tpu_torch.pipeline import pad_block
+
+    card = torch.cuda.get_device_name(0)
+    hybrid = llt.PipelineConfig(method="hybrid")
+    params = llt.EnhancePipeline(hybrid, device="cuda").model_params
+    off = dict(denoise_strength=0.0)
+    # the video step's form: a 1080p block, its gain plane, maps at 1/4
+    h4 = hybrid.replace(curve_downsample=4)
+    xb = tvideo.pad_video_block(frame[None], h4)
+    halo, m = learned_halo(h4), canvas_margin(h4)
+    rows = xb.shape[-2] - 2 * halo
+    gain = torch.full((1,) + xb.shape[-2:], 1.5, device=xb.device)
+    with torch.inference_mode():
+        cnn_in = torch.clamp(normalize_u8(xb) * gain[:, None], 0.0, 1.0)
+        maps4 = curve_maps_for_kernel(_mask_extent(cnn_in, -halo, 1080, 1920,
+                                                   m), h4, params)
+    k1g = llt.PipelineConfig(**off)
+    video = (("in/out", lambda: fe.fused_retinex_gain(xb, gain, k1g, halo,
+                                                      rows)),
+             ("curves", lambda: fe.fused_curve_enhance(
+                 xb, maps4, h4.replace(**off), halo, rows, 1920, ds=4,
+                 gain=gain)),
+             ("tail", lambda: fe.fused_curve_enhance(
+                 xb, maps4, h4, halo, rows, 1920, ds=4, gain=gain)))
+    # hybrid's image form: 600x400 b48, maps at 1/1
+    xb1, halo1 = pad_block(x, hybrid)
+    rows1 = xb1.shape[-2] - 2 * halo1
+    with torch.inference_mode():
+        maps1 = block_curve_maps(xb1, hybrid, params, -halo1, 400, 600)
+    curve = llt.PipelineConfig(method="curve", **off)
+    image = (("curves", lambda: fe.fused_curve_enhance(
+                 xb1, maps1, curve, halo1, rows1, 600)),
+             ("boost", lambda: fe.fused_curve_enhance(
+                 xb1, maps1, hybrid.replace(**off), halo1, rows1, 600)),
+             ("tail", lambda: fe.fused_curve_enhance(
+                 xb1, maps1, hybrid, halo1, rows1, 600)))
+    for what, steps in (("video form, ds 4 + gain, 1080p b1", video),
+                        (f"hybrid ds 1, 600x400 b{x.shape[0]}", image)):
+        print(f"stages_k3: K3 {what} on {card} (ms a call, the device "
+              f"alone)")
+        prev = 0.0
+        for step, fn in steps:
+            t = min(_device_ms(fn) for _ in range(2))
+            print(f"  + {step:<8s} {t:.4f} total, {t - prev:+.4f}")
+            prev = t
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), torch.__version__)
-    names = argv or list(PATHS) + list(VIDEO_PATHS) + list(STAGE_PATHS)
+    names = argv or (list(PATHS) + list(VIDEO_PATHS) + list(STAGE_PATHS)
+                     + ["stages_k3"])
     unknown = (set(names) - set(PATHS) - set(VIDEO_PATHS)
-               - set(STAGE_PATHS))
+               - set(STAGE_PATHS) - {"stages_k3"})
     if unknown:
         print(f"profile_torch: unknown paths {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    if any(n in PATHS or n in STAGE_PATHS for n in names):
+    if any(n in PATHS or n in STAGE_PATHS or n == "stages_k3"
+           for n in names):
         x = torch.from_numpy(synth_batch(48, 400, 600, seed=5)[0]).cuda()
-    if any(n in VIDEO_PATHS for n in names):
+    if any(n in VIDEO_PATHS or n == "stages_k3" for n in names):
         frame = torch.from_numpy(synth_batch(1, 1080, 1920, seed=13)[0][0])
         frame = frame.cuda()
     for name in names:
@@ -225,6 +295,8 @@ def main(argv) -> int:
             profile(name, x)
         elif name in STAGE_PATHS:
             profile_stages(name, x)
+        elif name == "stages_k3":
+            profile_stages_k3(x, frame)
         else:
             profile_video(name, frame)
     return 0

@@ -8,9 +8,11 @@ forms the main paths run: K1 ``fused_retinex`` on 600x400 b48 u8 (the
 default config) and at 1080p b1, and on f32 600x400 b48; K8
 ``enhance_hwc_u8`` (K1's kernel, per-channel full 3x3) on 600x400 b48; K3
 ``fused_curve_enhance`` on hybrid's 600x400 b48 block (maps at 1/1, the
-shipped weights) and, as the video step calls it, at ds 4 with the gain
-plane on a 1080p frame; K4 ``fused_retinex_ema`` on a 1080p frame and on
-600x400 b8; then, where the tree has them, the guided forms (K1 at r 2
+shipped weights; and on f32 data), on curve's at ds 2 and, as the video
+step calls it, at ds 4 with the gain plane on a 1080p frame; K1's gain
+form ``fused_retinex_gain`` (the bilateral tail) on a 1080p frame; K4
+``fused_retinex_ema`` on a 1080p frame and on 600x400 b8; then, where the
+tree has them, the guided forms (K1 at r 2
 and 4 with the luma guide and r 4 per channel, K3 hybrid at r 4, K4 at
 r 2, K1's gain form at r 4); then the kernels of the learned paths on
 their 600x400 b48 blocks: K5 ``tiled_denoise`` on the ``quality`` and
@@ -42,6 +44,7 @@ from low_light_image_enhancement_tpu_torch.blocks import (  # noqa: E402
     block_curve_maps,
     block_net_image,
     curve_maps_for_kernel,
+    kernel_maps_ds,
     learned_halo,
 )
 from low_light_image_enhancement_tpu_torch.config import (  # noqa: E402
@@ -115,12 +118,15 @@ def main() -> int:
     hybrid = llt.PipelineConfig(method="hybrid")
     params = llt.EnhancePipeline(hybrid, device="cuda").model_params
 
-    def k3(cfg):
+    def k3(cfg, f32=False):
         xb, halo = pad_block(x48, cfg)
         with torch.inference_mode():
             maps = block_curve_maps(xb, cfg, params, -halo, 400, 600)
         rows = xb.shape[-2] - 2 * halo
-        return lambda: fe.fused_curve_enhance(xb, maps, cfg, halo, rows, 600)
+        xb = normalize_u8(xb) if f32 else xb
+        ds = kernel_maps_ds(cfg)
+        return lambda: fe.fused_curve_enhance(xb, maps, cfg, halo, rows, 600,
+                                              ds=ds)
 
     frame = torch.from_numpy(synth_batch(1, 1080, 1920, seed=11)[0]).to(dev)
     x8 = x48[:8].contiguous()
@@ -208,6 +214,10 @@ def main() -> int:
         ("K3 hybrid ds1 600x400 b48", lambda: k3(hybrid)),
         ("K3 hybrid ds4 + gain 1080p b1",
          lambda: k3_video(hybrid.replace(curve_downsample=4))),
+        ("K3 hybrid f32 ds1 600x400 b48", lambda: k3(hybrid, f32=True)),
+        ("K3 curve ds2 600x400 b48",
+         lambda: k3(llt.PipelineConfig(method="curve", curve_downsample=2))),
+        ("K1 gain form 1080p b1", lambda: gain_form(cfg0)),
         ("K1 guided r2 luma 600x400 b48", lambda: (lambda: fe.fused_retinex(
             x48, cfg0.replace(**guided)))),
         ("K1 guided r4 luma 600x400 b48", lambda: (lambda: fe.fused_retinex(
