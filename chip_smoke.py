@@ -26,7 +26,8 @@ Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
   2. the kernel build from the sources in the checkout (nvcc, sm_90a),
      and the tile plan of K1/K4/K3 (llie_retinex_tile_plan) against its
-     CPU mirror in tests/test_torch_retinex_tile.py;
+     CPU mirror in tests/test_torch_retinex_tile.py, the guided kernel's
+     (llie_fused_guided_plan) against tests/test_torch_guided_tile.py's;
   3. each kernel (K1 fused_retinex and its gain form, K3
      fused_curve_enhance with maps at 1/1, 1/2, 1/4 and with the gain
      plane, K4 fused_retinex_ema over chained frames, K5 tiled_denoise, K8
@@ -45,8 +46,10 @@ Phases (each raises on failure, so the script exits non-zero):
      against the plain layer, its six-layer launch equal to the chain of
      its one-layer launches and, in both dtypes, to K6b layer by layer;
      the forms of K1, K3 and K4 beyond the default ones against their plain
-     versions (the guided tail at r 2 and 4 in both guides, f32 I/O, blur
-     radii 9, 16 and 32, K1's every stages subset; f32 within 1e-5), the
+     versions (the guided tail at r 2 and 4 in both guides, also at the
+     guided kernel's tile edges, f32 I/O, blur radii 9, 16 and 32, K1's
+     every stages subset; f32 within 1e-5; every guided form, which runs
+     the guided kernel fused_guided, and K5's guided arm bit-equal), the
      edges of the 32 x 64 tile of K1/K4/K3 (one tile and one tile + 1,
      widths off a multiple of 4 and of 64, 1-pixel-wide and -tall images,
      radii 1, 8 and 9; K4 over 4 chained frames with a stream re-seeded at
@@ -86,7 +89,9 @@ Phases (each raises on failure, so the script exits non-zero):
      pipeline.enhance, p50/p99 latency;
   6. each path's launch counts, reset to 0 just before it runs (phases
      4-5, 4c) and read just after: every path launched its kernels, and
-     the retinex video path launched K4 and no K1; the conv paths K6a 6
+     the retinex video path launched K4 and no K1; the guided paths the
+     guided kernel and none of K1's, K3's and K4's, the others not the
+     guided kernel; the conv paths K6a 6
      times (hybrid, at every width) or 3 times (decom) a K3 or K5 launch,
      K6b 6 times, K7 once and no K6b (cascade); enhance_hwc_u8 K8 and no
      K1; the default paths no conv kernel; the wide blur the blur kernel
@@ -300,16 +305,20 @@ def upsample_ops(ds: int) -> float:
 def k3_bound(cfg, xb, maps, halo, rows, m, ds=1, gain=False):
     """Maps at 1/ds are read once (n_iter * 3 * 4 / ds^2 bytes a pixel);
     each full-resolution map value then costs the upsample's operations
-    (``upsample_ops``) besides the curve step's 4."""
+    (``upsample_ops``) besides the curve step's 4. A u8 block reads and
+    writes 3 bytes a pixel, an f32 one 12 (no normalize, a clip in place of
+    the quantize)."""
     b, _, _, wb = xb.shape
     win = b * (rows + 2 * m) * wb
     n_iter = maps.shape[1]
-    nbytes = (win * (3 + n_iter * 3 * 4 / (ds * ds) + (4 if gain else 0))
-              + b * rows * wb * 3)
+    io = 3 * xb.element_size()
+    nbytes = (win * (io + n_iter * 3 * 4 / (ds * ds) + (4 if gain else 0))
+              + b * rows * wb * io)
     pre = GAIN_OPS if gain else (
         boost_ops(cfg) if cfg.method == "hybrid" else 0)
-    ops = (NORMALIZE_OPS + pre + n_iter * 3 * (4 + upsample_ops(ds)) + 6
-           + tail_ops(cfg) + QUANTIZE_OPS)
+    io_ops = NORMALIZE_OPS + QUANTIZE_OPS if xb.element_size() == 1 else 6
+    ops = (io_ops + pre + n_iter * 3 * (4 + upsample_ops(ds)) + 6
+           + tail_ops(cfg))
     return bound_ms(nbytes, ops * b * rows * wb)
 
 
@@ -432,6 +441,19 @@ def main() -> int:
     print("  llie_retinex_tile_plan equals its CPU mirror (K1, K4 and K3, "
           "radii 0-8, 11 values each: K3's curve strips and the low-res "
           "rows they blend at ds 2 and 4; out-of-range arguments)")
+    # the guided kernel's plan (fused_guided.cuh) against its CPU mirror in
+    # tests/test_torch_guided_tile.py: shared memory, blocks an SM, planes
+    from test_torch_guided_tile import guided_plan
+    bad = [(f, r, j, w) for f in range(5) for r in range(10) for j in (0, 1)
+           for w in (2, 4, 5, 6)
+           if lib.llie_fused_guided_plan(f, r, j, w)
+           != guided_plan(f, r, j, w)]
+    if bad:
+        raise AssertionError(f"llie_fused_guided_plan differs from its "
+                             f"mirror at {bad}")
+    print("  llie_fused_guided_plan equals its CPU mirror (the four "
+          "families, radii 0-9, both guides: shared memory, blocks an SM, "
+          "guided_tile's planes, the staging's scratch)")
 
     dev = torch.device("cuda")
     cfg0 = llt.PipelineConfig()
@@ -445,9 +467,9 @@ def main() -> int:
                 "k4": fe.fused_retinex_ema, "k5": td.tiled_denoise,
                 "k6a": mx.conv2d_patch_mxu, "k6b": mx.conv2d_dense9_mxu,
                 "k7": fc.fcn_cascade_mxu, "k8": hw.enhance_hwc_u8,
-                "kb": fe.blur_illumination}
+                "kb": fe.blur_illumination, "kg": fe.fused_guided}
     err = {"k1": 0, "k3": 0, "k4": 0, "k5": 0.0, "k6a": 0.0, "k6b": 0.0,
-           "k7": 0.0, "k8": 0, "kb": 0.0}
+           "k7": 0.0, "k8": 0, "kb": 0.0, "kg": 0}
     hwc_cfg = llt.PipelineConfig(denoise_guide="perchannel",
                                  denoise_taps="full")
 
@@ -757,7 +779,11 @@ def main() -> int:
         m = canvas_margin(cfg)
         got = td.tiled_denoise(y, cfg, halo, rows)[..., :h, m:m + w]
         want = td.tiled_denoise_plain(y, cfg, halo, rows)[..., :h, m:m + w]
-        err["k5"] = max(err["k5"], float((got - want).abs().max()))
+        d = float((got - want).abs().max())
+        err["k5"] = max(err["k5"], d)
+        if cfg.denoise_taps == "guided" and d:
+            # guided.cuh's guided_tile repeats the plain version's sums
+            raise AssertionError(f"K5 {name}: the guided arm off by {d}")
         check_bar(f"K5 {name}", delta_stats(quantize_u8(got).cpu().numpy(),
                                             quantize_u8(want).cpu().numpy()))
         del y, got, want
@@ -785,20 +811,29 @@ def main() -> int:
     x48 = torch.from_numpy(lows48).to(dev)
 
     # the forms of K1, K3 and K4 beyond the default ones: the guided tail
-    # (r 2 and 4, both guides), f32 I/O (within 1e-5), blur radii past the
-    # tiles (the blur kernel's plane, then the kernel's LPLANE form) and
-    # K1's stages
-    f32_err = {"k1": 0.0, "k3": 0.0, "k4": 0.0}
+    # (r 2 and 4, both guides; the guided kernel, bit-equal to the plain
+    # versions), f32 I/O (within 1e-5), blur radii past the tiles (the blur
+    # kernel's plane, then the kernel's LPLANE form) and K1's stages
+    f32_err = {"k1": 0.0, "k3": 0.0, "k4": 0.0, "kg": 0.0}
+
+    def gkey(cfg, key, stages=None):
+        """The guided kernel's key where the guided tail runs."""
+        return ("kg" if cfg.denoise_taps == "guided"
+                and cfg.denoise_strength > 0
+                and (stages is None or "denoise" in stages) else key)
 
     def form_check(what, got, want, key):
         if got.dtype == torch.uint8:
             st = delta_stats(got.cpu().numpy(), want.cpu().numpy())
             check_bar(what, st)
             err[key] = max(err[key], st["max_abs"])
+            if key == "kg" and st["max_abs"]:
+                raise AssertionError(f"{what}: the guided kernel is not "
+                                     f"bit-equal: {st}")
             return
         d = float((got - want).abs().max())
         print(f"  {what}: max|df32|={d:.3e}")
-        if d > 1e-5:
+        if d > 1e-5 or (key == "kg" and d):
             raise AssertionError(f"{what}: f32 off by {d}")
         f32_err[key] = max(f32_err[key], d)
 
@@ -815,10 +850,14 @@ def main() -> int:
     gforms = [(f"guided r{r} {g}", dict(guided_radius=r, denoise_guide=g,
                                         **guided))
               for r in (2, 4) for g in ("luma", "perchannel")]
+    # the guided kernel's 32 x 32 tiles: one past a tile, one short of two,
+    # 1-pixel-wide and -tall images
     k1_forms = [(f"{n} {w}x{h} b{b}", cfg0.replace(**kw), (b, h, w), None,
                  False)
                 for n, kw in gforms for b, h, w in ((8, 400, 600),
-                                                     (2, 33, 47))]
+                                                     (2, 33, 47), (2, 33, 65),
+                                                     (1, 63, 31), (2, 1, 130),
+                                                     (2, 130, 1))]
     k1_forms += [
         ("f32 600x400 b8", cfg0, (8, 400, 600), None, True),
         ("f32 guided r4 luma 600x400 b2", cfg0.replace(guided_radius=4,
@@ -848,7 +887,8 @@ def main() -> int:
         if f32:
             x = normalize_u8(x)
         form_check(f"K1 {name}", fe.fused_retinex(x, cfg, stages=stages),
-                   fe.fused_retinex_plain(x, cfg, stages), "k1")
+                   fe.fused_retinex_plain(x, cfg, stages),
+                   gkey(cfg, "k1", stages))
     # the blur kernel's plane alone
     for r, e in ((16, 1), (32, 8)):
         cfg = cfg0.replace(blur_radius=r, blur_sigma=r / 3)
@@ -880,7 +920,13 @@ def main() -> int:
          False),
         ("hybrid blur r9 guided r2 600x400 b2",
          hybrid.replace(blur_radius=9, blur_sigma=3.0, **guided),
-         (2, 400, 600), False)]
+         (2, 400, 600), False),
+        ("hybrid guided r4 luma 65x33 b2",
+         hybrid.replace(guided_radius=4, **guided), (2, 33, 65), False),
+        ("hybrid ds4 guided r3 perchannel 263x35 b2",
+         hybrid.replace(curve_downsample=4, guided_radius=3,
+                        denoise_guide="perchannel", **guided),
+         (2, 35, 263), False)]
     for name, cfg, (b, h, w), f32 in k3_forms:
         xb, maps, halo, rows, iw, m = curve_case(cfg, lows_of(b, h, w))
         if f32:
@@ -889,7 +935,7 @@ def main() -> int:
         got = fe.fused_curve_enhance(xb, maps, cfg, halo, rows, iw, ds=ds)
         want = fe.fused_curve_enhance_plain(xb, maps, cfg, halo, rows, iw, ds)
         form_check(f"K3 {name}", got[..., :h, m:m + iw],
-                   want[..., :h, m:m + iw], "k3")
+                   want[..., :h, m:m + iw], gkey(cfg, "k3"))
         del xb, maps, got, want
     # the video forms: K1's gain form, K4 over two chained frames from the
     # sentinel, K3 with the gain plane
@@ -904,7 +950,12 @@ def main() -> int:
              cfg0.replace(guided_radius=4, **guided), (2, 400, 600), True),
             ("blur r16 600x400 b2",
              cfg0.replace(blur_radius=16, blur_sigma=5.0), (2, 400, 600),
-             False)):
+             False),
+            ("guided r2 luma 65x33 b2", cfg0.replace(**guided), (2, 33, 65),
+             False),
+            ("guided r4 perchannel 263x35 b2",
+             cfg0.replace(guided_radius=4, denoise_guide="perchannel",
+                          **guided), (2, 35, 263), False)):
         xb, gain, _, halo, rows, iw, m = video_case(cfg, lows_of(b, h, w))
         if f32:
             xb = normalize_u8(xb)
@@ -912,7 +963,7 @@ def main() -> int:
                    fe.fused_retinex_gain(xb, gain, cfg, halo, rows)
                    [..., :h, m:m + iw],
                    fe.fused_retinex_gain_plain(xb, gain, cfg, halo, rows)
-                   [..., :h, m:m + iw], "k1")
+                   [..., :h, m:m + iw], gkey(cfg, "k1"))
         ck = torch.full_like(gain, -1.0)
         cp = ck.clone()
         for t in range(2):
@@ -920,7 +971,7 @@ def main() -> int:
             want, cp = fe.fused_retinex_ema_plain(xb, cp, cfg, halo, rows,
                                                   iw, 0.3)
             form_check(f"K4 {name} frame {t + 1}", got[..., :h, m:m + iw],
-                       want[..., :h, m:m + iw], "k4")
+                       want[..., :h, m:m + iw], gkey(cfg, "k4"))
             dc = float((ck - cp)[..., m:m + iw].abs().max())
             if dc > 1e-6:
                 raise AssertionError(f"K4 {name} carry off by {dc}")
@@ -937,7 +988,7 @@ def main() -> int:
                                           ds=4, gain=gain)[..., m:m + iw],
                    fe.fused_curve_enhance_plain(xb, maps, cfg, halo, rows, iw,
                                                 4, gain)[..., m:m + iw],
-                   "k3")
+                   "kg")
         del xb, gain, maps
     print(f"  f32 forms max |df32| over the cases: {f32_err}")
 
@@ -1200,6 +1251,16 @@ def main() -> int:
     form_timed("K1 blur r16 (plane and K1) 600x400 b48",
                lambda: fe.fused_retinex_plain(x48, cfg),
                lambda: fe.fused_retinex(x48, cfg), k1_bound(cfg, 48, 400, 600))
+    # K3 hybrid on f32 data, maps at 1/1
+    xb, maps, halo, rows, iw, m = curve_case(hybrid, lows48)
+    xb = normalize_u8(xb)
+    form_timed("K3 hybrid f32 ds1 600x400 b48",
+               lambda: fe.fused_curve_enhance_plain(xb, maps, hybrid, halo,
+                                                    rows, iw),
+               lambda: fe.fused_curve_enhance(xb, maps, hybrid, halo, rows,
+                                              iw),
+               k3_bound(hybrid, xb, maps, halo, rows, m))
+    del xb, maps
     for n, kw in (gforms[2],):
         cfg = hybrid.replace(**kw)
         xb, maps, halo, rows, iw, m = curve_case(cfg, lows48)
@@ -1326,18 +1387,20 @@ def main() -> int:
     # K3) and 8 (upsampled eagerly, then K3 at ds 1)
     paths += [(f"{c.method} ds{ds}", c.replace(curve_downsample=ds), ("k3",))
               for c, ds in ((curve, 2), (hybrid, 4), (hybrid, 8))]
-    # the guided tails (timed at 1080p b1 too), and a blur past the tiles
+    # the guided tails (timed at 1080p b1 too): the guided kernel, which
+    # counts its own launches, and not K1's or K3's; and a blur past the
+    # tiles
     guided_paths = [
-        ("retinex guided r2", cfg0.replace(**guided), ("k1",)),
+        ("retinex guided r2", cfg0.replace(**guided), ("kg",)),
         ("retinex guided r4", cfg0.replace(guided_radius=4, **guided),
-         ("k1",)),
+         ("kg",)),
         ("retinex guided r4 perchannel",
          cfg0.replace(guided_radius=4, denoise_guide="perchannel", **guided),
-         ("k1",)),
+         ("kg",)),
         ("hybrid guided r4", hybrid.replace(guided_radius=4, **guided),
-         ("k3",)),
+         ("kg",)),
         ("curve ds2 guided r2", curve.replace(curve_downsample=2, **guided),
-         ("k3",)),
+         ("kg",)),
     ]
     paths += guided_paths
     paths += [("retinex blur r16", cfg0.replace(blur_radius=16,
@@ -1365,7 +1428,7 @@ def main() -> int:
                                              curve_iters=16), ("k6a", "k3")),
         ("hybrid pallas guided r4",
          hybrid.replace(conv_impl="pallas", guided_radius=4, **guided),
-         ("k6a", "k3")),
+         ("k6a", "kg")),
         # past 16 pieces: K6 streams its weights (a small block only)
         ("hybrid pallas f640",
          hybrid.replace(conv_impl="pallas", curve_features=640),
@@ -1374,10 +1437,14 @@ def main() -> int:
     paths += conv_paths
     conv_kernels = ("k6a", "k6b", "k7", "k8")
     # kernels a path must not launch: the default arms no conv kernel, the
-    # conv arms none of the others', and the HWC entry point no K1
+    # conv arms none of the others', the HWC entry point no K1, a guided
+    # path none of K1's, K3's and K4's own kernels and a bilateral path not
+    # the guided one
     never = {name: tuple(k for k in conv_kernels if k not in kernels)
+             + (("k1", "k3", "k4") if "kg" in kernels else ("kg",))
              for name, _, kernels in paths}
-    never["hwc"] = ("k1",) + tuple(k for k in conv_kernels if k != "k8")
+    never["hwc"] = ("k1", "kg") + tuple(k for k in conv_kernels
+                                        if k != "k8")
     # launches per block: K6a 6 (hybrid's c2-c7) or 3 (decom's c2-c4) per
     # K3 / K5 launch, K6b 6 (fcn's c2-c7), K7 1 (all six)
     per_block = {"hybrid pallas": ("k6a", 6, "k3"),
@@ -1385,7 +1452,7 @@ def main() -> int:
                  "hybrid pallas f160": ("k6a", 6, "k3"),
                  "hybrid pallas i4": ("k6a", 6, "k3"),
                  "hybrid pallas i16": ("k6a", 6, "k3"),
-                 "hybrid pallas guided r4": ("k6a", 6, "k3"),
+                 "hybrid pallas guided r4": ("k6a", 6, "kg"),
                  "hybrid pallas f640": ("k6a", 6, "k3"),
                  "retinex blur r16": ("kb", 1, "k1"),
                  "quality pallas": ("k6a", 3, "k5"),
@@ -1394,19 +1461,19 @@ def main() -> int:
     # the video benchmark's arms: (name, config, ema_in_kernel, kernels it
     # launches, kernels it must not launch)
     video_paths = [
-        ("video retinex", cfg0, True, ("k4",), ("k1", "k3")),
-        ("video retinex_extgain", cfg0, False, ("k1",), ("k4", "k3")),
+        ("video retinex", cfg0, True, ("k4",), ("k1", "k3", "kg")),
+        ("video retinex_extgain", cfg0, False, ("k1",), ("k4", "k3", "kg")),
         ("video curve_ds4", curve.replace(curve_downsample=4), True,
-         ("k3",), ("k1", "k4")),
+         ("k3",), ("k1", "k4", "kg")),
         ("video hybrid_ds4", hybrid.replace(curve_downsample=4), True,
-         ("k3",), ("k1", "k4")),
-        ("video retinex guided", cfg0.replace(**guided), True, ("k4",),
-         ("k1", "k3")),
+         ("k3",), ("k1", "k4", "kg")),
+        ("video retinex guided", cfg0.replace(**guided), True, ("kg",),
+         ("k1", "k3", "k4")),
         ("video retinex_extgain guided", cfg0.replace(**guided), False,
-         ("k1",), ("k4", "k3")),
+         ("kg",), ("k1", "k4", "k3")),
         ("video hybrid_ds4 guided",
-         hybrid.replace(curve_downsample=4, **guided), True, ("k3",),
-         ("k1", "k4")),
+         hybrid.replace(curve_downsample=4, **guided), True, ("kg",),
+         ("k1", "k3", "k4")),
     ]
     launches = {name: {k: 0 for k in wrappers}
                 for name, *_ in paths + video_paths + [("hwc",)]}
@@ -1709,6 +1776,16 @@ def main() -> int:
         row("blur_illumination (K1/K3/K4 blur past the tiles)", "kb",
             "fused_enhance.cu", "fused_enhance.py:146", kb_ms, kb_plain_ms,
             kb_b),
+        # the guided tails of K1 (and its gain form), K3 and K4: the default
+        # form's numbers (K1 r 2, luma), then every timed form's
+        dict(row("fused_guided (the guided tails of K1, K3, K4)", "kg",
+                 "fused_guided.cu",
+                 "fused_enhance.py:69",
+                 *form_ms["K1 guided r2 luma 600x400 b48"]),
+             forms=[{"form": name, "ms": t, "plain_ms": tp,
+                     "bound_ms": bd[0], "bound_by": bd[1]}
+                    for name, (t, tp, bd) in form_ms.items()
+                    if "guided" in name]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,9 @@ _SIGNATURES = {
     ],
     "llie_fused_guided": [_P, _P],   # FusedGuidedArgs*, stream
     "llie_fused_guided_args_size": [],
+    "llie_fused_guided_plan": [_I, _I, _I, _I],  # family, radius, joint,
+                                                 # what
+    "llie_tiled_denoise_guided_plan": [_I, _I, _I],
     "llie_tiled_denoise_f32": [
         _P, _P, _I, _I, _I,          # in, out, B, HB, WB
         _I, _I, _I,                  # halo, rows, margin

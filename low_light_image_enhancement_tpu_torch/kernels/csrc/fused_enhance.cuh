@@ -1,11 +1,9 @@
-// Device code shared by the guided tails (fused_guided.cu) and K5's
+// Device code shared by the guided tails (fused_guided.cuh) and K5's
 // bilateral arm (tiled_denoise.cu), and the parameter structs and I/O
-// helpers of the tile engine (retinex_tile.cuh: K1, K3, K4): the
-// illumination blur of a region and the boost, the curve maps' upsample
-// taps, and the bilateral denoise tail on a 2-D output tile of TILE_H x
-// TILE_W pixels, one thread per output pixel; the u8 and f32 loads and
-// stores. The guided tails stage their tiles with blur_region and run
-// guided.cuh.
+// helpers of the tile engine (retinex_tile.cuh: K1, K3, K4): the boost,
+// the curve maps' upsample taps, and the bilateral denoise tail on a 2-D
+// output tile of TILE_H x TILE_W pixels, one thread per output pixel; the
+// u8 and f32 loads and stores.
 //
 // The arithmetic repeats the plain PyTorch versions (ops/filters.py,
 // ops/denoise.py, core.py) operation for operation: the same tap order,
@@ -37,7 +35,7 @@ constexpr int PN = TILE_H * YW;
 
 constexpr float U8_SCALE = 1.0f / 255.0f;
 
-// K1's stages (the JAX kernel's `stages`; retinex_tile.cu, fused_guided.cu):
+// K1's stages (the JAX kernel's `stages`; retinex_tile.cu, fused_guided.cuh):
 // without BLUR the illumination is max RGB itself, without BOOST the gain
 // is the clipped illumination (no exp/log), without either y = x; without
 // DENOISE no tail runs.
@@ -150,38 +148,6 @@ __device__ __forceinline__ float spatial(int k) {
   return k == 1 ? 0.5f : 0.25f;
 }
 
-// The separable blur of L0 on an OH x OW region of any tile shape: sL0
-// holds L0 on (OH + 2R) x (OW + 2R) at row stride OW + 2R, sV is scratch
-// of OH x (OW + 2R); epi(i, j, l) gets the blurred value of position (i,
-// j), which is (i + R, j + R) of sL0. Vertical taps first, term k reading
-// row y + R - k, k ascending, each pass starting from its first term (the
-// order of ops/filters.py separable_blur). Every thread of the block
-// (nthreads of them) calls it; it synchronises after each pass.
-template <class Epilogue>
-__device__ inline void blur_region(const float* __restrict__ sL0,
-                                   float* __restrict__ sV,
-                                   const BoostParams& bp, int OH, int OW,
-                                   int tid, int nthreads, Epilogue epi) {
-  const int R = bp.radius;
-  const int LW = OW + 2 * R;
-  for (int e = tid; e < OH * LW; e += nthreads) {
-    const int i = e / LW, j = e - (e / LW) * LW;
-    float acc = bp.taps[0] * sL0[(i + 2 * R) * LW + j];
-    for (int k = 1; k <= 2 * R; ++k)
-      acc = acc + bp.taps[k] * sL0[(i + 2 * R - k) * LW + j];
-    sV[e] = acc;
-  }
-  __syncthreads();
-  for (int e = tid; e < OH * OW; e += nthreads) {
-    const int i = e / OW, j = e - (e / OW) * OW;
-    float l = bp.taps[0] * sV[i * LW + j + 2 * R];
-    for (int k = 1; k <= 2 * R; ++k)
-      l = l + bp.taps[k] * sV[i * LW + j + 2 * R - k];
-    epi(i, j, l);
-  }
-  __syncthreads();
-}
-
 // The retinex gain of a blurred (or, without STAGE_BLUR, raw) illumination
 // value: clipped to [eps, 1], then exp((gamma-1) * log L), or without
 // STAGE_BOOST the clipped value itself.
@@ -200,13 +166,6 @@ __device__ __forceinline__ float boost_gain(float l, const BoostParams& bp,
 struct MapTap {
   int r0, r1, c0, c1;
   float fr, gr, fc, gc;  // f and 1 - f of the rows and the columns
-
-  __device__ __forceinline__ float at(const float* __restrict__ q,
-                                      int wl) const {
-    const float a0 = q[r0 * wl + c0] * gc + q[r0 * wl + c1] * fc;
-    const float a1 = q[r1 * wl + c0] * gc + q[r1 * wl + c1] * fc;
-    return a0 * gr + a1 * fr;
-  }
 };
 
 // The host-rounded weight of phase p, selected in registers (an indexed

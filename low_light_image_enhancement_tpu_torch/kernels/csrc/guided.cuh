@@ -1,8 +1,8 @@
 // Guided-filter device code: the shift-form cascade of ops/guided.py
 // (box_mean_shift, guided_core_shift, guided_joint_core_shift) on a 2-D
 // output tile of GT_H x GT_W pixels. K5 (tiled_denoise.cu) runs it on an
-// f32 input tile; the guided tails of K1 and K3 are to stage their boosted
-// (or curved) planes the same way and run guided_tile.
+// f32 input tile; the guided tails of K1, K3 and K4 (fused_guided.cu) on
+// their boosted, curved or gained tiles.
 //
 // The arithmetic repeats the plain versions operation for operation: each
 // box pass starts from the centre and adds the taps at -t and +t, t
@@ -22,10 +22,18 @@
 // rows, and every plane's row stride is odd, so a warp's loads fall in
 // distinct banks. The algebra between the passes runs in the horizontal
 // items' registers (a and b as the box means arrive; q and the blend as
-// box(a) and box(b) arrive), and the blended tile is staged in shared
-// memory and written out row by row at the end. Item indices are divided
-// only by compile-time constants. Barriers: 1 for the input, 2 for the
-// joint guide's statistics, 3 a channel, 1 before the output.
+// box(a) and box(b) arrive). Item indices are divided only by
+// compile-time constants. Barriers: 2 for the joint guide's statistics, 3
+// a channel, 1 at the end; the caller's staging ends with one.
+//
+// The footprint. The caller stages the three input planes with their 2r
+// ring and, for the joint guide, the channel-mean guide beside them
+// (stage_guide); the blended channel is written over its own input plane's
+// centre (each output position is read and written by one thread of the
+// last pass, whose items do not overlap), so no output planes are kept,
+// and the per-channel guide keeps neither the guide nor its statistics.
+// That is what lets a tile run 3 blocks an SM up to r = 5 per channel and
+// r = 2 with the joint guide (GuidedGeom::BLOCKS).
 #pragma once
 
 #include "fused_enhance.cuh"
@@ -59,10 +67,30 @@ struct GuidedGeom {
   static constexpr int VN = SH * LS;  // one vertical pass of the input
   static constexpr int SN = SH * SS;  // one statistics plane
   static constexpr int QN = GT_H * SS;  // one vertical pass of the stats
-  static constexpr int ON = GT_H * (GT_W + 1);  // one output plane
-  // x0 x1 x2 g | v1 v2 | s1 s2 | a b | va vb | out x 3
-  static constexpr int FLOATS = 4 * LN + 2 * VN + 4 * SN + 2 * QN + 3 * ON;
+  // x0 x1 x2 [g] | v1 v2 | [mg inv] | a b | va vb
+  __host__ __device__ static constexpr int floats(bool joint) {
+    return (joint ? 4 : 3) * LN + 2 * VN + (joint ? 4 : 2) * SN + 2 * QN;
+  }
+  // where the planes after the inputs (and the guide) start: the staging's
+  // scratch until guided_tile runs
+  __host__ __device__ static constexpr int scratch(bool joint) {
+    return (joint ? 4 : 3) * LN;
+  }
+  // the blocks an SM that guided_tile's shared memory allows (228 KB an
+  // SM, 1 KB of it reserved a block), at most 3 (80 registers a thread),
+  // which the kernels are built for
+  __host__ __device__ static constexpr int BLOCKS(bool joint) {
+    return 233472 / (4 * floats(joint) + 1024) > 3
+               ? 3
+               : 233472 / (4 * floats(joint) + 1024);
+  }
 };
+
+// The channel-mean guide of a staged position, as the plain version forms
+// it.
+__device__ __forceinline__ float guide_of(float p0, float p1, float p2) {
+  return (p0 + p1 + p2) * (1.0f / 3.0f);
+}
 
 // One item of a pass: P outputs from P + 2R values of a window w, out[i]
 // centred on w[i + R].
@@ -104,30 +132,29 @@ __device__ __forceinline__ void horizontal_items(int tid, Fn fn) {
 
 // The guided filter of the tile whose input planes (with their 2R ring)
 // are staged in sm[0 .. 3 * LN) at stride LS, pixel (y, x) of the tile at
-// (y + 2R, x + 2R); sm holds GuidedGeom<R>::FLOATS floats. Every thread of
-// the block must call it; it ends with the blended, unclipped tile in
-// out_planes(sm) (3 planes of GT_H x (GT_W + 1)) and a __syncthreads.
+// (y + 2R, x + 2R), and, JOINT, the channel-mean guide of every staged
+// position in sm[3 LN .. 4 LN); sm holds GuidedGeom<R>::floats(JOINT)
+// floats. Every thread of the block must call it, after the barrier that
+// ends the staging; it ends with the blended, unclipped tile over the
+// input planes' centres (at_out) and a __syncthreads.
 template <int R, bool JOINT>
 __device__ void guided_tile(float* __restrict__ sm, const GuidedParams& gp,
                             int tid) {
   using Gm = GuidedGeom<R>;
   constexpr int LS = Gm::LS, SS = Gm::SS, W = GP + 2 * R;
-  float* sG = sm + 3 * Gm::LN;      // LH x LW: the channel-mean guide
-  float* sV1 = sG + Gm::LN;         // SH x LW: vertical passes
+  static_assert(GT_W % GP == 0, "the last pass's items do not overlap");
+  float* sG = sm + 3 * Gm::LN;               // LH x LW: the joint guide
+  float* sV1 = sm + Gm::scratch(JOINT);      // SH x LW: vertical passes
   float* sV2 = sV1 + Gm::VN;
-  float* sMg = sV2 + Gm::VN;        // SH x SW: box(g)
-  float* sInv = sMg + Gm::SN;       // SH x SW: 1 / (var(g) + eps)
-  float* sA = sInv + Gm::SN;        // SH x SW: a
-  float* sB = sA + Gm::SN;          // SH x SW: b
-  float* sVa = sB + Gm::SN;         // GT_H x SW: vertical passes of a, b
+  float* sMg = sV2 + Gm::VN;                 // SH x SW: box(g) (JOINT)
+  float* sInv = sMg + Gm::SN;                // SH x SW: 1 / (var + eps)
+  float* sA = JOINT ? sInv + Gm::SN : sMg;   // SH x SW: a
+  float* sB = sA + Gm::SN;                   // SH x SW: b
+  float* sVa = sB + Gm::SN;                  // GT_H x SW: box(a), box(b)
   float* sVb = sVa + Gm::QN;
-  float* sOut = sVb + Gm::QN;       // 3 x GT_H x (GT_W + 1)
   const float k = gp.k;
 
   if constexpr (JOINT) {
-    for (int e = tid; e < Gm::LN; e += GUIDED_THREADS)
-      sG[e] = (sm[e] + sm[Gm::LN + e] + sm[2 * Gm::LN + e]) * (1.0f / 3.0f);
-    __syncthreads();
     // box(g), box(g * g): vertical
     vertical_items<Gm::LW, Gm::SH>(tid, [&](int c, int r0) {
       float g[W], v[GP], vv[GP], gg[W];
@@ -166,7 +193,7 @@ __device__ void guided_tile(float* __restrict__ sm, const GuidedParams& gp,
   }
 
   for (int ch = 0; ch < 3; ++ch) {
-    const float* p = sm + ch * Gm::LN;
+    float* p = sm + ch * Gm::LN;
     // box(p) and box(g * p) (joint) or box(p * p): vertical, over the rows
     // of the statistics
     vertical_items<Gm::LW, Gm::SH>(tid, [&](int c, int r0) {
@@ -232,8 +259,8 @@ __device__ void guided_tile(float* __restrict__ sm, const GuidedParams& gp,
       }
     });
     __syncthreads();
-    // horizontal, then q = box(a) * guide + box(b) and the blend
-    float* o = sOut + ch * Gm::ON;
+    // horizontal, then q = box(a) * guide + box(b) and the blend, over the
+    // input's centre (its last reader)
     horizontal_items<GT_H, GT_W>(tid, [&](int r, int c0) {
       float wa[W], wb[W], qa[GP], qb[GP];
 #pragma unroll
@@ -248,18 +275,19 @@ __device__ void guided_tile(float* __restrict__ sm, const GuidedParams& gp,
         const int at = (r + 2 * R) * LS + c0 + i + 2 * R;
         const float x = p[at];
         const float q = qa[i] * (JOINT ? sG[at] : x) + qb[i];
-        o[r * (GT_W + 1) + c0 + i] = x + gp.strength * (q - x);
+        p[at] = x + gp.strength * (q - x);
       }
     });
   }
   __syncthreads();
 }
 
-// The output planes of a tile's shared memory after guided_tile.
+// Output pixel (y, x) of channel ch of the tile after guided_tile.
 template <int R>
-__device__ __forceinline__ const float* out_planes(const float* sm) {
+__device__ __forceinline__ float at_out(const float* sm, int ch, int y,
+                                        int x) {
   using Gm = GuidedGeom<R>;
-  return sm + 4 * Gm::LN + 2 * Gm::VN + 4 * Gm::SN + 2 * Gm::QN;
+  return sm[ch * Gm::LN + (y + 2 * R) * Gm::LS + x + 2 * R];
 }
 
 }  // namespace llie

@@ -28,7 +28,8 @@
 // The blur radius R (1..MAX_BLUR_RADIUS) is a template parameter of passes
 // 2 and 3, dispatched at run time once a tile, so the taps sit in
 // registers and every window index is a constant. Every sum keeps the plain
-// version's order (fused_enhance.cuh's blur_region and denoise_tile): vertical
+// version's order (ops/filters.py's separable_blur, fused_enhance.cuh's
+// denoise_tile): vertical
 // blur term k reads row y + R - k, k ascending, then the
 // horizontal; the bilateral taps in the order of ops/denoise.py, starting
 // from 0, the per-channel forms dividing and the joint ones multiplying by

@@ -37,9 +37,11 @@
 // horizontal items' registers, and the blended tile leaves through shared
 // memory in whole rows. The radius and the guide are template parameters
 // (8 radii x joint / per channel), so every window index is a constant.
-// A tile at r = 4 holds 90 KB of shared memory (two blocks an SM), at r =
-// 8 142 KB: the launch opts in to dynamic shared memory past 48 KB
-// (cudaFuncAttributeMaxDynamicSharedMemorySize).
+// The staging writes the joint guide beside the input, and the blended
+// tile replaces the input's centre: a tile at r = 4 holds 90 KB of shared
+// memory with the joint guide (two blocks an SM), 67.5 KB per channel
+// (three), at r = 8 125 KB: the launch opts in to dynamic shared memory
+// past 48 KB (cudaFuncAttributeMaxDynamicSharedMemorySize).
 //
 // Numerics. --fmad=false and no --use_fast_math (see _build.py); the
 // device code repeats the plain versions' operations in their order
@@ -104,13 +106,16 @@ denoise_guided_kernel(const float* __restrict__ in, float* __restrict__ out,
     const int i = e / Gm::LW, j = e % Gm::LW;
     const size_t at = (size_t)clampi(r0 + i, lo, hi) * WB
                       + clampi(c0 + j, 0, WB - 1);
-    for (int c = 0; c < 3; ++c)
-      smem[c * Gm::LN + i * Gm::LS + j] = blk[c * plane + at];
+    float v[3];
+    for (int c = 0; c < 3; ++c) {
+      v[c] = blk[c * plane + at];
+      smem[c * Gm::LN + i * Gm::LS + j] = v[c];
+    }
+    if (JOINT) smem[3 * Gm::LN + i * Gm::LS + j] = guide_of(v[0], v[1], v[2]);
   }
   __syncthreads();
 
   guided_tile<R, JOINT>(smem, gp, tid);
-  const float* o = out_planes<R>(smem);
   float* q = out + (size_t)blockIdx.z * 3 * rows * WB;
   for (int e = tid; e < GT_H * GT_W; e += GUIDED_THREADS) {
     const int i = e / GT_W, j = e % GT_W;
@@ -118,7 +123,7 @@ denoise_guided_kernel(const float* __restrict__ in, float* __restrict__ out,
     if (r < rows && c < WB)
       for (int ch = 0; ch < 3; ++ch)
         q[(size_t)ch * rows * WB + (size_t)r * WB + c] =
-            clip01(o[ch * Gm::ON + i * (GT_W + 1) + j]);
+            clip01(at_out<R>(smem, ch, i, j));
   }
 }
 
@@ -126,7 +131,7 @@ template <int R, bool JOINT>
 int launch_guided(const float* in, float* out, int B, int HB, int WB,
                   int halo, int rows, int m, const GuidedParams& gp,
                   cudaStream_t stream) {
-  const int smem = (int)sizeof(float) * GuidedGeom<R>::FLOATS;
+  const int smem = (int)sizeof(float) * GuidedGeom<R>::floats(JOINT);
   const void* kern = (const void*)denoise_guided_kernel<R, JOINT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -212,6 +217,53 @@ int llie_tiled_denoise_f32(const void* in, void* out, int B, int HB, int WB,
                                                           halo, rows, m, tp);
   }
   return (int)cudaGetLastError();
+}
+
+// K5's guided kernel of a radius and guide (`joint`) on the device current
+// now: `what` 0 its registers a thread, 1 its local memory a thread in
+// bytes (stack and spills), 2 its dynamic shared memory in bytes, 3 the
+// blocks an SM at that shared memory (the occupancy API). -1 for an
+// argument out of range.
+int llie_tiled_denoise_guided_plan(int radius, int joint, int what) {
+  if (radius < 1 || radius > MAX_GUIDED_RADIUS) return -1;
+  const void* kern = nullptr;
+  int smem = 0;
+  switch (radius) {
+#define LLIE_GUIDED_CASE(R)                                          \
+  case R:                                                            \
+    kern = joint ? (const void*)denoise_guided_kernel<R, true>       \
+                 : (const void*)denoise_guided_kernel<R, false>;     \
+    smem = (int)sizeof(float) * GuidedGeom<R>::floats(joint);        \
+    break;
+    LLIE_GUIDED_CASE(1)
+    LLIE_GUIDED_CASE(2)
+    LLIE_GUIDED_CASE(3)
+    LLIE_GUIDED_CASE(4)
+    LLIE_GUIDED_CASE(5)
+    LLIE_GUIDED_CASE(6)
+    LLIE_GUIDED_CASE(7)
+    LLIE_GUIDED_CASE(8)
+#undef LLIE_GUIDED_CASE
+  }
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, kern) != cudaSuccess) return -1;
+  switch (what) {
+    case 0: return fa.numRegs;
+    case 1: return (int)fa.localSizeBytes;
+    case 2: return smem;
+    case 3: {
+      if (cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem) != cudaSuccess)
+        return -1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &n, kern, GUIDED_THREADS, smem) != cudaSuccess)
+        return -1;
+      return n;
+    }
+    default: return -1;
+  }
 }
 
 }  // extern "C"

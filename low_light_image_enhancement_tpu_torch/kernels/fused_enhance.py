@@ -5,9 +5,12 @@ Each wrapper dispatches on the device of its input alone: a CPU tensor goes
 to the plain version, a CUDA tensor to the hand-written kernels on the tile
 engine of ``csrc/retinex_tile.cuh`` with the bilateral tails, or none
 (``csrc/retinex_tile.cu``: K1 and K4; ``csrc/curve_tile.cu``: K3 and K1's
-gain form), to ``csrc/fused_guided.cu`` (the guided tails) and
-``csrc/fused_enhance.cu`` (the blur past the tiles), or the call raises.
-``<wrapper>.launches`` counts the kernel launches, and nothing else.
+gain form), to the guided tail kernel ``fused_guided``
+(``csrc/fused_guided.cuh``: ``fused_guided.cu``, ``guided_curve.cu``,
+``guided_ema.cu``) and ``csrc/fused_enhance.cu`` (the blur past the
+tiles), or the call raises. ``<wrapper>.launches`` counts the launches of
+the wrapper's own kernel, and nothing else: the guided tail's launches
+count on ``fused_guided.launches``, not on the wrapper that called it.
 
 Every form of the JAX kernels runs: u8 or f32 I/O (f32 in [0, 1], clipped
 and not quantized out), the bilateral or guided tail, any blur radius (past
@@ -18,7 +21,7 @@ f32 plane that the kernel reads), and K1's ``stages``.
   ``kernels/fused_enhance.py::fused_retinex`` (``_retinex_kernel``) on
   (B, H, W, 3) images; ``fused_retinex_gain`` is its external-gain form on
   a block, with the contract of ``video._fused_gain_tail``, and counts its
-  launches on ``fused_retinex``.
+  bilateral launches on ``fused_retinex``.
 - K3 ``fused_curve_enhance`` replaces its ``fused_curve_enhance``
   (``_curve_kernel``) with the contract of ``blocks._fused_curve_tail``:
   full-resolution maps or maps at 1/2 and 1/4 that it upsamples itself, and
@@ -87,7 +90,7 @@ def _tail_runs(cfg: PipelineConfig, stages=frozenset(STAGES)) -> bool:
 
 
 def _guided(cfg: PipelineConfig, stages=frozenset(STAGES)) -> bool:
-    """The guided tail runs (csrc/fused_guided.cu)."""
+    """The guided tail runs (``fused_guided``)."""
     return cfg.denoise_taps == "guided" and _tail_runs(cfg, stages)
 
 
@@ -200,12 +203,12 @@ class _GuidedParams(ctypes.Structure):
 
 
 class _GuidedArgs(ctypes.Structure):
-    """csrc/fused_guided.cu FusedGuidedArgs."""
+    """csrc/fused_guided.cuh FusedGuidedArgs."""
     _fields_ = [(n, ctypes.c_void_p) for n in
                 ("inp", "out", "maps", "gain", "lp", "carry", "ncarry")] + [
         (n, ctypes.c_int) for n in
         ("family", "f32", "B", "H", "W", "halo", "rows", "m", "img_w",
-         "n_iter", "ds", "boost", "stages", "lpe")] + [
+         "n_iter", "ds", "boost", "stages", "lpe", "parts")] + [
         ("bp", _Boost), ("up", _Up), ("ep", _Ema), ("gp", _GuidedParams)]
 
 
@@ -216,14 +219,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_guided(family: str, cfg: PipelineConfig, xin, out, *, B, H, W,
-                   stages=frozenset(STAGES), halo=0, rows=0, m=0, img_w=0,
-                   maps=None, gain=None, lp=None, lpe=0, carry=None,
-                   ncarry=None, n_iter=0, ds=1, boost=0, ema=None,
-                   what="") -> None:
+PARTS_ALL = 3   # csrc/fused_guided.cuh PART_TAIL | PART_STORE
+
+
+def fused_guided(family: str, cfg: PipelineConfig, xin, out, *, B, H, W,
+                 stages=frozenset(STAGES), halo=0, rows=0, m=0, img_w=0,
+                 maps=None, gain=None, lp=None, lpe=0, carry=None,
+                 ncarry=None, n_iter=0, ds=1, boost=0, ema=None,
+                 what="", parts=PARTS_ALL) -> None:
+    """The guided tail kernel (``csrc/fused_guided.cuh``) of K1
+    (``family`` "retinex"), K1's gain form ("gain"), K3 ("curve") or K4
+    ("ema") on CUDA tensors, as ``fused_retinex``, ``fused_retinex_gain``,
+    ``fused_curve_enhance`` and ``fused_retinex_ema`` call it for
+    ``denoise_taps="guided"``; ``out`` is written. ``parts`` runs fewer
+    of the kernel's parts after its staging (tools/profile_torch.py
+    ``stages_guided``). Counts its launches on ``fused_guided.launches``."""
     lib = _build.load_library()
     if lib.llie_fused_guided_args_size() != ctypes.sizeof(_GuidedArgs):
-        raise RuntimeError("csrc/fused_guided.cu FusedGuidedArgs and its "
+        raise RuntimeError("csrc/fused_guided.cuh FusedGuidedArgs and its "
                            "mirror _GuidedArgs differ")
     a = _GuidedArgs()
     a.inp, a.out = xin.data_ptr(), out.data_ptr()
@@ -234,7 +247,7 @@ def _launch_guided(family: str, cfg: PipelineConfig, xin, out, *, B, H, W,
     a.halo, a.rows, a.m, a.img_w = halo, rows, m, img_w
     a.n_iter, a.ds, a.boost = n_iter, ds, boost
     a.stages = sum(_STAGE_BITS[s] for s in stages)
-    a.lpe = lpe
+    a.lpe, a.parts = lpe, parts
     radius, taps, gm1, eps = _boost_args(cfg)
     # the taps on the tile; a wider blur comes in lp (or is not run)
     a.bp.radius = radius if lp is None and radius <= MAX_BLUR_RADIUS else 0
@@ -252,6 +265,10 @@ def _launch_guided(family: str, cfg: PipelineConfig, xin, out, *, B, H, W,
     with torch.cuda.device(xin.device):
         rc = lib.llie_fused_guided(ctypes.byref(a), _stream(xin))
     _raise_on(rc, lib, what)
+    fused_guided.launches += 1
+
+
+fused_guided.launches = 0
 
 
 # ------------------------------------------- blurs past MAX_BLUR_RADIUS #
@@ -375,16 +392,16 @@ def fused_retinex(imgs: torch.Tensor, cfg: PipelineConfig, *,
     lp = (blur_illumination(imgs, cfg, e, hwc=True)
           if _wide_blur(cfg) and "blur" in stages else None)
     if guided:
-        _launch_guided("retinex", cfg, imgs, out, B=b, H=h, W=w,
-                       stages=stages, lp=lp, lpe=e, what="fused_retinex")
-    else:
-        with torch.cuda.device(imgs.device):
-            rc = lib.llie_fused_retinex(
-                imgs.data_ptr(), out.data_ptr(),
-                int(imgs.dtype == torch.float32), _ptr(lp), b, h, w,
-                sum(_STAGE_BITS[s] for s in stages), *_boost_args(cfg),
-                *_tail_args(cfg), _stream(imgs))
-        _raise_on(rc, lib, "fused_retinex")
+        fused_guided("retinex", cfg, imgs, out, B=b, H=h, W=w,
+                     stages=stages, lp=lp, lpe=e, what="fused_retinex")
+        return out
+    with torch.cuda.device(imgs.device):
+        rc = lib.llie_fused_retinex(
+            imgs.data_ptr(), out.data_ptr(),
+            int(imgs.dtype == torch.float32), _ptr(lp), b, h, w,
+            sum(_STAGE_BITS[s] for s in stages), *_boost_args(cfg),
+            *_tail_args(cfg), _stream(imgs))
+    _raise_on(rc, lib, "fused_retinex")
     fused_retinex.launches += 1
     return out
 
@@ -418,8 +435,8 @@ def fused_retinex_gain(xb: torch.Tensor, gain: torch.Tensor,
     """K1 with an external gain plane: u8 or f32 block (B, 3, HB, WB) + f32
     gain (B, HB, WB) -> (B, 3, rows, WB) of the block's dtype, the block's
     rows [halo, halo + rows). The gain is read where it lies: it already
-    carries the margin column replica. Counts its launches on
-    ``fused_retinex``."""
+    carries the margin column replica. Counts its bilateral launches on
+    ``fused_retinex`` (the guided tail's on ``fused_guided``)."""
     if cfg.method != "retinex":
         raise ValueError(f"fused_retinex_gain runs method='retinex', not "
                          f"{cfg.method!r}")
@@ -434,15 +451,15 @@ def fused_retinex_gain(xb: torch.Tensor, gain: torch.Tensor,
     b, _, hb, wb = xb.shape
     out = torch.empty((b, 3, rows, wb), dtype=xb.dtype, device=xb.device)
     if _guided(cfg):
-        _launch_guided("gain", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
-                       rows=rows, m=m, gain=gain, what="fused_retinex_gain")
-    else:
-        with torch.cuda.device(xb.device):
-            rc = lib.llie_fused_retinex_gain(
-                xb.data_ptr(), gain.data_ptr(), out.data_ptr(),
-                int(xb.dtype == torch.float32), b, hb, wb, halo, rows,
-                *_tail_args(cfg), _stream(xb))
-        _raise_on(rc, lib, "fused_retinex_gain")
+        fused_guided("gain", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
+                     rows=rows, m=m, gain=gain, what="fused_retinex_gain")
+        return out
+    with torch.cuda.device(xb.device):
+        rc = lib.llie_fused_retinex_gain(
+            xb.data_ptr(), gain.data_ptr(), out.data_ptr(),
+            int(xb.dtype == torch.float32), b, hb, wb, halo, rows,
+            *_tail_args(cfg), _stream(xb))
+    _raise_on(rc, lib, "fused_retinex_gain")
     fused_retinex.launches += 1
     return out
 
@@ -520,19 +537,19 @@ def fused_curve_enhance(
     lp = (blur_illumination(xb, cfg, 0, hwc=False)
           if boost and _wide_blur(cfg) else None)
     if _guided(cfg):
-        _launch_guided("curve", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
-                       rows=rows, m=m, img_w=img_w, maps=maps, gain=gain,
-                       lp=lp, n_iter=maps.shape[1], ds=ds, boost=boost,
-                       what="fused_curve_enhance")
-    else:
-        phases = (ctypes.c_float * 8)(*_phase_consts(ds))
-        with torch.cuda.device(xb.device):
-            rc = lib.llie_fused_curve(
-                xb.data_ptr(), maps.data_ptr(), _ptr(gain), _ptr(lp),
-                out.data_ptr(), int(xb.dtype == torch.float32), b, hb, wb,
-                halo, rows, maps.shape[1], boost, m, img_w, ds, phases,
-                *_boost_args(cfg), *_tail_args(cfg), _stream(xb))
-        _raise_on(rc, lib, "fused_curve_enhance")
+        fused_guided("curve", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
+                     rows=rows, m=m, img_w=img_w, maps=maps, gain=gain,
+                     lp=lp, n_iter=maps.shape[1], ds=ds, boost=boost,
+                     what="fused_curve_enhance")
+        return out
+    phases = (ctypes.c_float * 8)(*_phase_consts(ds))
+    with torch.cuda.device(xb.device):
+        rc = lib.llie_fused_curve(
+            xb.data_ptr(), maps.data_ptr(), _ptr(gain), _ptr(lp),
+            out.data_ptr(), int(xb.dtype == torch.float32), b, hb, wb,
+            halo, rows, maps.shape[1], boost, m, img_w, ds, phases,
+            *_boost_args(cfg), *_tail_args(cfg), _stream(xb))
+    _raise_on(rc, lib, "fused_curve_enhance")
     fused_curve_enhance.launches += 1
     return out
 
@@ -607,20 +624,19 @@ def fused_retinex_ema(
     lp = blur_illumination(xb, cfg, 0, hwc=False) if _wide_blur(cfg) \
         else None
     if _guided(cfg):
-        _launch_guided("ema", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
-                       rows=rows, m=m, img_w=img_w, lp=lp, carry=carry,
-                       ncarry=new_carry,
-                       ema=(alpha, 1.0 - alpha, cfg.gamma),
-                       what="fused_retinex_ema")
-    else:
-        radius, taps, _, eps = _boost_args(cfg)
-        with torch.cuda.device(xb.device):
-            rc = lib.llie_fused_retinex_ema(
-                xb.data_ptr(), carry.data_ptr(), _ptr(lp), out.data_ptr(),
-                new_carry.data_ptr(), int(xb.dtype == torch.float32), b, hb,
-                wb, halo, rows, m, img_w, alpha, 1.0 - alpha, cfg.gamma,
-                radius, taps, eps, *_tail_args(cfg), _stream(xb))
-        _raise_on(rc, lib, "fused_retinex_ema")
+        fused_guided("ema", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
+                     rows=rows, m=m, img_w=img_w, lp=lp, carry=carry,
+                     ncarry=new_carry, ema=(alpha, 1.0 - alpha, cfg.gamma),
+                     what="fused_retinex_ema")
+        return out, new_carry
+    radius, taps, _, eps = _boost_args(cfg)
+    with torch.cuda.device(xb.device):
+        rc = lib.llie_fused_retinex_ema(
+            xb.data_ptr(), carry.data_ptr(), _ptr(lp), out.data_ptr(),
+            new_carry.data_ptr(), int(xb.dtype == torch.float32), b, hb,
+            wb, halo, rows, m, img_w, alpha, 1.0 - alpha, cfg.gamma,
+            radius, taps, eps, *_tail_args(cfg), _stream(xb))
+    _raise_on(rc, lib, "fused_retinex_ema")
     fused_retinex_ema.launches += 1
     return out, new_carry
 

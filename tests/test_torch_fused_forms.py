@@ -56,6 +56,12 @@ def _cropped(got, want, m, w):
     (dict(guided_radius=4), (33, 47), False),
     (dict(guided_radius=4, denoise_guide="perchannel"), (40, 72), False),
     (dict(guided_radius=4, guided_eps=3e-3), (33, 47), True),
+    # the guided kernel's 32 x 32 tile: heights and widths one past it and
+    # one short of two, at r 2 and 4 in both guides
+    (dict(guided_radius=2), (33, 63), False),
+    (dict(guided_radius=2, denoise_guide="perchannel"), (63, 33), False),
+    (dict(guided_radius=4), (63, 33), False),
+    (dict(guided_radius=4, denoise_guide="perchannel"), (33, 63), False),
 ])
 def test_k1_guided_matches_jax_kernel(kw, size, f32):
     lows, _ = synth_batch(2, *size, seed=20)

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """The tile engine's kernels (K1 and K4 in ``csrc/retinex_tile.cu``, K3 in
-``csrc/curve_tile.cu``): what their compiler says.
+``csrc/curve_tile.cu``) and the guided kernels (the guided tails of K1, K3
+and K4 in ``csrc/fused_guided.cu``, K5's guided arm in
+``csrc/tiled_denoise.cu``): what their compiler says.
 
-``nvcc -Xptxas -v`` of the sources that hold K1, K4 and K3 (this tree's
-``csrc/retinex_tile.cu`` and ``csrc/curve_tile.cu``, and
-``csrc/fused_enhance.cu``, where K3 lived before the engine took it;
-copied into an older tree, whichever of them it has): registers, stack
-frame, spills and shared memory of each kernel. A tile kernel with a stack
-frame or a spill fails the probe. The kernels' agreement with their plain versions and the
-plan's with its CPU mirror are ``chip_smoke.py``'s; their times are
-``tools/time_fused.py``'s.
+``nvcc -Xptxas -v`` of the sources that hold them (this tree's
+``csrc/retinex_tile.cu``, ``csrc/curve_tile.cu``, ``csrc/fused_guided.cu``
+and ``csrc/tiled_denoise.cu``, and ``csrc/fused_enhance.cu``, where K3
+lived before the engine took it; copied into an older tree, whichever of
+them it has): registers, stack frame, spills and shared memory of each
+kernel. Then, from the built library, each guided kernel's registers,
+local memory, dynamic shared memory and blocks an SM at that shared memory
+(the occupancy API, ``llie_fused_guided_plan`` for each family at blur
+radius 2 and ``llie_tiled_denoise_guided_plan``). A tile or guided kernel
+with a stack frame or a spill fails the probe. The kernels'
+agreement with their plain versions and the plan's with its CPU mirror are
+``chip_smoke.py``'s; their times are ``tools/time_fused.py``'s.
 
 ``--sass FILE`` instead writes the SASS of the built library's tile
 kernels (``cuobjdump -sass``) to FILE, for reading off the card.
@@ -58,9 +64,11 @@ def _demangle(names):
 
 
 def compiler_report() -> None:
-    """ptxas -v of the sources holding K1, K4 and K3, compiled at once."""
+    """ptxas -v of the sources holding K1, K4, K3 and the guided kernels,
+    compiled at once."""
     names = [n for n in ("retinex_tile.cu", "curve_tile.cu",
-                         "fused_enhance.cu")
+                         "fused_enhance.cu", "fused_guided.cu",
+                         "tiled_denoise.cu")
              if (_build._CSRC / n).exists()]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
@@ -86,11 +94,11 @@ def compiler_report() -> None:
         pretty = _demangle(list(props))
         for fn, lines in props.items():
             short = pretty[fn]
-            if not re.search(r"retinex|ema|curve", short):
+            if not re.search(r"retinex|ema|curve|guided", short):
                 continue
             short = short.split(">(")[0].replace("llie::", "") + ">"
             print(f"  ptxas {name} {short}: {' | '.join(lines)}")
-            if "tile::" in pretty[fn]:
+            if "tile::" in pretty[fn] or "guided" in pretty[fn]:
                 text = " ".join(lines)
                 frame = re.search(r"(\d+) bytes stack frame", text)
                 spill = re.findall(r"(\d+) bytes spill", text)
@@ -99,6 +107,30 @@ def compiler_report() -> None:
                     bad.append(short)
     if bad:
         raise AssertionError(f"stack or spills in {', '.join(bad)}")
+
+
+def guided_occupancy() -> None:
+    """Each guided kernel as the built library reports it on this card."""
+    lib = _build.load_library()
+    plans = [(f"fused_guided {fam}", lambda r, j, w, f=f:
+              lib.llie_fused_guided_plan(f, r, j, w))
+             for f, fam in ((0, "K1"), (2, "K3 (blur r 2)"), (1, "K1 gain"),
+                            (3, "K4"))]
+    plans.append(("K5 guided", lib.llie_tiled_denoise_guided_plan))
+    bad = []
+    for what, plan in plans:
+        for joint in (1, 0):
+            for r in range(1, 9):
+                regs, local, smem, blocks = (plan(r, joint, w)
+                                             for w in range(4))
+                print(f"  {what} r {r} {'luma' if joint else 'perchannel'}:"
+                      f" {regs} registers, {local} bytes local, "
+                      f"{smem} bytes shared, {blocks} blocks an SM")
+                if local:
+                    bad.append(f"{what} r {r} joint {joint}")
+    if bad:
+        raise AssertionError(f"local memory (stack or spills) in "
+                             f"{', '.join(bad)}")
 
 
 def main(argv) -> int:
@@ -122,8 +154,11 @@ def main(argv) -> int:
         print(f"  {len(out)} lines of tile kernels' SASS -> {argv[1]}")
         return 0
     t0 = time.perf_counter()
-    compiler_report()
-    print(f"  ptxas report {time.perf_counter() - t0:.1f} s")
+    try:
+        compiler_report()
+    finally:
+        print(f"  ptxas report {time.perf_counter() - t0:.1f} s")
+        guided_occupancy()
     return 0
 
 

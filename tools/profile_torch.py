@@ -18,8 +18,16 @@ with its stages enabled in turn (none: u8 in, quantize, u8 out; + blur; +
 boost; + denoise), each timed with CUDA events (the calls queued behind a
 spin, so that the device alone is timed), and the differences are each
 stage's device time; then the whole pipeline call, whose difference from
-the full kernel is the host-to-kernel glue. ``stages_guided`` does the same
-with the guided tail at r 4. ``stages_k3`` does the same for K3 (its
+the full kernel is the host-to-kernel glue. ``stages_guided`` splits the
+guided kernel (``csrc/fused_guided.cu``) of each family the same way, by
+the parts of a launch it runs (``fused_guided(parts=...)``): the staging
+alone, + the guided filter (``guided_tile``), + the store: K1 at r 2 and r
+4 (luma) on the 600x400 b48 images, K3 hybrid at r 4 on its 600x400 b48
+block, K3 at ds 4 with the gain plane (the video step's form) at r 2,
+K4 at r 2 and K1's gain form at r 4 on a 1080p frame; beside them K5's
+guided arm on the ``quality`` block, and each form's device time a
+megapixel of output.
+``stages_k3`` does the same for K3 (its
 forms truncated instead: the tail off by strength 0, the curves off by
 K1's gain form, which is K3's kernel without them): the video step's form
 at 1080p b1 (the gain plane and maps at 1/4: u8 in, gain, u8 out; +
@@ -104,9 +112,7 @@ VIDEO_PATHS = {
 STAGE_STEPS = (("none", ()), ("blur", ("blur",)),
                ("boost", ("blur", "boost")),
                ("denoise", ("blur", "boost", "denoise")))
-STAGE_PATHS = {"stages": llt.PipelineConfig(),
-               "stages_guided": llt.PipelineConfig(denoise_taps="guided",
-                                                   guided_radius=4)}
+STAGE_PATHS = {"stages": llt.PipelineConfig()}
 CALLS, TOP = 3, 12
 SPIN_CYCLES = 50_000_000
 
@@ -270,6 +276,113 @@ def profile_stages_k3(x: torch.Tensor, frame: torch.Tensor) -> None:
             prev = t
 
 
+def profile_stages_guided(x: torch.Tensor, frame: torch.Tensor) -> None:
+    """The guided kernel's parts differenced, family by family."""
+    from low_light_image_enhancement_tpu_torch import video as tvideo
+    from low_light_image_enhancement_tpu_torch.blocks import (
+        _mask_extent,
+        block_curve_maps,
+        block_net_image,
+        curve_maps_for_kernel,
+        learned_halo,
+    )
+    from low_light_image_enhancement_tpu_torch.config import canvas_margin
+    from low_light_image_enhancement_tpu_torch.kernels import (
+        fused_enhance as fe,
+    )
+    from low_light_image_enhancement_tpu_torch.kernels import (
+        tiled_denoise as td,
+    )
+    from low_light_image_enhancement_tpu_torch.ops.colorspace import (
+        normalize_u8,
+    )
+    from low_light_image_enhancement_tpu_torch.pipeline import pad_block
+
+    card = torch.cuda.get_device_name(0)
+    guided = dict(denoise_taps="guided")
+    cfg0 = llt.PipelineConfig(**guided)
+    hybrid = llt.PipelineConfig(method="hybrid", **guided)
+    params = llt.EnhancePipeline(hybrid, device="cuda").model_params
+    b = x.shape[0]
+    forms = []
+    for r in (2, 4):
+        cfg = cfg0.replace(guided_radius=r)
+        forms.append((f"K1 r {r} luma 600x400 b{b}", b * 400 * 600,
+                      lambda cfg=cfg: fe.fused_retinex(x, cfg)))
+    h4 = hybrid.replace(guided_radius=4)
+    xb1, halo1 = pad_block(x, h4)
+    rows1 = xb1.shape[-2] - 2 * halo1
+    with torch.inference_mode():
+        maps1 = block_curve_maps(xb1, h4, params, -halo1, 400, 600)
+    forms.append((f"K3 hybrid r 4 600x400 b{b}", b * rows1 * xb1.shape[-1],
+                  lambda: fe.fused_curve_enhance(xb1, maps1, h4, halo1,
+                                                 rows1, 600)))
+    v4 = hybrid.replace(curve_downsample=4)
+    xbv = tvideo.pad_video_block(frame[None], v4)
+    halo, m = learned_halo(v4), canvas_margin(v4)
+    rows = xbv.shape[-2] - 2 * halo
+    gain = torch.full((1,) + xbv.shape[-2:], 1.5, device=xbv.device)
+    with torch.inference_mode():
+        cnn_in = torch.clamp(normalize_u8(xbv) * gain[:, None], 0.0, 1.0)
+        maps4 = curve_maps_for_kernel(_mask_extent(cnn_in, -halo, 1080, 1920,
+                                                   m), v4, params)
+    forms.append(("K3 ds 4 + gain r 2 1080p b1", rows * xbv.shape[-1],
+                  lambda: fe.fused_curve_enhance(xbv, maps4, v4, halo, rows,
+                                                 1920, ds=4, gain=gain)))
+    g4 = cfg0.replace(guided_radius=4)
+    xbg = tvideo.pad_video_block(frame[None], g4)
+    halo_g = learned_halo(g4)
+    rows_g = xbg.shape[-2] - 2 * halo_g
+    gain_g = torch.full((1,) + xbg.shape[-2:], 1.5, device=xbg.device)
+    forms.append(("K1 gain form r 4 1080p b1", rows_g * xbg.shape[-1],
+                  lambda: fe.fused_retinex_gain(xbg, gain_g, g4, halo_g,
+                                                rows_g)))
+    xbe = tvideo.pad_video_block(frame[None], cfg0)
+    halo_e = learned_halo(cfg0)
+    rows_e = xbe.shape[-2] - 2 * halo_e
+    carry = torch.full((1,) + xbe.shape[-2:], -1.0, device=xbe.device)
+    forms.append(("K4 r 2 1080p b1", rows_e * xbe.shape[-1],
+                  lambda: fe.fused_retinex_ema(xbe, carry, cfg0, halo_e,
+                                               rows_e, 1920, 0.3)))
+    orig = fe.fused_guided
+
+    def with_parts(parts, fn):
+        def part(*a, **k):
+            return orig(*a, parts=parts, **k)
+
+        part.launches = 0
+
+        def run():
+            fe.fused_guided = part
+            try:
+                return fn()
+            finally:
+                fe.fused_guided = orig
+        return run
+
+    print(f"stages_guided: the guided kernel by part on {card} (ms a call, "
+          f"the device alone; us a megapixel of output)")
+    for what, px, fn in forms:
+        prev = 0.0
+        print(f"  {what}:")
+        for step, parts in (("staging", 0), ("guided", 1), ("store", 3)):
+            t = min(_device_ms(with_parts(parts, fn)) for _ in range(2))
+            print(f"    + {step:<8s} {t:.4f} total, {t - prev:+.4f}, "
+                  f"{t / px * 1e9:.1f} us/Mpx")
+            prev = t
+    q = llt.PRESETS["quality"]
+    xq, haloq = pad_block(x, q)
+    rowsq = xq.shape[-2] - 2 * haloq
+    with torch.inference_mode():
+        y = block_net_image(xq, q, llt.EnhancePipeline(
+            q, device="cuda").model_params, -haloq, 400, 600)
+    t = min(_device_ms(lambda: td.tiled_denoise(y, q, haloq, rowsq))
+            for _ in range(2))
+    px = b * rowsq * y.shape[-1]
+    print(f"  K5 guided r 4 luma (quality block {y.shape[-1]}x{rowsq} b{b}, "
+          f"f32): {t:.4f} ms, {t / px * 1e9:.1f} us/Mpx")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
@@ -277,17 +390,17 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), torch.__version__)
     names = argv or (list(PATHS) + list(VIDEO_PATHS) + list(STAGE_PATHS)
-                     + ["stages_k3"])
+                     + ["stages_guided", "stages_k3"])
     unknown = (set(names) - set(PATHS) - set(VIDEO_PATHS)
-               - set(STAGE_PATHS) - {"stages_k3"})
+               - set(STAGE_PATHS) - {"stages_guided", "stages_k3"})
     if unknown:
         print(f"profile_torch: unknown paths {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    if any(n in PATHS or n in STAGE_PATHS or n == "stages_k3"
-           for n in names):
+    two = ("stages_guided", "stages_k3")
+    if any(n in PATHS or n in STAGE_PATHS or n in two for n in names):
         x = torch.from_numpy(synth_batch(48, 400, 600, seed=5)[0]).cuda()
-    if any(n in VIDEO_PATHS or n == "stages_k3" for n in names):
+    if any(n in VIDEO_PATHS or n in two for n in names):
         frame = torch.from_numpy(synth_batch(1, 1080, 1920, seed=13)[0][0])
         frame = frame.cuda()
     for name in names:
@@ -295,6 +408,8 @@ def main(argv) -> int:
             profile(name, x)
         elif name in STAGE_PATHS:
             profile_stages(name, x)
+        elif name == "stages_guided":
+            profile_stages_guided(x, frame)
         elif name == "stages_k3":
             profile_stages_k3(x, frame)
         else:

@@ -14,7 +14,8 @@ form ``fused_retinex_gain`` (the bilateral tail) on a 1080p frame; K4
 ``fused_retinex_ema`` on a 1080p frame and on 600x400 b8; then, where the
 tree has them, the guided forms (K1 at r 2
 and 4 with the luma guide and r 4 per channel, K3 hybrid at r 4, K4 at
-r 2, K1's gain form at r 4); then the kernels of the learned paths on
+r 2 and 4, K3 at ds 4 with the gain plane at r 2 and 4, K1's gain form at
+r 4); then the kernels of the learned paths on
 their 600x400 b48 blocks: K5 ``tiled_denoise`` on the ``quality`` and
 ``quality_fast`` nets' images, and, on random bf16 activations, K6a
 (hybrid's c5, 64 -> 32), K6b (fcn's c2, d 2) and K7 (fcn's c2-c7). A form
@@ -228,6 +229,13 @@ def main() -> int:
         ("K3 hybrid guided r4 600x400 b48",
          lambda: k3(hybrid.replace(guided_radius=4, **guided))),
         ("K4 guided r2 1080p b1", lambda: k4(cfg0.replace(**guided))),
+        ("K4 guided r4 1080p b1", lambda: k4(cfg0.replace(guided_radius=4,
+                                                          **guided))),
+        ("K3 hybrid ds4 + gain guided r2 1080p b1",
+         lambda: k3_video(hybrid.replace(curve_downsample=4, **guided))),
+        ("K3 hybrid ds4 + gain guided r4 1080p b1",
+         lambda: k3_video(hybrid.replace(curve_downsample=4, guided_radius=4,
+                                         **guided))),
         ("K1 gain form guided r4 1080p b1",
          lambda: gain_form(cfg0.replace(guided_radius=4, **guided))),
         ("K5 quality 600x400 b48", lambda: k5(llt.PRESETS["quality"])),
