@@ -27,7 +27,10 @@ Phases (each raises on failure, so the script exits non-zero):
   2. the kernel build from the sources in the checkout (nvcc, sm_90a),
      and the tile plan of K1/K4/K3 (llie_retinex_tile_plan) against its
      CPU mirror in tests/test_torch_retinex_tile.py, the guided kernel's
-     (llie_fused_guided_plan) against tests/test_torch_guided_tile.py's;
+     (llie_fused_guided_plan) against tests/test_torch_guided_tile.py's,
+     the blur plane's (llie_blur_plan: its chunks at large radii) against
+     tests/test_torch_blur_tile.py's and K5's bilateral shared memory
+     against tests/test_torch_denoise_tile.py's;
   3. each kernel (K1 fused_retinex and its gain form, K3
      fused_curve_enhance with maps at 1/1, 1/2, 1/4 and with the gain
      plane, K4 fused_retinex_ema over chained frames, K5 tiled_denoise, K8
@@ -49,7 +52,12 @@ Phases (each raises on failure, so the script exits non-zero):
      versions (the guided tail at r 2 and 4 in both guides, also at the
      guided kernel's tile edges, f32 I/O, blur radii 9, 16 and 32, K1's
      every stages subset; f32 within 1e-5; every guided form, which runs
-     the guided kernel fused_guided, and K5's guided arm bit-equal), the
+     the guided kernel fused_guided, and K5 bit-equal: its guided arm, and
+     its bilateral arm in every form, also on blocks whose width is off a
+     multiple of 4 and of 64 or whose data is off 16-byte alignment),
+     the blur plane alone (HWC and planar, u8 and f32, at the tile's edges
+     and at radii 9-128, where the plan chunks the tile; within 1e-6, its
+     maximum reported), the
      edges of the 32 x 64 tile of K1/K4/K3 (one tile and one tile + 1,
      widths off a multiple of 4 and of 64, 1-pixel-wide and -tall images,
      radii 1, 8 and 9; K4 over 4 chained frames with a stream re-seeded at
@@ -454,6 +462,26 @@ def main() -> int:
     print("  llie_fused_guided_plan equals its CPU mirror (the four "
           "families, radii 0-9, both guides: shared memory, blocks an SM, "
           "guided_tile's planes, the staging's scratch)")
+    # the blur plane's plan (fused_enhance.cu) and K5's bilateral shared
+    # memory (tiled_denoise.cu) against their CPU mirrors in
+    # tests/test_torch_blur_tile.py and tests/test_torch_denoise_tile.py
+    from test_torch_blur_tile import blur_plan
+    from test_torch_denoise_tile import K5_SMEM_BYTES
+    radii = list(range(0, 70)) + [100, 127, 128, 129, 500, 2000]
+    bad = [(r, f, w) for r in radii for f in (-1, 0, 3, 4)
+           for w in list(range(-1, 13)) + [16]
+           if lib.llie_blur_plan(r, f, w) != blur_plan(r, f, w)]
+    if bad:
+        raise AssertionError(f"llie_blur_plan differs from its mirror at "
+                             f"{bad[:20]}")
+    if lib.llie_tiled_denoise_bilateral_plan(2) != K5_SMEM_BYTES:
+        raise AssertionError("K5's bilateral shared memory differs from "
+                             "its mirror")
+    print(f"  llie_blur_plan equals its CPU mirror (radii 0-69, 100, 127-"
+          f"129, 500, 2000: chunks, pitches, shared memory, tap blocks; "
+          f"r 16 {lib.llie_blur_plan(16, 1, 0)} B, r 64 "
+          f"{lib.llie_blur_plan(64, 1, 3)} x {lib.llie_blur_plan(64, 1, 6)} "
+          f"chunks); K5's bilateral {K5_SMEM_BYTES} B")
 
     dev = torch.device("cuda")
     cfg0 = llt.PipelineConfig()
@@ -768,22 +796,49 @@ def main() -> int:
                                       denoise_guide="perchannel")),
     ]
     k5_cases = [(f"{base.method} {tn} {w}x{h} b{b}", base.replace(**tk),
-                 (b, h, w))
+                 (b, h, w), None)
                 for base in (quality_fast, quality) for tn, tk in tails
                 for b, h, w in ((8, 400, 600), (1, 1080, 1920))]
-    k5_cases += [(f"{name} 47x33 b2", c, (2, 33, 47))
+    k5_cases += [(f"{name} 47x33 b2", c, (2, 33, 47), None)
                  for name, c in (("quality_fast", quality_fast),
                                  ("quality", quality))]
-    for name, cfg, (b, h, w) in k5_cases:
+    # the bilateral arm on the tile engine: every tail on blocks cut to a
+    # width off a multiple of 64 and of 4, and on one a multiple of 4 whose
+    # data starts 4 bytes off 16-byte alignment (both take the scalar
+    # staging and stores), at b 1 and 2; and every bilateral form (sep or
+    # full, luma or per channel, exp or epan)
+    k5_cases += [(f"{base.method} {tn} {w}x{h} b{b} {cut}",
+                  base.replace(**tk), (b, h, w), cut)
+                 for base in (quality_fast, quality) for tn, tk in tails
+                 for (b, h, w), cut in (((1, 37, 97), (1, 0)),
+                                        ((2, 70, 130), (2, 1)))]
+    k5_cases += [(f"fcn {t}/{g}/{k} 97x37 b1", quality_fast.replace(
+                  denoise_taps=t, denoise_guide=g, denoise_kernel=k),
+                  (1, 37, 97), (1, 0))
+                 for t in ("sep", "full") for g in ("luma", "perchannel")
+                 for k in ("exp", "epan")]
+    for name, cfg, (b, h, w), cut in k5_cases:
         y, halo, rows, h, w = net_case(cfg, synth_batch(b, h, w, seed=5)[0])
         m = canvas_margin(cfg)
+        if cut is not None:
+            # (extra columns past the image's right margin, offset in
+            # floats): the block cut to 2m + w + extra columns, copied to
+            # that offset from an aligned allocation
+            extra, off = cut
+            yc = y[..., :2 * m + w + extra]
+            buf = torch.empty(yc.numel() + off, device=dev)
+            y = buf[off:].view(yc.shape)
+            y.copy_(yc)
+            del yc, buf
         got = td.tiled_denoise(y, cfg, halo, rows)[..., :h, m:m + w]
         want = td.tiled_denoise_plain(y, cfg, halo, rows)[..., :h, m:m + w]
         d = float((got - want).abs().max())
         err["k5"] = max(err["k5"], d)
-        if cfg.denoise_taps == "guided" and d:
-            # guided.cuh's guided_tile repeats the plain version's sums
-            raise AssertionError(f"K5 {name}: the guided arm off by {d}")
+        if d:
+            # guided.cuh's guided_tile and the tile engine's tail repeat the
+            # plain version's sums
+            raise AssertionError(f"K5 {name} (block width {y.shape[-1]}) "
+                                 f"off by {d}")
         check_bar(f"K5 {name}", delta_stats(quantize_u8(got).cpu().numpy(),
                                             quantize_u8(want).cpu().numpy()))
         del y, got, want
@@ -889,17 +944,39 @@ def main() -> int:
         form_check(f"K1 {name}", fe.fused_retinex(x, cfg, stages=stages),
                    fe.fused_retinex_plain(x, cfg, stages),
                    gkey(cfg, "k1", stages))
-    # the blur kernel's plane alone
-    for r, e in ((16, 1), (32, 8)):
+    # the blur kernel's plane alone: K1's HWC image at e 1 and 8, the tile's
+    # edges (65x33, 1x1), K3's and K4's planar blocks (e 0, u8 and f32),
+    # and radii whose tiles the plan cuts into row and column chunks (r 64:
+    # 3 x 2, r 128: 4 x 3)
+    plane_cases = [(16, 1, (2, 400, 600), True, False),
+                   (32, 8, (2, 400, 600), True, False),
+                   (16, 1, (2, 33, 65), True, False),
+                   (16, 1, (1, 1, 1), True, False),
+                   (9, 8, (2, 33, 65), True, True),
+                   (16, 0, (2, 35, 263), False, False),
+                   (16, 0, (2, 35, 263), False, True),
+                   (32, 0, (1, 130, 67), False, True),
+                   (64, 1, (2, 67, 101), True, False),
+                   (64, 0, (1, 67, 101), False, True),
+                   (128, 2, (1, 300, 130), True, False)]
+    for r, e, (b, h, w), hwc, f32 in plane_cases:
         cfg = cfg0.replace(blur_radius=r, blur_sigma=r / 3)
-        x = torch.from_numpy(lows_of(2, 400, 600)).to(dev)
-        d = float((fe.blur_illumination(x, cfg, e, hwc=True)
-                   - fe.blur_illumination_plain(x, cfg, e, True))
+        x = torch.from_numpy(lows_of(b, h, w)).to(dev)
+        if not hwc:
+            x = x.permute(0, 3, 1, 2).contiguous()
+        if f32:
+            x = normalize_u8(x)
+        d = float((fe.blur_illumination(x, cfg, e, hwc=hwc)
+                   - fe.blur_illumination_plain(x, cfg, e, hwc))
                   .abs().max())
-        print(f"  blur_illumination r{r} e{e} 600x400 b2: max|df32|={d:.3e}")
+        what = (f"r{r} e{e} {w}x{h} b{b} {'HWC' if hwc else 'planar'} "
+                f"{'f32' if f32 else 'u8'}")
+        print(f"  blur_illumination {what}: max|df32|={d:.3e}")
         err["kb"] = max(err["kb"], d)
         if d > 1e-6:
-            raise AssertionError(f"blur_illumination r{r} off by {d}")
+            raise AssertionError(f"blur_illumination {what} off by {d}")
+    print(f"  blur_illumination max |f32 delta| over the cases: "
+          f"{err['kb']:.3e}")
     k3_forms = [
         ("hybrid guided r2 luma 600x400 b8", hybrid.replace(**guided),
          (8, 400, 600), False),
@@ -1248,6 +1325,11 @@ def main() -> int:
         torch, lambda: fe.blur_illumination_plain(x48, cfg, 1, True),
         lambda: fe.blur_illumination(x48, cfg, 1, hwc=True), 3)
     kb_b = blur_plane_bound(cfg, 48, 400, 600, 1)
+    cfg32 = cfg0.replace(blur_radius=32, blur_sigma=32 / 3)
+    kb32 = paired_ms(
+        torch, lambda: fe.blur_illumination_plain(x48, cfg32, 8, True),
+        lambda: fe.blur_illumination(x48, cfg32, 8, hwc=True), 3) + (
+        blur_plane_bound(cfg32, 48, 400, 600, 8),)
     form_timed("K1 blur r16 (plane and K1) 600x400 b48",
                lambda: fe.fused_retinex_plain(x48, cfg),
                lambda: fe.fused_retinex(x48, cfg), k1_bound(cfg, 48, 400, 600))
@@ -1346,8 +1428,9 @@ def main() -> int:
           f"K3 hybrid {k3_ms:.3f} ms (plain {k3_plain_ms:.3f} ms, bound "
           f"{k3_b[0]:.4f} ms by {k3_b[1]})")
     for name, (t, tp, bd) in k5_ms.items():
-        print(f"  600x400 b48 on {card}: K5 {name} block {t:.3f} ms (plain "
-              f"{tp:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]})")
+        print(f"  600x400 b48 on {card}: K5 {name} block {t:.4f} ms (plain "
+              f"{tp:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
+              f"{t / bd[0]:.1f}x)")
     for name, (t, tl, bd) in (
             (f"K6a 32->32 relu bf16 on hybrid's block {hbh}x{wbh}", k6a32),
             (f"K6b 24->24 d32 leaky bf16 on fcn's block {hbf}x{wbf}",
@@ -1368,9 +1451,11 @@ def main() -> int:
     for name, (t, tp, bd) in form_ms.items():
         print(f"  {name} on {card}: {t:.4f} ms (plain {tp:.3f} ms, bound "
               f"{bd[0]:.4f} ms by {bd[1]}, {t / bd[0]:.1f}x)")
-    print(f"  blur_illumination r16 e1 600x400 b48 on {card}: {kb_ms:.4f} ms "
-          f"(plain {kb_plain_ms:.3f} ms, bound {kb_b[0]:.4f} ms by "
-          f"{kb_b[1]})")
+    for name, (t, tp, bd) in (("r16 e1", (kb_ms, kb_plain_ms, kb_b)),
+                              ("r32 e8", kb32)):
+        print(f"  blur_illumination {name} 600x400 b48 on {card}: {t:.4f} "
+              f"ms (plain {tp:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
+              f"{t / bd[0]:.1f}x)")
     for name, rounds in video_ms.items():
         t = " / ".join(f"{r[0]:.4f}" for r in rounds)
         tp = " / ".join(f"{r[1]:.3f}" for r in rounds)
@@ -1744,6 +1829,16 @@ def main() -> int:
                       for name, (k, n, ref) in per_block.items()))
     total = {k: sum(launches[name][k] for name, kernels, _ in expected
                     if k in kernels) for k in wrappers}
+    # K5's two arms: the launches of the paths whose tail is guided
+    # (guided.cuh) and of those whose tail is the bilateral (the tile
+    # engine)
+    k5_guided = {name for name, cfg, kernels in paths
+                 if "k5" in kernels and cfg.denoise_taps == "guided"}
+    total["k5g"] = sum(launches[name]["k5"] for name in k5_guided)
+    total["k5b"] = total["k5"] - total["k5g"]
+    err["k5g"] = err["k5b"] = err["k5"]
+    print(f"  K5 launches: bilateral arm {total['k5b']}, guided arm "
+          f"{total['k5g']}")
 
     src = "low_light_image_enhancement_tpu_torch/kernels/csrc/"
     tpu = "low_light_image_enhancement_tpu/kernels/"
@@ -1763,8 +1858,12 @@ def main() -> int:
             "fused_enhance.py:257", k3_ms, k3_plain_ms, k3_b),
         row("fused_retinex_ema (K4)", "k4", "retinex_tile.cu",
             "fused_enhance.py:350", *video_ms["K4 1920x1080 b1"][-1]),
-        row("tiled_denoise (K5)", "k5", "tiled_denoise.cu",
-            "tiled_denoise.py:42", k5_t, k5_plain_ms, k5_b),
+        row("tiled_denoise (K5, bilateral arm: quality_fast)", "k5b",
+            "tiled_denoise.cu", "tiled_denoise.py:42",
+            *k5_ms["quality_fast"]),
+        row("tiled_denoise (K5, guided arm: quality)", "k5g",
+            "tiled_denoise.cu", "tiled_denoise.py:42", k5_t, k5_plain_ms,
+            k5_b),
         row("conv2d_patch_mxu (K6a)", "k6a", "mxu_conv.cu",
             "mxu_conv.py:205", k6a_ms, k6a_plain_ms, k6a_b, k6a_lib_ms),
         row("conv2d_dense9_mxu (K6b)", "k6b", "mxu_conv.cu",
@@ -1773,9 +1872,12 @@ def main() -> int:
             "fcn_cascade.py:169", k7_ms, k7_plain_ms, k7_b),
         row("enhance_hwc_u8 (K8)", "k8", "retinex_tile.cu",
             "fused_enhance_hwc.py:178", k8_ms, k8_plain_ms, k8_b),
-        row("blur_illumination (K1/K3/K4 blur past the tiles)", "kb",
-            "fused_enhance.cu", "fused_enhance.py:146", kb_ms, kb_plain_ms,
-            kb_b),
+        dict(row("blur_illumination (K1/K3/K4 blur past the tiles)", "kb",
+                 "fused_enhance.cu", "fused_enhance.py:146", kb_ms,
+                 kb_plain_ms, kb_b),
+             forms=[{"form": "r32 e8 600x400 b48", "ms": kb32[0],
+                     "plain_ms": kb32[1], "bound_ms": kb32[2][0],
+                     "bound_by": kb32[2][1]}]),
         # the guided tails of K1 (and its gain form), K3 and K4: the default
         # form's numbers (K1 r 2, luma), then every timed form's
         dict(row("fused_guided (the guided tails of K1, K3, K4)", "kg",

@@ -69,10 +69,12 @@ _SIGNATURES = {
         _P,                          # kind, joint, sep; stream
     ],
     "llie_blur_illumination": [
-        _P, _I, _I, _P, _P,          # in, f32, hwc, scratch, plane
+        _P, _I, _I, _P,              # in, f32, hwc, plane
         _I, _I, _I, _I, _I, _P,      # B, H, W, e, radius, device taps
         _P,                          # stream
     ],
+    "llie_blur_plan": [_I, _I, _I],  # radius, form, what
+    "llie_tiled_denoise_bilateral_plan": [_I],   # what
     "llie_fused_guided": [_P, _P],   # FusedGuidedArgs*, stream
     "llie_fused_guided_args_size": [],
     "llie_fused_guided_plan": [_I, _I, _I, _I],  # family, radius, joint,

@@ -1,9 +1,8 @@
-// Device code shared by the guided tails (fused_guided.cuh) and K5's
-// bilateral arm (tiled_denoise.cu), and the parameter structs and I/O
-// helpers of the tile engine (retinex_tile.cuh: K1, K3, K4): the boost,
-// the curve maps' upsample taps, and the bilateral denoise tail on a 2-D
-// output tile of TILE_H x TILE_W pixels, one thread per output pixel; the
-// u8 and f32 loads and stores.
+// Device code shared by the tile engine (retinex_tile.cuh: K1, K3, K4 and
+// K5's bilateral arm), the guided tails (fused_guided.cuh) and the blur
+// past the tiles (fused_enhance.cu): the parameter structs, the boost, the
+// curve maps' upsample taps, the bilateral's spatial weights, and the u8
+// and f32 loads and stores.
 //
 // The arithmetic repeats the plain PyTorch versions (ops/filters.py,
 // ops/denoise.py, core.py) operation for operation: the same tap order,
@@ -20,18 +19,7 @@
 
 namespace llie {
 
-constexpr int TILE_H = 16;
-constexpr int TILE_W = 32;
-constexpr int NTHREADS = TILE_H * TILE_W;
 constexpr int MAX_BLUR_RADIUS = 8;
-
-// The denoise reads the boosted (or curved) image on the tile plus a
-// one-pixel ring: YH x YW values per channel.
-constexpr int YH = TILE_H + 2;
-constexpr int YW = TILE_W + 2;
-constexpr int YN = YH * YW;
-// Scratch of the separable denoise's first (vertical) pass.
-constexpr int PN = TILE_H * YW;
 
 constexpr float U8_SCALE = 1.0f / 255.0f;
 
@@ -132,17 +120,6 @@ __device__ __forceinline__ void store_px(uint8_t* p, float v) {
 }
 __device__ __forceinline__ void store_px(float* p, float v) { *p = clip01(v); }
 
-__device__ __forceinline__ float range_weight(float d2, const TailParams& p) {
-  if (p.kind == 0) return expf(-d2 * p.inv2s2);
-  float u = fmaxf(1.0f - d2 * p.inv2s2_3, 0.0f);
-  return u * u;
-}
-
-// Channel-mean guide of three planes of `n` floats at flat index e.
-__device__ __forceinline__ float luma(const float* s, int n, int e) {
-  return (s[e] + s[n + e] + s[2 * n + e]) * (1.0f / 3.0f);
-}
-
 // The binomial spatial weights (0.25, 0.5, 0.25) at tap index t + 1.
 __device__ __forceinline__ float spatial(int k) {
   return k == 1 ? 0.5f : 0.25f;
@@ -194,125 +171,6 @@ __device__ __forceinline__ MapTap map_tap(int br, int bc, int hl, int wl,
   t.gr = 1.0f - t.fr;
   t.gc = 1.0f - t.fc;
   return t;
-}
-
-// Denoise tail for the thread's pixel (ty, tx) of the tile. sY holds three
-// planes of YH x YW (the ring tile); sP is scratch of three planes of
-// TILE_H x YW. Every thread of the block must call it: the separable form
-// synchronises between its passes. out[] gets the blended, unclipped value.
-__device__ inline void denoise_tile(const float* __restrict__ sY,
-                                    float* __restrict__ sP,
-                                    const TailParams& p, int tid, int ty,
-                                    int tx, float out[3]) {
-  const int cy = ty + 1, cx = tx + 1;
-  const int ce = cy * YW + cx;
-  if (p.strength <= 0.0f) {
-    for (int c = 0; c < 3; ++c) out[c] = sY[c * YN + ce];
-    return;
-  }
-  if (p.sep) {
-    // Pass 1, vertical: taps t = -1, 0, 1 read row r - t (roll semantics).
-    for (int e = tid; e < PN; e += NTHREADS) {
-      const int i = e / YW, j = e - (e / YW) * YW;
-      const int r = i + 1;
-      if (p.joint) {
-        const float lc = luma(sY, YN, r * YW + j);
-        float wacc = 0.0f, a[3] = {0.0f, 0.0f, 0.0f};
-        for (int t = -1; t <= 1; ++t) {
-          const int n = (r - t) * YW + j;
-          const float d = luma(sY, YN, n) - lc;
-          const float w = spatial(t + 1) * range_weight(d * d, p);
-          wacc = wacc + w;
-          for (int c = 0; c < 3; ++c) a[c] = a[c] + w * sY[c * YN + n];
-        }
-        const float winv = 1.0f / wacc;
-        for (int c = 0; c < 3; ++c) sP[c * PN + e] = a[c] * winv;
-      } else {
-        for (int c = 0; c < 3; ++c) {
-          const float f = sY[c * YN + r * YW + j];
-          float acc = 0.0f, wacc = 0.0f;
-          for (int t = -1; t <= 1; ++t) {
-            const float s = sY[c * YN + (r - t) * YW + j];
-            const float d = s - f;
-            const float w = spatial(t + 1) * range_weight(d * d, p);
-            acc = acc + w * s;
-            wacc = wacc + w;
-          }
-          sP[c * PN + e] = acc / wacc;
-        }
-      }
-    }
-    __syncthreads();
-    // Pass 2, horizontal, at (ty, cx) of sP: taps read column cx - t.
-    const int pe = ty * YW + cx;
-    if (p.joint) {
-      const float lc = luma(sP, PN, pe);
-      float wacc = 0.0f, a[3] = {0.0f, 0.0f, 0.0f};
-      for (int t = -1; t <= 1; ++t) {
-        const int n = pe - t;
-        const float d = luma(sP, PN, n) - lc;
-        const float w = spatial(t + 1) * range_weight(d * d, p);
-        wacc = wacc + w;
-        for (int c = 0; c < 3; ++c) a[c] = a[c] + w * sP[c * PN + n];
-      }
-      const float winv = 1.0f / wacc;
-      for (int c = 0; c < 3; ++c) {
-        const float x = sY[c * YN + ce];
-        out[c] = x + p.strength * (a[c] * winv - x);
-      }
-    } else {
-      for (int c = 0; c < 3; ++c) {
-        const float f = sP[c * PN + pe];
-        float acc = 0.0f, wacc = 0.0f;
-        for (int t = -1; t <= 1; ++t) {
-          const float s = sP[c * PN + pe - t];
-          const float d = s - f;
-          const float w = spatial(t + 1) * range_weight(d * d, p);
-          acc = acc + w * s;
-          wacc = wacc + w;
-        }
-        const float x = sY[c * YN + ce];
-        out[c] = x + p.strength * (acc / wacc - x);
-      }
-    }
-    return;
-  }
-  // Full 3x3: taps (di, dj) read (cy - di, cx - dj), di outer.
-  if (p.joint) {
-    const float lc = luma(sY, YN, ce);
-    float wacc = 0.0f, a[3] = {0.0f, 0.0f, 0.0f};
-    for (int di = -1; di <= 1; ++di) {
-      for (int dj = -1; dj <= 1; ++dj) {
-        const int n = (cy - di) * YW + (cx - dj);
-        const float d = luma(sY, YN, n) - lc;
-        const float w =
-            (spatial(di + 1) * spatial(dj + 1)) * range_weight(d * d, p);
-        wacc = wacc + w;
-        for (int c = 0; c < 3; ++c) a[c] = a[c] + w * sY[c * YN + n];
-      }
-    }
-    const float winv = 1.0f / wacc;
-    for (int c = 0; c < 3; ++c) {
-      const float x = sY[c * YN + ce];
-      out[c] = x + p.strength * (a[c] * winv - x);
-    }
-    return;
-  }
-  for (int c = 0; c < 3; ++c) {
-    const float x = sY[c * YN + ce];
-    float acc = 0.0f, wacc = 0.0f;
-    for (int di = -1; di <= 1; ++di) {
-      for (int dj = -1; dj <= 1; ++dj) {
-        const float s = sY[c * YN + (cy - di) * YW + (cx - dj)];
-        const float d = s - x;
-        const float w =
-            (spatial(di + 1) * spatial(dj + 1)) * range_weight(d * d, p);
-        acc = acc + w * s;
-        wacc = wacc + w;
-      }
-    }
-    out[c] = x + p.strength * (acc / wacc - x);
-  }
 }
 
 }  // namespace llie

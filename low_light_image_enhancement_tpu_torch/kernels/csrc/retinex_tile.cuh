@@ -1,7 +1,9 @@
 // The tile engine of K1 (retinex_tile.cu retinex_tile_kernel, also K8's
-// kernel), K4 (ema_tile_kernel) and K3 (curve_tile.cu curve_tile_kernel, also
-// K1's gain form): a 32 x 64 output tile a block of 256 threads, each thread
-// owning a strip of several outputs in every pass.
+// kernel), K4 (ema_tile_kernel), K3 (curve_tile.cu curve_tile_kernel, also
+// K1's gain form) and K5's bilateral arm (tiled_denoise.cu
+// denoise_bilateral_kernel: staging and tail, no blur): a 32 x 64 output
+// tile a block of 256 threads, each thread owning a strip of several
+// outputs in every pass.
 //
 // Passes, each followed by one __syncthreads():
 //   1. staging: 4-pixel groups of the tile's rows plus halo (grid columns
@@ -28,9 +30,8 @@
 // The blur radius R (1..MAX_BLUR_RADIUS) is a template parameter of passes
 // 2 and 3, dispatched at run time once a tile, so the taps sit in
 // registers and every window index is a constant. Every sum keeps the plain
-// version's order (ops/filters.py's separable_blur, fused_enhance.cuh's
-// denoise_tile): vertical
-// blur term k reads row y + R - k, k ascending, then the
+// version's order (ops/filters.py's separable_blur, ops/denoise.py's
+// cores): vertical blur term k reads row y + R - k, k ascending, then the
 // horizontal; the bilateral taps in the order of ops/denoise.py, starting
 // from 0, the per-channel forms dividing and the joint ones multiplying by
 // 1 / wacc. A pair's weight is one float whichever end computes it: d and

@@ -25,9 +25,15 @@
 // ~20 operations per byte where arithmetic would bound it, so device
 // memory bounds K5 on paper.
 //
-// What the design does about it. The bilateral arms: one thread per output
-// pixel on a 16 x 32 tile, the tile's input with a ring of 1 staged once
-// in shared memory with the first bilateral pass. The guided arms
+// What the design does about it. The bilateral arms run on the tile engine
+// of K1, K3 and K4 (retinex_tile.cuh) with no blur: a 32 x 64 output tile
+// a block of 256 threads, the three planes staged with their one-pixel
+// ring in 4-pixel groups (a float4 where the group is inside the row and
+// aligned, else each value at its clamped column), then the engine's tail
+// (pass 1 in column strips, pass 2 or the full 3x3 in row segments of 8,
+// one range weight a neighbour pair, the centre's weight once a thread),
+// clipped, and stored from shared memory as whole output rows, half a warp
+// a row (float4, or scalars where a row is unaligned). The guided arms
 // (guided.cuh): a 32 x 32 tile of 256 threads, its input with a 2r ring
 // staged once (and the joint guide beside it); every box mean runs as a
 // vertical and a horizontal pass of items of 8 outputs, each summed in
@@ -45,44 +51,109 @@
 //
 // Numerics. --fmad=false and no --use_fast_math (see _build.py); the
 // device code repeats the plain versions' operations in their order
-// (fused_enhance.cuh for the bilateral, guided.cuh for the guided filter).
-#include "fused_enhance.cuh"
+// (retinex_tile.cuh's tail for the bilateral, guided.cuh for the guided
+// filter).
 #include "guided.cuh"
+#include "retinex_tile.cuh"
 
 namespace llie {
 
-// Bilateral arms: the ring tile (rows halo + y0 - 1 .., cols x0 - 1 ..) of
-// the window, then denoise_tile as in K1 / K3.
-__global__ void __launch_bounds__(NTHREADS)
+// Bilateral arms on the tile engine: the tile's output rows [y0, y0 + TH)
+// are block rows halo + y0 .., so ring row i <-> block row halo + y0 - 1 +
+// i, read clamped into the window [halo - m, halo + rows + m), and ring
+// column j <-> block column x0 - 1 + j, clamped into [0, WB). Shared
+// memory: the three ring planes, then pass 1's planes (K4's without its
+// blur phase and its u8 words). Built for 3 blocks an SM.
+constexpr int K5_SMEM_BYTES =
+    (int)sizeof(float)
+    * (3 * tile::ring_plane(0) + 3 * tile::TH * tile::pitch(0));
+
+__global__ void __launch_bounds__(tile::NT, 3)
 denoise_bilateral_kernel(const float* __restrict__ in, float* __restrict__ out,
                          int HB, int WB, int halo, int rows, int m,
-                         TailParams tp) {
-  extern __shared__ float smem[];
-  float* sY = smem;         // 3 x YH x YW: the input ring tile
-  float* sP = sY + 3 * YN;  // 3 x TILE_H x YW: separable pass 1
-
+                         const __grid_constant__ TailParams tp) {
+  using namespace tile;
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
-  const int ty = tid / TILE_W, tx = tid - (tid / TILE_W) * TILE_W;
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH, b = blockIdx.z;
+  const Geo g = make_geo(0, x0, halo + y0);
   const size_t plane = (size_t)HB * WB;
-  const float* blk = in + (size_t)blockIdx.z * 3 * plane;
+  const float* blk = in + (size_t)b * 3 * plane;
+  float* sY = smem;             // 3 ring planes
+  float* sP = smem + 3 * g.YP;  // pass 1: 3 x TH rows
   const int lo = halo - m, hi = halo + rows + m - 1;
-  const int r0 = halo + y0 - 1, c0 = x0 - 1;
 
-  for (int e = tid; e < YN; e += NTHREADS) {
-    const int i = e / YW, j = e - (e / YW) * YW;
-    const size_t at = (size_t)clampi(r0 + i, lo, hi) * WB
-                      + clampi(c0 + j, 0, WB - 1);
-    for (int c = 0; c < 3; ++c) sY[c * YN + e] = blk[c * plane + at];
+  // 1. staging: the ring of each plane, 4-pixel groups, each a float4
+  // where it lies inside the row on a 16-byte boundary
+  const bool aligned = (WB & 3) == 0 && ((uintptr_t)in & 15) == 0;
+  auto load = [&](int i, int gi, RawPlanes& a) {
+    const size_t row = (size_t)clampi(g.ya + i, lo, hi) * WB;
+    const int x = g.xa + 4 * gi;
+    const bool words = aligned && x >= 0 && x + 4 <= WB;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      load_plane(blk + c * plane + row, x, WB, words, a.r + 4 * c);
+  };
+  // every item's loads first (NI a thread), then their stores
+  constexpr int NG = groups(0), NI = (YH * NG + NT - 1) / NT;
+  RawPlanes a[NI];
+#pragma unroll
+  for (int k = 0; k < NI; ++k) {
+    const int it = tid + k * NT;
+    if (it < YH * NG) load(it / NG, it % NG, a[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < NI; ++k) {
+    const int it = tid + k * NT;
+    if (it >= YH * NG) continue;
+    const int i = it / NG, j = 4 * (it % NG);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sY[c * g.YP + i * g.P + j + q] = __uint_as_float(a[k].r[4 * c + q]);
   }
   __syncthreads();
 
-  float o[3];
-  denoise_tile(sY, sP, tp, tid, ty, tx, o);
-  const int r = y0 + ty, c = x0 + tx;
-  if (r < rows && c < WB) {
-    float* q = out + (size_t)blockIdx.z * 3 * rows * WB + (size_t)r * WB + c;
-    for (int ch = 0; ch < 3; ++ch) q[(size_t)ch * rows * WB] = clip01(o[ch]);
+  // 2. the tail
+  Outs o;
+  tail(sY, sP, g, tp, true, tid, o);
+
+  // 3. out: the clipped tile into shared memory over pass 1's planes, from
+  // the first 16-byte boundary there (a float4 of a row a lane; pitch OP
+  // puts 8 lanes' rows on 32 banks), then whole rows, half a warp a row, a
+  // float4 a lane (scalars where a row is not 16-byte aligned or ends)
+  constexpr int OP = TW + 4, RING = 3 * ring_plane(0);
+  static_assert((RING + 3) / 4 * 4 + 3 * TH * OP <= RING + 3 * TH * pitch(0),
+                "the tile in sP's place");
+  float* sO = smem + (RING + 3) / 4 * 4;
+  __syncthreads();
+  {
+    const int t = tid & 31, c0 = (tid >> 5) * K2;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int k = 0; k < K2 / 4; ++k)
+        *(float4*)(sO + (ch * TH + t) * OP + c0 + 4 * k) =
+            make_float4(clip01(o.v[4 * k][ch]), clip01(o.v[4 * k + 1][ch]),
+                        clip01(o.v[4 * k + 2][ch]),
+                        clip01(o.v[4 * k + 3][ch]));
+  }
+  __syncthreads();
+  const int f = 4 * (tid & 15);
+  for (int rr = tid >> 4; rr < 3 * TH; rr += NT / 16) {
+    const int ch = rr / TH, t = rr % TH;
+    if (y0 + t >= rows) continue;
+    const float4 v = *(const float4*)(sO + rr * OP + f);
+    float* q = out + (((size_t)b * 3 + ch) * rows + y0 + t) * WB + x0 + f;
+    if (x0 + f + 4 <= WB && ((uintptr_t)q & 15) == 0) {
+      *(float4*)q = v;
+    } else {
+      const float u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (x0 + f + k < WB) q[k] = u[k];
+    }
   }
 }
 
@@ -203,20 +274,40 @@ int llie_tiled_denoise_f32(const void* in, void* out, int B, int HB, int WB,
     }
   } else {
     if (m < 1) return (int)cudaErrorInvalidValue;
-    TailParams tp;
-    tp.strength = strength;
-    tp.inv2s2 = inv2s2;
-    tp.inv2s2_3 = inv2s2_3;
-    tp.kind = kind;
-    tp.joint = joint;
-    tp.sep = sep;
-    const dim3 grid((WB + TILE_W - 1) / TILE_W, (rows + TILE_H - 1) / TILE_H,
-                    B);
-    const size_t smem = sizeof(float) * (3 * YN + 3 * PN);
-    denoise_bilateral_kernel<<<grid, NTHREADS, smem, st>>>(fin, fout, HB, WB,
-                                                          halo, rows, m, tp);
+    const TailParams tp =
+        tail_params(strength, inv2s2, inv2s2_3, kind, joint, sep);
+    // the engine's shared-memory opt-in, before every launch
+    if (const int e = tile::prepare(denoise_bilateral_kernel)) return e;
+    const dim3 grid((WB + tile::TW - 1) / tile::TW,
+                    (rows + tile::TH - 1) / tile::TH, B);
+    denoise_bilateral_kernel<<<grid, tile::NT, K5_SMEM_BYTES, st>>>(
+        fin, fout, HB, WB, halo, rows, m, tp);
   }
   return (int)cudaGetLastError();
+}
+
+// K5's bilateral kernel on the device current now: `what` 0 its registers
+// a thread, 1 its local memory a thread in bytes (stack and spills), 2 its
+// dynamic shared memory in bytes, 3 the blocks an SM at that shared memory
+// (the occupancy API). -1 for an argument out of range.
+int llie_tiled_denoise_bilateral_plan(int what) {
+  const void* kern = (const void*)denoise_bilateral_kernel;
+  if (what == 2) return K5_SMEM_BYTES;
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, kern) != cudaSuccess) return -1;
+  switch (what) {
+    case 0: return fa.numRegs;
+    case 1: return (int)fa.localSizeBytes;
+    case 3: {
+      if (tile::prepare(denoise_bilateral_kernel) != cudaSuccess) return -1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &n, kern, tile::NT, K5_SMEM_BYTES) != cudaSuccess)
+        return -1;
+      return n;
+    }
+    default: return -1;
+  }
 }
 
 // K5's guided kernel of a radius and guide (`joint`) on the device current

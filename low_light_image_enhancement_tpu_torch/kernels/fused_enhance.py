@@ -274,14 +274,19 @@ fused_guided.launches = 0
 # ------------------------------------------- blurs past MAX_BLUR_RADIUS #
 
 _TAPS = {}
+# blur_illumination reads its taps in blocks of 16 (csrc/fused_enhance.cu
+# blur::KB): zero-padded to a whole block, 16-byte aligned
+BLUR_TAP_BLOCK = 16
 
 
 def _device_taps(cfg: PipelineConfig, device) -> torch.Tensor:
     key = (cfg.blur_radius, cfg.blur_sigma, str(device))
     if key not in _TAPS:
-        _TAPS[key] = torch.tensor(
-            gaussian_kernel_1d(cfg.blur_radius, cfg.blur_sigma),
-            dtype=torch.float32, device=device)
+        taps = gaussian_kernel_1d(cfg.blur_radius, cfg.blur_sigma)
+        n = -(-len(taps) // BLUR_TAP_BLOCK) * BLUR_TAP_BLOCK
+        padded = torch.zeros(n, dtype=torch.float32, device=device)
+        padded[:len(taps)] = torch.tensor(taps, dtype=torch.float32)
+        _TAPS[key] = padded
     return _TAPS[key]
 
 
@@ -302,20 +307,20 @@ def blur_illumination(x: torch.Tensor, cfg: PipelineConfig, e: int,
     the (B, H, W, 3) image (``hwc``) or the (B, 3, H, W) block, from reads
     clamped into it, in the kernels' tap order. The kernels read it in
     place of their own blur for radii past MAX_BLUR_RADIUS; a CPU tensor
-    gets the plain version."""
+    gets the plain version, a CUDA tensor the one tiled launch of
+    ``csrc/fused_enhance.cu`` (no scratch besides the plane)."""
     if x.device.type == "cpu":
         return blur_illumination_plain(x, cfg, e, hwc)
     _check_cuda_tensor(x)
     lib = _build.load_library()
     b, h, w = (x.shape[0], *x.shape[1:3]) if hwc else (x.shape[0],
                                                         *x.shape[2:])
-    v = torch.empty((b, h + 2 * e, w), dtype=torch.float32, device=x.device)
     lplane = torch.empty((b, h + 2 * e, w + 2 * e), dtype=torch.float32,
                          device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.llie_blur_illumination(
             x.data_ptr(), int(x.dtype == torch.float32), int(hwc),
-            v.data_ptr(), lplane.data_ptr(), b, h, w, e, cfg.blur_radius,
+            lplane.data_ptr(), b, h, w, e, cfg.blur_radius,
             _device_taps(cfg, x.device).data_ptr(), _stream(x))
     _raise_on(rc, lib, "blur_illumination")
     blur_illumination.launches += 1

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """The tile engine's kernels (K1 and K4 in ``csrc/retinex_tile.cu``, K3 in
-``csrc/curve_tile.cu``) and the guided kernels (the guided tails of K1, K3
-and K4 in ``csrc/fused_guided.cu``, K5's guided arm in
+``csrc/curve_tile.cu``, K5's bilateral arm in ``csrc/tiled_denoise.cu``),
+the blur plane past the tiles (``blur_illumination`` in
+``csrc/fused_enhance.cu``) and the guided kernels (the guided tails of K1,
+K3 and K4 in ``csrc/fused_guided.cu``, K5's guided arm in
 ``csrc/tiled_denoise.cu``): what their compiler says.
 
 ``nvcc -Xptxas -v`` of the sources that hold them (this tree's
-``csrc/retinex_tile.cu``, ``csrc/curve_tile.cu``, ``csrc/fused_guided.cu``
-and ``csrc/tiled_denoise.cu``, and ``csrc/fused_enhance.cu``, where K3
-lived before the engine took it; copied into an older tree, whichever of
-them it has): registers, stack frame, spills and shared memory of each
-kernel. Then, from the built library, each guided kernel's registers,
-local memory, dynamic shared memory and blocks an SM at that shared memory
-(the occupancy API, ``llie_fused_guided_plan`` for each family at blur
-radius 2 and ``llie_tiled_denoise_guided_plan``). A tile or guided kernel
-with a stack frame or a spill fails the probe. The kernels'
-agreement with their plain versions and the plan's with its CPU mirror are
-``chip_smoke.py``'s; their times are ``tools/time_fused.py``'s.
+``csrc/retinex_tile.cu``, ``csrc/curve_tile.cu``, ``csrc/fused_guided.cu``,
+``csrc/tiled_denoise.cu`` and ``csrc/fused_enhance.cu``; copied into an
+older tree, whichever of them it has): registers, stack frame, spills and
+shared memory of each kernel. Then, from the built library, each guided
+kernel's, K5's bilateral kernel's and each blur form's registers, local
+memory, dynamic shared memory and blocks an SM at that shared memory (the
+occupancy API: ``llie_fused_guided_plan`` for each family at blur radius
+2, ``llie_tiled_denoise_guided_plan``,
+``llie_tiled_denoise_bilateral_plan`` and ``llie_blur_plan`` at radii 16,
+32, 64 and 128, where the tree has them). A tile, blur, bilateral or
+guided kernel with a stack frame or a spill fails the probe. The kernels'
+agreement with their plain versions and the plans' with their CPU mirrors
+are ``chip_smoke.py``'s; their times are ``tools/time_fused.py``'s.
 
 ``--sass FILE`` instead writes the SASS of the built library's tile
 kernels (``cuobjdump -sass``) to FILE, for reading off the card.
@@ -94,11 +98,13 @@ def compiler_report() -> None:
         pretty = _demangle(list(props))
         for fn, lines in props.items():
             short = pretty[fn]
-            if not re.search(r"retinex|ema|curve|guided", short):
+            if not re.search(r"retinex|ema|curve|guided|blur|bilateral",
+                             short):
                 continue
             short = short.split(">(")[0].replace("llie::", "") + ">"
             print(f"  ptxas {name} {short}: {' | '.join(lines)}")
-            if "tile::" in pretty[fn] or "guided" in pretty[fn]:
+            if re.search(r"tile::|guided|blur::|denoise_bilateral",
+                         pretty[fn]):
                 text = " ".join(lines)
                 frame = re.search(r"(\d+) bytes stack frame", text)
                 spill = re.findall(r"(\d+) bytes spill", text)
@@ -110,7 +116,8 @@ def compiler_report() -> None:
 
 
 def guided_occupancy() -> None:
-    """Each guided kernel as the built library reports it on this card."""
+    """Each guided kernel, K5's bilateral kernel and each blur form as the
+    built library reports it on this card."""
     lib = _build.load_library()
     plans = [(f"fused_guided {fam}", lambda r, j, w, f=f:
               lib.llie_fused_guided_plan(f, r, j, w))
@@ -128,6 +135,25 @@ def guided_occupancy() -> None:
                       f"{smem} bytes shared, {blocks} blocks an SM")
                 if local:
                     bad.append(f"{what} r {r} joint {joint}")
+    if hasattr(lib, "llie_tiled_denoise_bilateral_plan"):
+        fn = lib.llie_tiled_denoise_bilateral_plan
+        regs, local, smem, blocks = (fn(w) for w in range(4))
+        print(f"  K5 bilateral (tile engine): {regs} registers, {local} "
+              f"bytes local, {smem} bytes shared, {blocks} blocks an SM")
+        if local:
+            bad.append("K5 bilateral")
+    if hasattr(lib, "llie_blur_plan"):
+        fn = lib.llie_blur_plan
+        for form, what in enumerate(("u8 planar", "u8 HWC", "f32 planar",
+                                     "f32 HWC")):
+            for r in (16, 32, 64, 128):
+                regs, local, blocks = (fn(r, form, w) for w in (13, 14, 15))
+                print(f"  blur_illumination {what} r {r}: {regs} registers, "
+                      f"{local} bytes local, {fn(r, form, 0)} bytes shared, "
+                      f"{blocks} blocks an SM; chunks {fn(r, form, 3)} x "
+                      f"{fn(r, form, 6)} (rows x columns)")
+                if local:
+                    bad.append(f"blur {what} r {r}")
     if bad:
         raise AssertionError(f"local memory (stack or spills) in "
                              f"{', '.join(bad)}")

@@ -15,11 +15,14 @@ form ``fused_retinex_gain`` (the bilateral tail) on a 1080p frame; K4
 tree has them, the guided forms (K1 at r 2
 and 4 with the luma guide and r 4 per channel, K3 hybrid at r 4, K4 at
 r 2 and 4, K3 at ds 4 with the gain plane at r 2 and 4, K1's gain form at
-r 4); then the kernels of the learned paths on
-their 600x400 b48 blocks: K5 ``tiled_denoise`` on the ``quality`` and
-``quality_fast`` nets' images, and, on random bf16 activations, K6a
-(hybrid's c5, 64 -> 32), K6b (fcn's c2, d 2) and K7 (fcn's c2-c7). A form
-the tree does not have prints "absent".
+r 4); the blur plane past the tiles, ``blur_illumination`` on 600x400
+b48 u8 HWC at r 16 e 1 (K1's wide blur) and r 32 e 8; then the kernels of
+the learned paths on their 600x400 b48 blocks: K5 ``tiled_denoise`` on the
+``quality`` and ``quality_fast`` nets' images, its bilateral arm also on
+``quality_fast``'s 1080p b1 block and in the full 3x3 per-channel ``epan``
+form, and, on random bf16 activations, K6a (hybrid's c5, 64 -> 32), K6b
+(fcn's c2, d 2) and K7 (fcn's c2-c7). A form the tree does not have
+prints "absent".
 
 Needs a CUDA card and nvcc; run from the root of a tree:
 ``python3 tools/time_fused.py``. Copied into an unpacked older tree and
@@ -161,11 +164,11 @@ def main() -> int:
         return lambda: fe.fused_curve_enhance(xb, maps, cfg, halo, rows,
                                               1920, ds=4, gain=gain)
 
-    def k5(cfg):
-        xb, halo = pad_block(x48, cfg)
+    def k5(cfg, x=x48):
+        xb, halo = pad_block(x, cfg)
         net = llt.EnhancePipeline(cfg, device="cuda").model_params
         with torch.inference_mode():
-            y = block_net_image(xb, cfg, net, -halo, 400, 600)
+            y = block_net_image(xb, cfg, net, -halo, *x.shape[1:3])
         rows = xb.shape[-2] - 2 * halo
         return lambda: td.tiled_denoise(y, cfg, halo, rows)
 
@@ -238,9 +241,21 @@ def main() -> int:
                                          **guided))),
         ("K1 gain form guided r4 1080p b1",
          lambda: gain_form(cfg0.replace(guided_radius=4, **guided))),
+        ("blur plane r16 e1 600x400 b48", lambda: (
+            lambda: fe.blur_illumination(x48, cfg0.replace(
+                blur_radius=16, blur_sigma=5.0), 1, hwc=True))),
+        ("blur plane r32 e8 600x400 b48", lambda: (
+            lambda: fe.blur_illumination(x48, cfg0.replace(
+                blur_radius=32, blur_sigma=32 / 3), 8, hwc=True))),
         ("K5 quality 600x400 b48", lambda: k5(llt.PRESETS["quality"])),
         ("K5 quality_fast 600x400 b48",
          lambda: k5(llt.PRESETS["quality_fast"])),
+        ("K5 quality_fast 1080p b1",
+         lambda: k5(llt.PRESETS["quality_fast"], x1080)),
+        ("K5 fcn perchannel/full/epan 600x400 b48",
+         lambda: k5(llt.PRESETS["quality_fast"].replace(
+             denoise_taps="full", denoise_guide="perchannel",
+             denoise_kernel="epan"))),
         ("K6a c5 64->32 bf16 hybrid block b48", k6a),
         ("K6b c2 24->24 d2 bf16 fcn block b48", k6b),
         ("K7 c2-c7 bf16 fcn block b48", k7),
