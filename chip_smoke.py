@@ -20,7 +20,11 @@ per-channel full-tap tail. The guided tail (denoise_taps="guided") of
 retinex (K1), curve and hybrid (K3, hybrid also under "pallas") and of the
 video arms (K4, K1's gain form, K3 with the gain), a blur radius past the
 kernels' tiles (blur_illumination, then K1), and hybrid "pallas" at
-curve_features 640 (K6 streaming its weights by piece group).
+curve_features 640 (K6 streaming its weights by piece group). The host
+boundary: the planar and canvas entry points (K1's canvas form,
+fused_retinex_canvas), enhance_stream in its three stagings on the pinned
+prefetch queue, enhance_file and the golden fixtures through the zlib PNG
+codec, the eval runner (eval_lol) and the HTTP front end.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -51,7 +55,11 @@ Phases (each raises on failure, so the script exits non-zero):
      the forms of K1, K3 and K4 beyond the default ones against their plain
      versions (the guided tail at r 2 and 4 in both guides, also at the
      guided kernel's tile edges, f32 I/O, blur radii 9, 16 and 32, K1's
-     every stages subset; f32 within 1e-5; every guided form, which runs
+     every stages subset; f32 within 1e-5; K1's canvas form on the
+     padded planar canvas, u8 and f32, with no tail, the bilateral, the
+     guided tail at r 2 and 4 in both guides and blur r 16, at 1x1, one
+     tile and one tile + 1, 600x400 b48 and 1080p b1, bit-equal to its
+     plain version and to HWC K1; every guided form, which runs
      the guided kernel fused_guided, and K5 bit-equal: its guided arm, and
      its bilateral arm in every form, also on blocks whose width is off a
      multiple of 4 and of 64 or whose data is off 16-byte alignment),
@@ -83,18 +91,29 @@ Phases (each raises on failure, so the script exits non-zero):
      pairs on the card, against the JAX package's numbers for the same
      pairs (tools/jax_eval15_reference.py): bar 0.1 dB and 0.005 SSIM;
      also ``quality`` under "pallas", ``quality_fast`` under "cascade",
-     and retinex and hybrid with the guided tail at r 4;
+     retinex and hybrid with the guided tail at r 4, and, through the
+     port's eval runner (eval_lol), retinex, curve, hybrid and decom with
+     the default bilateral tail;
   4c. each video arm through VideoEnhancer(device="cuda"): agreement with
      device="cpu" over 4 frames at 96x64 with a reset (float32 max |du8|
      bar, bf16 PSNR >= 40 dB), the 1080p frame rate of the step chained on
      the card with its state fed forward (CUDA events), and for curve and
      hybrid MultiStreamVideoEnhancer(8)'s summed rate and whether a
      stream's output equals its lone output on the card;
+  4d. the host boundary: enhance_batch_device_planar and
+     enhance_batch_device_canvas equal to enhance_batch_device (Δ 0, 600x400
+     b48); enhance_stream in the hwc, planar and canvas stagings over 64
+     frames of 600x400 (batches of 8) and 16 single 1080p frames, every
+     frame byte-equal to enhance's, with frames/s beside enhance_batch's
+     host rate; the golden fixtures and enhance_file through the zlib PNG
+     codec, within 0.1 dB and 0.005 SSIM of tests/data/expected_metrics.json;
   5. an EnhanceServer per path (retinex, hybrid, quality, quality_fast
      under "cascade", retinex and hybrid guided r 4), 16 requests of
      two shapes (the guided paths also two at 1080p) from 4 threads per
      round, each answer equal to
-     pipeline.enhance, p50/p99 latency;
+     pipeline.enhance, p50/p99 latency; then HttpEnhanceServer on a
+     loopback port, PNG requests from 4 threads, each answer equal to
+     pipeline.enhance, p50/p99;
   6. each path's launch counts, reset to 0 just before it runs (phases
      4-5, 4c) and read just after: every path launched its kernels, and
      the retinex video path launched K4 and no K1; the guided paths the
@@ -103,7 +122,9 @@ Phases (each raises on failure, so the script exits non-zero):
      times (hybrid, at every width) or 3 times (decom) a K3 or K5 launch,
      K6b 6 times, K7 once and no K6b (cascade); enhance_hwc_u8 K8 and no
      K1; the default paths no conv kernel; the wide blur the blur kernel
-     once a K1 launch.
+     once a K1 launch; the planar, canvas and planar/canvas stream paths
+     K1's canvas form and no HWC K1, the hwc stream HWC K1 and not the
+     canvas form, and no other path the canvas form.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -112,14 +133,18 @@ with their measured numbers and their bounds.
 
 from __future__ import annotations
 
+import http.client
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 import numpy as np
+
+ROOT = Path(__file__).resolve().parent
 
 BAR_MAX, BAR_SHARE = 1, 1e-3
 
@@ -138,6 +163,15 @@ JAX_EVAL15 = {
                      "delta_e76": 17.871696535746256},
     "retinex guided r4": RETINEX_GUIDED_R4,
     "hybrid guided r4": HYBRID_GUIDED_R4,
+    # the default bilateral tail, through the port's eval_lol
+    "retinex": {"psnr": 10.64133456548055, "ssim": 0.5051738977432251,
+                "delta_e76": 37.51267115275065},
+    "curve": {"psnr": 19.133614540100098, "ssim": 0.7405618369579315,
+              "delta_e76": 19.490376663208007},
+    "hybrid": {"psnr": 19.267244148254395, "ssim": 0.7283268551031749,
+               "delta_e76": 19.357021458943684},
+    "decom": {"psnr": 20.036342748006184, "ssim": 0.8975801467895508,
+              "delta_e76": 18.050062497456867},
 }
 EVAL_BAR_DB, EVAL_BAR_SSIM = 0.1, 0.005
 
@@ -291,6 +325,16 @@ def k1_bound(cfg, b, h, w, itemsize=1):
     return bound_ms(6 * itemsize * px, ops * px)
 
 
+def k1_canvas_bound(cfg, b, h, w, plan, itemsize=1):
+    """K1's canvas form: K1's operations on the h x w image, and the bytes
+    of the plan's canvas in and of its padded_h - 2 margin rows out."""
+    hp, wp, m = plan
+    io = (NORMALIZE_OPS + QUANTIZE_OPS) if itemsize == 1 else 6
+    ops = io + boost_ops(cfg) + tail_ops(cfg)
+    nbytes = 3 * itemsize * b * wp * (hp + hp - 2 * m)
+    return bound_ms(nbytes, ops * b * h * w)
+
+
 def blur_plane_bound(cfg, b, h, w, e):
     """blur_illumination: u8 RGB in, the f32 plane of (h + 2e) x (w + 2e)
     out; max RGB 2 and the two blur passes a position."""
@@ -418,6 +462,16 @@ def main() -> int:
         normalize_u8,
         quantize_u8,
     )
+    from low_light_image_enhancement_tpu_torch.core import pad_planar
+    from low_light_image_enhancement_tpu_torch.data.lol import LOLDataset
+    from low_light_image_enhancement_tpu_torch.eval.runner import eval_lol
+    from low_light_image_enhancement_tpu_torch.http_server import (
+        HttpEnhanceServer,
+    )
+    from low_light_image_enhancement_tpu_torch.io import codec
+    from low_light_image_enhancement_tpu_torch.kernels.striping import (
+        plan_canvas,
+    )
     from low_light_image_enhancement_tpu_torch.pipeline import pad_block
 
     # float32 convs in full float32 (cuDNN would use TF32 by default); the
@@ -495,9 +549,10 @@ def main() -> int:
                 "k4": fe.fused_retinex_ema, "k5": td.tiled_denoise,
                 "k6a": mx.conv2d_patch_mxu, "k6b": mx.conv2d_dense9_mxu,
                 "k7": fc.fcn_cascade_mxu, "k8": hw.enhance_hwc_u8,
-                "kb": fe.blur_illumination, "kg": fe.fused_guided}
+                "kb": fe.blur_illumination, "kg": fe.fused_guided,
+                "kc": fe.fused_retinex_canvas}
     err = {"k1": 0, "k3": 0, "k4": 0, "k5": 0.0, "k6a": 0.0, "k6b": 0.0,
-           "k7": 0.0, "k8": 0, "kb": 0.0, "kg": 0}
+           "k7": 0.0, "k8": 0, "kb": 0.0, "kg": 0, "kc": 0}
     hwc_cfg = llt.PipelineConfig(denoise_guide="perchannel",
                                  denoise_taps="full")
 
@@ -944,6 +999,52 @@ def main() -> int:
         form_check(f"K1 {name}", fe.fused_retinex(x, cfg, stages=stages),
                    fe.fused_retinex_plain(x, cfg, stages),
                    gkey(cfg, "k1", stages))
+
+    # K1's canvas form on the padded planar canvas (pad_planar's), u8 and
+    # f32: every tail form and blur r 16 (its plane of the canvas), at 1x1,
+    # one tile of the tile engine (32 output rows of 64) and one past it,
+    # and the main path's shapes; bit-equal on the image to its plain
+    # version and to HWC K1 (the margin columns are not defined)
+    canvas_forms = [("no tail", cfg0.replace(denoise_strength=0.0)),
+                    ("bilateral", cfg0)]
+    canvas_forms += [(n, cfg0.replace(**kw)) for n, kw in gforms]
+    canvas_forms += [("blur r16", cfg0.replace(blur_radius=16,
+                                               blur_sigma=5.0))]
+
+    def canvas_of(x, cfg):
+        """The (B, H, W, 3) images' canvas on the card, its plan, rows."""
+        _, h, w, _ = x.shape
+        plan = plan_canvas(h, w, canvas_margin(cfg))
+        c = pad_planar(x.permute(0, 3, 1, 2), plan, h, w).contiguous()
+        return c, plan, plan.padded_h - 2 * plan.margin
+
+    n_canvas = 0
+    for name, cfg in canvas_forms:
+        for b, h, w in ((1, 1, 1), (1, 32, 64), (2, 33, 65), (48, 400, 600),
+                        (1, 1080, 1920)):
+            x = x48 if b == 48 else torch.from_numpy(
+                lows_of(b, h, w)).to(dev)
+            c, plan, rows = canvas_of(x, cfg)
+            m = plan.margin
+            for f32 in (False, True):
+                xc, xi = (normalize_u8(c), normalize_u8(x)) if f32 else (c, x)
+                got = fe.fused_retinex_canvas(xc, cfg, m, rows)
+                got = got[..., :h, m:m + w]
+                want = fe.fused_retinex_canvas_plain(xc, cfg, m, rows)
+                hwc = fe.fused_retinex(xi, cfg).permute(0, 3, 1, 2)
+                for other, what in ((want[..., :h, m:m + w], "plain"),
+                                    (hwc, "HWC K1")):
+                    d = float((got.float() - other.float()).abs().max())
+                    if d:
+                        raise AssertionError(
+                            f"K1's canvas form {name} {w}x{h} b{b} "
+                            f"{'f32' if f32 else 'u8'} differs from {what} "
+                            f"by {d}")
+                n_canvas += 1
+            del c, xc, got, want, hwc
+    print(f"  K1's canvas form: {n_canvas} cases ({len(canvas_forms)} forms "
+          "x 5 shapes x u8/f32) bit-equal to its plain version and to HWC "
+          "K1 on the image")
     # the blur kernel's plane alone: K1's HWC image at e 1 and 8, the tile's
     # edges (65x33, 1x1), K3's and K4's planar blocks (e 0, u8 and f32),
     # and radii whose tiles the plan cuts into row and column chunks (r 64:
@@ -1221,6 +1322,23 @@ def main() -> int:
         torch, lambda: fe.fused_retinex_plain(x48, cfg0),
         lambda: fe.fused_retinex(x48, cfg0), 10)
     k1_b = k1_bound(cfg0, 48, 400, 600)
+    # K1's canvas form on the main path's canvas (408x640), beside HWC K1
+    c48, plan48, rows48 = canvas_of(x48, cfg0)
+    kc_ms, kc_plain_ms = paired_ms(
+        torch, lambda: fe.fused_retinex_canvas_plain(c48, cfg0,
+                                                     plan48.margin, rows48),
+        lambda: fe.fused_retinex_canvas(c48, cfg0, plan48.margin, rows48),
+        10)
+    kc_b = k1_canvas_bound(cfg0, 48, 400, 600, plan48)
+    c1080, plan1080, rows1080 = canvas_of(
+        torch.from_numpy(lows_of(1, 1080, 1920)).to(dev), cfg0)
+    kc1080 = paired_ms(
+        torch, lambda: fe.fused_retinex_canvas_plain(
+            c1080, cfg0, plan1080.margin, rows1080),
+        lambda: fe.fused_retinex_canvas(c1080, cfg0, plan1080.margin,
+                                        rows1080), 10) + (
+        k1_canvas_bound(cfg0, 1, 1080, 1920, plan1080),)
+    del c1080
     xb, maps, halo, rows, iw, m = curve_case(hybrid, lows48)
     k3_ms, k3_plain_ms = paired_ms(
         torch,
@@ -1423,6 +1541,12 @@ def main() -> int:
                                                  rows, iw, ds=4),
                   k3_bound(hybrid4, xb, maps, halo, rows, m, ds=4))
             del xb, gain, maps, carry
+    print(f"  600x400 b48 on {card}: K1's canvas form {kc_ms:.4f} ms on "
+          f"the {plan48.padded_h}x{plan48.padded_w} canvas (HWC K1 "
+          f"{k1_ms:.4f} ms; plain {kc_plain_ms:.3f} ms, bound "
+          f"{kc_b[0]:.4f} ms by {kc_b[1]}, {kc_ms / kc_b[0]:.1f}x); 1080p "
+          f"b1 {kc1080[0]:.4f} ms (plain {kc1080[1]:.3f} ms, bound "
+          f"{kc1080[2][0]:.4f} ms by {kc1080[2][1]})")
     print(f"  600x400 b48 on {card}: K1 {k1_ms:.3f} ms (plain "
           f"{k1_plain_ms:.3f} ms, bound {k1_b[0]:.4f} ms by {k1_b[1]}); "
           f"K3 hybrid {k3_ms:.3f} ms (plain {k3_plain_ms:.3f} ms, bound "
@@ -1527,9 +1651,9 @@ def main() -> int:
     # the guided one
     never = {name: tuple(k for k in conv_kernels if k not in kernels)
              + (("k1", "k3", "k4") if "kg" in kernels else ("kg",))
-             for name, _, kernels in paths}
-    never["hwc"] = ("k1", "kg") + tuple(k for k in conv_kernels
-                                        if k != "k8")
+             + ("kc",) for name, _, kernels in paths}
+    never["hwc"] = ("k1", "kg", "kc") + tuple(k for k in conv_kernels
+                                              if k != "k8")
     # launches per block: K6a 6 (hybrid's c2-c7) or 3 (decom's c2-c4) per
     # K3 / K5 launch, K6b 6 (fcn's c2-c7), K7 1 (all six)
     per_block = {"hybrid pallas": ("k6a", 6, "k3"),
@@ -1560,8 +1684,26 @@ def main() -> int:
          hybrid.replace(curve_downsample=4, **guided), True, ("kg",),
          ("k1", "k3", "k4")),
     ]
+    # the host boundary's paths (phases 4b, 4d, 5): (name, kernels it
+    # launches, kernels it must not launch); the planar and canvas entry
+    # points run K1's canvas form in place of HWC K1
+    host_paths = [
+        ("planar", ("kc",), ("k1", "kg")),
+        ("canvas", ("kc",), ("k1", "kg")),
+        ("planar guided r4", ("kg",), ("k1", "kc")),
+        ("canvas guided r4", ("kg",), ("k1", "kc")),
+        ("stream hwc", ("k1",), ("kc", "kg")),
+        ("stream planar", ("kc",), ("k1", "kg")),
+        ("stream canvas", ("kc",), ("k1", "kg")),
+        ("golden and enhance_file", ("k1",), ("kc", "kg")),
+        ("eval retinex", ("k1",), ("kc", "kg")),
+        ("eval curve", ("k3",), ("k1", "kc", "kg")),
+        ("eval hybrid", ("k3",), ("k1", "kc", "kg")),
+        ("eval decom", ("k5",), ("k1", "k3", "kc", "kg")),
+        ("http", ("k1",), ("kc", "kg")),
+    ]
     launches = {name: {k: 0 for k in wrappers}
-                for name, *_ in paths + video_paths + [("hwc",)]}
+                for name, *_ in paths + video_paths + host_paths + [("hwc",)]}
 
     def counted(name, run):
         for wr in wrappers.values():
@@ -1676,6 +1818,35 @@ def main() -> int:
                 f"{name} eval-15 outside {EVAL_BAR_DB} dB / "
                 f"{EVAL_BAR_SSIM} SSIM of the JAX package: {got} vs {want}")
 
+    # the default bilateral tail of retinex, curve, hybrid and decom through
+    # the port's eval runner, on LOLDataset's synthetic eval15 split (its
+    # pairs made once above)
+    class Eval15(LOLDataset):
+        def __getitem__(self, i):
+            return (*pairs[i], f"synth_eval15_{i:04d}")
+
+    ds15 = Eval15(split="eval15")
+    if not ds15.is_synthetic:
+        raise AssertionError("LOL data found on disk: JAX_EVAL15 holds the "
+                             "synthetic eval15 set's numbers")
+    for method in ("retinex", "curve", "hybrid", "decom"):
+        pipe = llt.EnhancePipeline(llt.PipelineConfig(method=method),
+                                   device="cuda")
+        report = counted(f"eval {method}", lambda: eval_lol(
+            pipe, ds15, max_images=15, parity=False, batch_size=5))
+        want = JAX_EVAL15[method]
+        print(f"  eval_lol {method} on {card}: {report['n_images']:.0f} "
+              f"images, PSNR {report['psnr_mean']:.4f} dB (JAX CPU "
+              f"{want['psnr']:.4f}), SSIM {report['ssim_mean']:.5f} "
+              f"({want['ssim']:.5f}), dE76 {report['delta_e76_mean']:.4f} "
+              f"({want['delta_e76']:.4f})")
+        if (report["n_images"] != 15 or report["n_skipped"]
+                or abs(report["psnr_mean"] - want["psnr"]) > EVAL_BAR_DB
+                or abs(report["ssim_mean"] - want["ssim"]) > EVAL_BAR_SSIM):
+            raise AssertionError(
+                f"eval_lol {method} outside {EVAL_BAR_DB} dB / "
+                f"{EVAL_BAR_SSIM} SSIM of the JAX package: {report} vs {want}")
+
     print(f"[4c] ({time.perf_counter() - t_start:.0f} s) "
           "VideoEnhancer(device='cuda'): the 1080p video benchmark's "
           "arms, alpha 0.3")
@@ -1759,6 +1930,118 @@ def main() -> int:
         counted(name, lambda: phase4c(name, cfg, ema_in_kernel))
     del clip96, frame1080
 
+    print(f"[4d] ({time.perf_counter() - t_start:.0f} s) the host boundary: "
+          "the planar and canvas entry points, enhance_stream on the pinned "
+          "prefetch queue, the zlib PNG codec")
+    host_pipe = llt.EnhancePipeline(cfg0, device="cuda")
+
+    def planar_and_canvas(pipe, suffix=""):
+        """Both entry points, each counted as its own path, against
+        enhance_batch_device at 600x400 b48, Δ 0; the three device rates."""
+        want = pipe.enhance_batch_device(x48).cpu().numpy()
+        xp = x48.permute(0, 3, 1, 2).contiguous()
+        cv = torch.from_numpy(pipe.stage_canvas(lows48)).to(dev)
+        check = [("planar", counted(
+            "planar" + suffix, lambda: pipe.enhance_batch_device_planar(xp)
+            .permute(0, 2, 3, 1).cpu().numpy()))]
+        check.append(("canvas", counted(
+            "canvas" + suffix, lambda: pipe.crop_canvas(
+                pipe.enhance_batch_device_canvas(cv, 400, 600), 400, 600))))
+        for what, out in check:
+            st = delta_stats(out, want)
+            if st["max_abs"]:
+                raise AssertionError(f"{what}{suffix} differs from "
+                                     f"enhance_batch_device: {st}")
+        ms = [cuda_ms(torch, fn, 10) for fn in (
+            lambda: pipe.enhance_batch_device(x48),
+            lambda: pipe.enhance_batch_device_planar(xp),
+            lambda: pipe.enhance_batch_device_canvas(cv, 400, 600))]
+        print(f"  planar and canvas{suffix} equal enhance_batch_device (Δ 0, "
+              f"600x400 b48, canvas {tuple(cv.shape[-2:])}); on {card}: "
+              + ", ".join(f"{n} {48e3 / t:.1f} img/s ({t:.3f} ms)"
+                          for n, t in zip(("hwc", "planar", "canvas"), ms)))
+
+    planar_and_canvas(host_pipe)
+    planar_and_canvas(llt.EnhancePipeline(
+        cfg0.replace(guided_radius=4, **guided), device="cuda"),
+        " guided r4")
+
+    # 64 distinct 600x400 frames in batches of 8, and 16 single 1080p frames
+    frames600 = [lows48[i % 48] ^ np.uint8(i // 48) for i in range(64)]
+    batches600 = [np.stack(frames600[i:i + 8]) for i in range(0, 64, 8)]
+    f1080 = lows_of(1, 1080, 1920)[0]
+    frames1080 = [f1080 ^ np.uint8(t) for t in range(16)]
+    want600 = [host_pipe.enhance(f) for f in frames600]
+    want1080 = [host_pipe.enhance(f) for f in frames1080]
+    hb8_ms = cuda_ms(torch, lambda: host_pipe.enhance_batch(batches600[0]),
+                     5)
+    h1080_ms = cuda_ms(torch, lambda: host_pipe.enhance(f1080), 5)
+
+    def stream(staging):
+        """Two rounds of each stream, every frame byte-equal to enhance's;
+        frames/s of the second round on the host's clock."""
+        rates = []
+        for src, want in ((batches600, want600), (frames1080, want1080)):
+            for _ in range(2):
+                t = time.perf_counter()
+                outs = list(host_pipe.enhance_stream(iter(src),
+                                                     staging=staging,
+                                                     workers=2))
+                dt = time.perf_counter() - t
+                got = [f for o in outs for f in (o if o.ndim == 4 else [o])]
+                bad = [i for i, (a, b) in enumerate(zip(got, want))
+                       if not np.array_equal(a, b)]
+                if len(got) != len(want) or bad:
+                    raise AssertionError(
+                        f"stream {staging}: {len(got)} frames of "
+                        f"{len(want)}, frames {bad} differ from enhance")
+            rates.append(len(want) / dt)
+        print(f"  enhance_stream {staging} on {card}: 64 frames 600x400 "
+              f"(batches of 8) {rates[0]:.1f} frames/s, 16 frames 1080p "
+              f"{rates[1]:.1f} frames/s, each byte-equal to enhance "
+              f"(enhance_batch host u8 in/out: b8 {8e3 / hb8_ms:.1f}, "
+              f"1080p {1e3 / h1080_ms:.1f} frames/s)")
+
+    for staging in ("hwc", "planar", "canvas"):
+        counted(f"stream {staging}", lambda: stream(staging))
+    del frames600, batches600, want600, frames1080, want1080
+
+    def golden_and_file():
+        """The golden fixtures and enhance_file through the zlib codec (the
+        card host has no PIL; the module's handle is cleared where it
+        does)."""
+        saved, codec.Image = codec.Image, None
+        try:
+            data = ROOT / "tests" / "data"
+            expected = json.loads((data / "expected_metrics.json")
+                                  .read_text())
+            for name, exp in expected.items():
+                low = codec.decode_image(data / f"{name}_low.png")
+                high = torch.from_numpy(
+                    codec.decode_image(data / f"{name}_high.png")).to(dev)
+                out = torch.from_numpy(host_pipe.enhance(low)).to(dev)
+                ps = float(metrics.psnr_u8(out, high))
+                ss = float(metrics.ssim_u8(out[None], high[None])[0])
+                print(f"  golden {name} (zlib codec): PSNR {ps:.4f} dB "
+                      f"(stored {exp['psnr_db']}), SSIM {ss:.5f} (stored "
+                      f"{exp['ssim']})")
+                if abs(ps - exp["psnr_db"]) > EVAL_BAR_DB or \
+                        abs(ss - exp["ssim"]) > EVAL_BAR_SSIM:
+                    raise AssertionError(f"golden {name} outside the bars")
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+                src, dst = Path(tmp) / "dark.png", Path(tmp) / "bright.png"
+                codec.encode_image(lows48[0], src)
+                host_pipe.enhance_file(src, dst)
+                if not np.array_equal(codec.decode_image(dst),
+                                      host_pipe.enhance(lows48[0])):
+                    raise AssertionError("enhance_file differs from enhance")
+            print("  enhance_file 600x400 through the zlib codec equals "
+                  "enhance")
+        finally:
+            codec.Image = saved
+
+    counted("golden and enhance_file", golden_and_file)
+
     print(f"[5] ({time.perf_counter() - t_start:.0f} s) "
           "EnhanceServer(device='cuda'), 4 threads x 4 requests")
     reqs = [synth_batch(1, 400, 600, seed=7, start=i)[0][0] for i in range(8)]
@@ -1806,12 +2089,73 @@ def main() -> int:
     for name, cfg, _ in paths[:3] + conv_paths[3:4] + guided_paths[1:4:2]:
         counted(name, lambda: phase5(name, cfg))
 
+    def phase5_http():
+        """HttpEnhanceServer on a loopback port: PNG requests of two shapes
+        from 4 threads (a connection each), each answer equal to
+        pipeline.enhance; p50/p99 on the host's clock."""
+        ref = llt.EnhancePipeline(cfg0, device="cuda", bucket=64)
+        want = [ref.enhance(img) for img in reqs]
+        bodies = [codec.encode_image(img, format="PNG") for img in reqs]
+        n = len(reqs)
+        srv = HttpEnhanceServer(cfg0, host="127.0.0.1", port=0,
+                                device="cuda").start()
+        try:
+            for rnd in ("warm-up", "measured"):
+                lat, got = [0.0] * n, [None] * n
+
+                def client(ids):
+                    conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                                      timeout=300)
+                    try:
+                        for i in ids:
+                            t = time.perf_counter()
+                            conn.request("POST", "/enhance", body=bodies[i],
+                                         headers={"Content-Length":
+                                                  str(len(bodies[i]))})
+                            r = conn.getresponse()
+                            body = r.read()
+                            lat[i] = (time.perf_counter() - t) * 1e3
+                            if r.status == 200:
+                                got[i] = codec.decode_image(body)
+                    finally:
+                        conn.close()
+
+                threads = [threading.Thread(target=client,
+                                            args=(range(k, n, 4),))
+                           for k in range(4)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                    if t.is_alive():
+                        raise AssertionError("HTTP client thread hung")
+                bad = [i for i in range(n) if got[i] is None
+                       or not np.array_equal(got[i], want[i])]
+                if bad:
+                    raise AssertionError(f"HTTP answers {bad} differ from "
+                                         "pipeline.enhance")
+                print(f"  HTTP POST /enhance {rnd}: {n}/{n} answered, equal "
+                      f"to pipeline.enhance; latency p50 "
+                      f"{np.percentile(lat, 50):.2f} ms p99 "
+                      f"{np.percentile(lat, 99):.2f} ms on {card} (PNG in "
+                      "and out, zlib codec)")
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                              timeout=60)
+            conn.request("GET", "/stats")
+            print(f"  /stats: {conn.getresponse().read().decode()}")
+            conn.close()
+        finally:
+            srv.close()
+
+    counted("http", phase5_http)
+
     print(f"[6] ({time.perf_counter() - t_start:.0f} s) launches per path "
           f"(phases 4-5, 4c): {launches}")
     expected = [(name, kernels, never[name]) for name, _, kernels in paths]
-    expected += [(name, kernels, nv)
+    expected += [(name, kernels, nv + ("kc",))
                  for name, _, _, kernels, nv in video_paths]
     expected += [("hwc", ("k8",), never["hwc"])]
+    expected += host_paths
     for name, kernels, nv in expected:
         if min(launches[name][k] for k in kernels) < 1:
             raise AssertionError(f"path {name} never launched one of "
@@ -1854,6 +2198,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("fused_retinex (K1)", "k1", "retinex_tile.cu",
             "fused_enhance.py:476", k1_ms, k1_plain_ms, k1_b),
+        dict(row("fused_retinex_canvas (K1's canvas form)", "kc",
+                 "curve_tile.cu", "fused_enhance.py:476", kc_ms, kc_plain_ms,
+                 kc_b),
+             forms=[{"form": "1080p b1", "ms": kc1080[0],
+                     "plain_ms": kc1080[1], "bound_ms": kc1080[2][0],
+                     "bound_by": kc1080[2][1]}]),
         row("fused_curve_enhance (K3)", "k3", "curve_tile.cu",
             "fused_enhance.py:257", k3_ms, k3_plain_ms, k3_b),
         row("fused_retinex_ema (K4)", "k4", "retinex_tile.cu",

@@ -13,6 +13,9 @@ Public API::
     server = llt.EnhanceServer(device="cuda")    # micro-batching server
     ve = llt.VideoEnhancer(llt.PipelineConfig(), alpha=0.3, device="cuda")
     out = ve.process(frame_u8_hwc)               # temporally smoothed
+    pipe.enhance_file("dark.png", "bright.png")  # io.codec: PIL or zlib PNG
+    for out in pipe.enhance_stream(frames, staging="canvas"):
+        ...                                      # pinned prefetch queue
 
 Methods: retinex (kernel K1), curve and hybrid (the curve CNN, then K3),
 fcn and decom (their net, then K5, the bilateral or guided denoise tail).
@@ -21,12 +24,19 @@ K6a/K6b, and fcn's dilated stack under ``"cascade"`` as one K7 launch;
 ``kernels.fused_enhance_hwc.enhance_hwc_u8`` is retinex on u8 HWC (K8).
 Video (``VideoEnhancer``, ``MultiStreamVideoEnhancer``): retinex as one
 kernel K4 per frame (or K1's gain form), curve and hybrid through K3.
-``eval.metrics`` has PSNR, SSIM and CIE76 delta-E on tensors.
+``eval.metrics`` has PSNR, SSIM and CIE76 delta-E on tensors,
+``eval.runner.eval_lol`` the LOL eval; ``http_server`` and ``cli`` (the
+``llie-torch`` command) are the front ends.
 """
 
 from low_light_image_enhancement_tpu_torch.config import (
     PRESETS,
     PipelineConfig,
+)
+from low_light_image_enhancement_tpu_torch.io import (
+    PrefetchQueue,
+    decode_image,
+    encode_image,
 )
 from low_light_image_enhancement_tpu_torch.pipeline import (
     EnhancePipeline,
@@ -52,6 +62,9 @@ __all__ = [
     "ServerSaturated",
     "VideoEnhancer",
     "MultiStreamVideoEnhancer",
+    "PrefetchQueue",
+    "decode_image",
+    "encode_image",
     "enhance",
     "enhance_batch",
     "__version__",

@@ -1,0 +1,340 @@
+"""Command-line interface of the port: ``llie-torch enhance | eval | serve |
+video`` (``bench`` and ``train`` are not ported yet and exit non-zero).
+
+The port of the JAX package's ``cli.py`` (``llie``, which stays the JAX
+package's), with the same config flags and ``--device cuda|cpu`` (default
+``cuda``: every entry point runs on the card unless asked for the CPU).
+``serve`` fronts the micro-batching EnhanceServer over HTTP
+(http_server.py); ``video`` runs the temporally stable frame-sequence path
+(video.py), one stream or, with ``--streams``, one per directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import List, Optional
+
+from low_light_image_enhancement_tpu_torch.config import (
+    PRESETS,
+    PipelineConfig,
+)
+
+# what is not ported yet, and the ROADMAP.md item (Queue 1) that ports it
+NOT_PORTED = {
+    "bench": "the port's benchmark (ROADMAP.md Queue 1, item 1)",
+    "train": "training (ROADMAP.md Queue 1, item 3)",
+    "enhance --raw": "RAW ingest (ROADMAP.md Queue 1, item 4)",
+}
+
+
+def _add_config_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the pipeline runs (cpu: the kernels' plain "
+                        "versions)")
+    p.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                   help="named benchmark config")
+    p.add_argument("--method",
+                   choices=["retinex", "curve", "hybrid", "fcn", "decom"],
+                   default=None)
+    p.add_argument("--gamma", type=float, default=None)
+    p.add_argument("--decom-gamma", type=float, default=None,
+                   help="decom method's illumination exponent")
+    p.add_argument("--denoise-strength", type=float, default=None)
+    p.add_argument("--denoise-taps", choices=["sep", "full", "guided"],
+                   default=None,
+                   help="sep (default), full 3x3, or the guided-filter tail")
+    p.add_argument("--denoise-guide", choices=["luma", "perchannel"],
+                   default=None)
+    p.add_argument("--guided-radius", type=int, default=None,
+                   help="guided tail box radius (with --denoise-taps guided)")
+    p.add_argument("--guided-eps", type=float, default=None,
+                   help="guided tail edge/flat threshold")
+    p.add_argument("--curve-downsample", type=int, choices=[1, 2, 4, 8],
+                   default=None, help="estimate curve maps at 1/N res")
+    p.add_argument("--conv-impl", choices=["auto", "xla", "pallas",
+                                           "cascade"],
+                   default=None,
+                   help="the nets' convs: auto/xla F.conv2d, pallas the "
+                        "port's conv kernels, cascade fcn's stack as one "
+                        "kernel")
+    p.add_argument("--data-shards", type=int, default=None,
+                   help="shard batches over N devices (not ported yet)")
+    p.add_argument("--weights", default=None,
+                   help="model weights: an .npz path or a shipped name "
+                        "(models.weights.NAMED); default: the method's "
+                        "shipped weights, or the preset's weights_name")
+
+
+def _build_config(args) -> PipelineConfig:
+    cfg = PRESETS[args.preset] if args.preset else PipelineConfig()
+    over = {}
+    for name in ("method", "gamma", "denoise_strength", "decom_gamma",
+                 "denoise_taps", "denoise_guide", "guided_radius",
+                 "guided_eps", "curve_downsample", "conv_impl",
+                 "data_shards"):
+        v = getattr(args, name, None)
+        if v is not None:
+            over[name] = v
+    return cfg.replace(**over) if over else cfg
+
+
+def _model_params(args):
+    if args.weights is None:
+        return None
+    from low_light_image_enhancement_tpu_torch.models.weights import (
+        params_from_numpy,
+        resolve_weights,
+    )
+
+    return params_from_numpy(resolve_weights(args.weights))
+
+
+def _pipeline(args, **kw):
+    from low_light_image_enhancement_tpu_torch.pipeline import (
+        EnhancePipeline,
+    )
+
+    return EnhancePipeline(_build_config(args),
+                           model_params=_model_params(args),
+                           device=args.device, **kw)
+
+
+def _not_ported(what: str) -> int:
+    print(f"llie-torch {what}: not in the port yet: {NOT_PORTED[what]}",
+          file=sys.stderr)
+    return 2
+
+
+def cmd_enhance(args) -> int:
+    if args.raw:
+        return _not_ported("enhance --raw")
+    _pipeline(args).enhance_file(args.input, args.output)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from low_light_image_enhancement_tpu_torch.data.lol import LOLDataset
+    from low_light_image_enhancement_tpu_torch.eval.runner import eval_lol
+
+    ds = LOLDataset(root=args.data_dir, split=args.split)
+    report = eval_lol(_pipeline(args), ds, max_images=args.max_images,
+                      parity=not args.no_parity)
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    import signal
+
+    from low_light_image_enhancement_tpu_torch.http_server import (
+        HttpEnhanceServer,
+    )
+    from low_light_image_enhancement_tpu_torch.serving import EnhanceServer
+
+    pipe = _pipeline(args, bucket=args.bucket)
+    backend = EnhanceServer(pipe.config, pipeline=pipe,
+                            max_batch=args.max_batch,
+                            max_delay_ms=args.max_delay_ms,
+                            max_queue=args.max_queue, overflow=args.overflow)
+    srv = HttpEnhanceServer(pipe.config, host=args.host, port=args.port,
+                            enhance_server=backend)
+    print(f"serving on http://{srv.host}:{srv.port} "
+          "(POST /enhance, GET /healthz, GET /stats)", flush=True)
+
+    # SIGTERM drains like Ctrl-C: stop accepting, finish the requests in
+    # flight, exit 0
+    def _term(_sig, _frm):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _term)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.close()
+        backend.close()
+    return 0
+
+
+def cmd_video(args) -> int:
+    import glob
+
+    from low_light_image_enhancement_tpu_torch.io.codec import (
+        decode_image,
+        encode_image,
+    )
+
+    if args.streams:
+        return _cmd_video_streams(args, decode_image, encode_image)
+
+    from low_light_image_enhancement_tpu_torch.video import VideoEnhancer
+
+    frames = sorted(glob.glob(args.input_glob))
+    if not frames:
+        print(f"no frames match {args.input_glob!r}", file=sys.stderr)
+        return 1
+    os.makedirs(args.output_dir, exist_ok=True)
+    enh = VideoEnhancer(_build_config(args), alpha=args.alpha,
+                        model_params=_model_params(args), device=args.device)
+    for path in frames:
+        out = enh.process(decode_image(path))
+        encode_image(out, os.path.join(args.output_dir,
+                                       os.path.basename(path)))
+    print(f"wrote {len(frames)} frames to {args.output_dir} "
+          f"(carry {enh.carry_bytes} bytes)")
+    return 0
+
+
+def _cmd_video_streams(args, decode_image, encode_image) -> int:
+    """--streams: the glob matches one directory per independent stream;
+    frame t of every stream goes through one batched step
+    (MultiStreamVideoEnhancer). The streams advance together through their
+    sorted frames and stop at the shortest stream."""
+    import glob
+
+    import numpy as np
+
+    from low_light_image_enhancement_tpu_torch.io.prefetch import (
+        PrefetchQueue,
+    )
+    from low_light_image_enhancement_tpu_torch.video import (
+        MultiStreamVideoEnhancer,
+    )
+
+    dirs = sorted(d for d in glob.glob(args.input_glob) if os.path.isdir(d))
+    if not dirs:
+        print(f"no stream directories match {args.input_glob!r}",
+              file=sys.stderr)
+        return 1
+    per_stream = []
+    for d in dirs:
+        fs = sorted(os.path.join(d, f) for f in os.listdir(d)
+                    if f.lower().endswith((".png", ".jpg", ".jpeg")))
+        if not fs:
+            print(f"stream directory {d!r} has no frames", file=sys.stderr)
+            return 1
+        per_stream.append(fs)
+    n_frames = min(len(fs) for fs in per_stream)
+    if any(len(fs) != n_frames for fs in per_stream):
+        shortest = dirs[min(range(len(dirs)),
+                            key=lambda i: len(per_stream[i]))]
+        print(f"warning: streams have unequal frame counts "
+              f"({n_frames}..{max(len(fs) for fs in per_stream)}); "
+              f"truncating all to the shortest, {shortest!r}",
+              file=sys.stderr)
+    # an output directory per stream: the basename of the normalized path,
+    # suffixed where two parents share one ('a/cam0', 'b/cam0')
+    names, seen = [], {}
+    for d in dirs:
+        n = os.path.basename(os.path.normpath(d))
+        if n in seen:
+            seen[n] += 1
+            n = f"{n}_{seen[n]}"
+        else:
+            seen[n] = 0
+        names.append(n)
+    enh = MultiStreamVideoEnhancer(len(dirs), _build_config(args),
+                                   alpha=args.alpha,
+                                   model_params=_model_params(args),
+                                   device=args.device)
+    for n in names:
+        os.makedirs(os.path.join(args.output_dir, n), exist_ok=True)
+
+    # batch t + 1 decodes on the prefetch thread while batch t is enhanced
+    frame_paths = [tuple(fs[t] for fs in per_stream)
+                   for t in range(n_frames)]
+
+    def _decode_batch(paths):
+        return np.stack([decode_image(p) for p in paths])
+
+    try:
+        for t, batch in enumerate(PrefetchQueue(
+                frame_paths, transform=_decode_batch, device_put=False)):
+            outs = enh.process(batch)
+            for i, n in enumerate(names):
+                encode_image(outs[i], os.path.join(
+                    args.output_dir, n, os.path.basename(per_stream[i][t])))
+    except ValueError as e:
+        # frames of different sizes across the streams or within one
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(f"wrote {n_frames} frames x {len(dirs)} streams to "
+          f"{args.output_dir} (carry {enh.carry_bytes} bytes)")
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="llie-torch",
+        description="low-light image enhancement on PyTorch and CUDA")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("enhance", help="enhance one image file")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--raw", action="store_true",
+                   help="input is a Bayer mosaic (not ported yet)")
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_enhance)
+
+    p = sub.add_parser("eval", help="run the LOL eval harness")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--split", default="eval15")
+    p.add_argument("--max-images", type=int, default=None)
+    p.add_argument("--no-parity", action="store_true")
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_eval)
+
+    for name in ("bench", "train"):
+        p = sub.add_parser(name, help=f"not ported yet: {NOT_PORTED[name]}")
+        p.set_defaults(fn=lambda args, name=name: _not_ported(name))
+
+    p = sub.add_parser(
+        "serve", help="HTTP enhancement server (POST /enhance with JPEG/PNG "
+                      "bytes; a micro-batching dispatcher owns the device)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000,
+                   help="0 binds a free port (printed at start-up)")
+    p.add_argument("--max-batch", type=int, default=32)
+    p.add_argument("--max-delay-ms", type=float, default=5.0)
+    p.add_argument("--max-queue", type=int, default=256,
+                   help="bound on in-flight requests")
+    p.add_argument("--overflow", choices=["block", "reject"],
+                   default="reject",
+                   help="a full server answers 503 (reject) or holds the "
+                        "producer back (block)")
+    p.add_argument("--bucket", type=int, default=64,
+                   help="shape-bucket granularity")
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "video", help="enhance an ordered frame sequence with the "
+                      "temporally stable video path")
+    p.add_argument("input_glob",
+                   help="glob over input frames, e.g. 'frames/*.png'; "
+                        "processed in sorted order")
+    p.add_argument("output_dir")
+    p.add_argument("--alpha", type=float, default=0.3,
+                   help="new-frame weight of the temporal EMA "
+                        "(1.0 = no smoothing)")
+    p.add_argument("--streams", action="store_true",
+                   help="the glob matches directories, one stream each; "
+                        "one frame of every stream is enhanced a batched "
+                        "step (MultiStreamVideoEnhancer)")
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_video)
+
+    args, rest = parser.parse_known_args(argv)
+    if rest and args.command not in ("bench", "train"):
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -59,6 +59,13 @@ _SIGNATURES = {
         _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
         _P,                          # kind, joint, sep; stream
     ],
+    "llie_fused_retinex_canvas": [
+        _P, _P, _P, _I,              # in, illumination plane, out, f32
+        _I, _I, _I, _I, _I,          # B, HB, WB, halo, rows
+        _I, _FP, _F, _F,             # radius, taps, gamma - 1, eps
+        _F, _F, _F, _I, _I, _I,      # strength, inv2s2, inv2s2/3,
+        _P,                          # kind, joint, sep; stream
+    ],
     "llie_fused_retinex_ema": [
         _P, _P, _P, _P, _P, _I,      # in, carry, plane, out, new carry, f32
         _I, _I, _I,                  # B, HB, WB

@@ -1,13 +1,16 @@
-// K3 (the fused curve / hybrid tail) and K1's gain form for Hopper (sm_90a)
-// on the tile engine of retinex_tile.cuh, bound to PyTorch through ctypes
-// (kernels/fused_enhance.py).
+// K3 (the fused curve / hybrid tail), K1's gain form and K1's canvas form
+// for Hopper (sm_90a) on the tile engine of retinex_tile.cuh, bound to
+// PyTorch through ctypes (kernels/fused_enhance.py).
 //
 // What they replace. K3 replaces the TPU kernel fused_curve_enhance ->
 // _curve_kernel (low_light_image_enhancement_tpu/kernels/fused_enhance.py),
 // with maps at 1/1, 1/2 and 1/4 and the ext_gain arm; K1's gain form is the
 // same kernel with the gain plane and no curve step: the TPU kernel's two
 // ext_gain arms (_retinex_kernel's and _curve_kernel's) compute the same
-// thing. These are the bilateral tails (and no tail); the guided tails are
+// thing. K1's canvas form is the same kernel with K1's boost and no curve
+// step: the TPU kernel fused_retinex -> _retinex_kernel on the padded
+// planar canvas, as the JAX package's planar and canvas programs run it.
+// These are the bilateral tails (and no tail); the guided tails are
 // fused_guided.cu.
 //
 // What bounds them. With maps at full resolution K3 reads 3 bytes and
@@ -327,12 +330,13 @@ __device__ inline void curve_pass(float* __restrict__ sY,
 
 // K3: block (B, 3, HB, WB) T + maps (B, n_iter, 3, HB/DS, WB/DS) f32 ->
 // (B, 3, rows, WB) T, output row r <-> block row halo + r; ring position
-// (i, j) <-> block (halo + y0 - 1 + i, x0 - 1 + j). With `boost` (hybrid)
-// the image is boosted by the tile's blur at bp.radius or, LPLANE, by the
-// blurred illumination in lp (B, HB, WB), and the boosted columns outside
-// [m, m + img_w) take the values of the nearest image column. With `gain`
-// (f32 (B, HB, WB), no boost) the image is clip(x * gain) first. Then
-// n_iter curve steps (none for K1's gain form), the tail and the store.
+// (i, j) <-> block (halo + y0 - 1 + i, x0 - 1 + j). With `boost` (hybrid's,
+// or K1's canvas form's) the image is boosted by the tile's blur at
+// bp.radius or, LPLANE, by the blurred illumination in lp (B, HB, WB); under
+// hybrid's the boosted columns outside [m, m + img_w) then take the values
+// of the nearest image column. With `gain` (f32 (B, HB, WB), no boost) the
+// image is clip(x * gain) first. Then n_iter curve steps (none for K1's
+// gain form and canvas form), the tail and the store.
 // Built for curve_blocks() blocks an SM.
 // At 3 (80 registers) the forms at 1/1 with the illumination plane and at
 // 1/4 without it spill (ptxas): they are built for 2.
@@ -430,7 +434,8 @@ curve_tile_kernel(const T* __restrict__ in, const float* __restrict__ maps,
   // the boosted columns outside [m, m + img_w): their nearest image
   // column's values (a column that is its own nearest is never written)
   const int c0b = x0 - 1;  // block column of ring column 0
-  if (boost && (c0b < m || c0b + YW - 1 > m + img_w - 1)) {
+  if (boost == BOOST_HYBRID
+      && (c0b < m || c0b + YW - 1 > m + img_w - 1)) {
     for (int e = tid; e < YH * YW; e += NT) {
       const int r = e / YW, c = e - r * YW;
       const int cn =
@@ -551,6 +556,33 @@ int llie_fused_curve(const void* in, const void* maps, const void* gain,
   return launch_io<tile::CurveTileForm>(
       f32, in, maps, gain, boost ? lp : nullptr, out, B, HB, WB, halo, rows,
       n_iter, boost, m, img_w, ds, up, bp, tp, (cudaStream_t)stream);
+}
+
+// K1's canvas form: K3's kernel with K1's boost and no curve step on a
+// block (B, 3, HB, WB) whose `halo` rows above its output rows and margin
+// columns are replicate-padded (the canvas of pad_planar), -> (B, 3, rows,
+// WB), output row r <-> block row halo + r. `taps` is a host array of 2 *
+// radius + 1 floats, read when radius <= MAX_BLUR_RADIUS; a wider blur
+// comes in `lp` (B, HB, WB) from llie_blur_illumination at e 0 (NULL
+// otherwise).
+int llie_fused_retinex_canvas(const void* in, const float* lp, void* out,
+                              int f32, int B, int HB, int WB, int halo,
+                              int rows, int radius, const float* taps,
+                              float gm1, float eps, float strength,
+                              float inv2s2, float inv2s2_3, int kind,
+                              int joint, int sep, void* stream) {
+  if (radius < 1 || (radius > MAX_BLUR_RADIUS) != (lp != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B < 1 || WB < 1 || rows < 1 || halo < 0 || halo + rows > HB)
+    return (int)cudaErrorInvalidValue;
+  const BoostParams bp = boost_params(radius, taps, gm1, eps);
+  const TailParams tp =
+      tail_params(strength, inv2s2, inv2s2_3, kind, joint, sep);
+  const UpParams up = {};
+  return launch_io<tile::CurveTileForm>(
+      f32, in, (const void*)nullptr, (const void*)nullptr, lp, out, B, HB,
+      WB, halo, rows, 0, BOOST_CANVAS, 0, 0, 1, up, bp, tp,
+      (cudaStream_t)stream);
 }
 
 // K1's gain form: K3's kernel with the gain plane and no curve step.

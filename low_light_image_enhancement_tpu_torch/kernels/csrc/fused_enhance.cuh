@@ -32,6 +32,15 @@ constexpr int STAGE_BOOST = 2;
 constexpr int STAGE_DENOISE = 4;
 constexpr int STAGES_ALL = 7;
 
+// The boost of K3's kernels (curve_tile.cu, fused_guided.cuh's FG_CURVE):
+// none (curve, K1's gain form); hybrid's, whose boosted margin columns
+// then take the values of their nearest image column
+// (replicate_margin_cols); or K1's canvas form's, whose margin columns keep
+// the values boosted from the canvas as staged (the plain K1 graph).
+constexpr int BOOST_NONE = 0;
+constexpr int BOOST_HYBRID = 1;
+constexpr int BOOST_CANVAS = 2;
+
 struct BoostParams {
   int radius;                              // blur radius R
   float taps[2 * MAX_BLUR_RADIUS + 1];     // gaussian_kernel_1d, as float

@@ -58,6 +58,9 @@ int llie_fused_guided(const FusedGuidedArgs* a, void* stream) {
   if (a->family == FG_EMA && (a->m < 1 || a->H <= 2 * a->m || !a->carry ||
                               !a->ncarry))
     return (int)cudaErrorInvalidValue;
+  if (a->boost < BOOST_NONE || a->boost > BOOST_CANVAS ||
+      (a->boost && a->family != FG_CURVE))
+    return (int)cudaErrorInvalidValue;
   if (a->family == FG_GAIN && (!a->gain || a->n_iter != 0 || a->boost))
     return (int)cudaErrorInvalidValue;
   if (a->family == FG_CURVE &&

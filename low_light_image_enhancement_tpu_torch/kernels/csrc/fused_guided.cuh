@@ -634,10 +634,10 @@ __device__ __forceinline__ void curve_strips(const FusedGuidedArgs& a,
 }
 
 // ring position (i, j) <-> block (r0 + i, c0 + j). With the gain plane:
-// y = clip(x * gain); with `boost` (hybrid): x boosted by the blurred
-// illumination, the boosted columns outside [m, m + img_w) replaced by
-// their nearest image column; then n_iter curve steps (none for K1's gain
-// form)
+// y = clip(x * gain); with `boost` (hybrid's, or K1's canvas form's): x
+// boosted by the blurred illumination, under hybrid's the boosted columns
+// outside [m, m + img_w) replaced by their nearest image column; then
+// n_iter curve steps (none for K1's gain form and canvas form)
 template <class T, int R, bool JOINT>
 __device__ __forceinline__ void stage_curve(const FusedGuidedArgs& a,
                                             float* __restrict__ sm, int r0,
@@ -741,7 +741,8 @@ __device__ __forceinline__ void stage_curve(const FusedGuidedArgs& a,
     // the boosted columns outside [m, m + img_w): their nearest image
     // column's values (a column that is its own nearest is never written;
     // a nearest column inside the image is never a target)
-    if (c0 < a.m || c0 + LW - 1 > a.m + a.img_w - 1) {
+    if (a.boost == BOOST_HYBRID
+        && (c0 < a.m || c0 + LW - 1 > a.m + a.img_w - 1)) {
       for_ring<LH, LW>(tid, [&](int i, int j) {
         const int jr = clampi(clampi(c0 + j, a.m, a.m + a.img_w - 1) - c0, 0,
                               LW - 1);

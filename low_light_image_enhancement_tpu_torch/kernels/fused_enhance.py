@@ -21,7 +21,10 @@ f32 plane that the kernel reads), and K1's ``stages``.
   ``kernels/fused_enhance.py::fused_retinex`` (``_retinex_kernel``) on
   (B, H, W, 3) images; ``fused_retinex_gain`` is its external-gain form on
   a block, with the contract of ``video._fused_gain_tail``, and counts its
-  bilateral launches on ``fused_retinex``.
+  bilateral launches on ``fused_retinex``; ``fused_retinex_canvas`` is its
+  form on the padded planar canvas (the JAX kernel's own input, which the
+  planar and canvas entry points of ``pipeline`` stage), K3's kernel with
+  K1's boost and no curve step, counted on its own.
 - K3 ``fused_curve_enhance`` replaces its ``fused_curve_enhance``
   (``_curve_kernel``) with the contract of ``blocks._fused_curve_tail``:
   full-resolution maps or maps at 1/2 and 1/4 that it upsamples itself, and
@@ -467,6 +470,65 @@ def fused_retinex_gain(xb: torch.Tensor, gain: torch.Tensor,
     _raise_on(rc, lib, "fused_retinex_gain")
     fused_retinex.launches += 1
     return out
+
+
+BOOST_CANVAS = 2   # csrc/fused_enhance.cuh: K1's boost, no margin replica
+
+
+def fused_retinex_canvas_plain(xb, cfg, halo, rows):
+    """Plain version of K1's canvas form: the K1 graph (``core``'s
+    illumination boost and denoise tail, wrap shifts) on the window
+    ``[halo - m, halo + rows + m)`` of the block, quantized (u8) or
+    clipped (f32)."""
+    m = canvas_margin(cfg)
+    y = illumination_boost(_to_float(xb[..., halo - m:halo + rows + m, :]),
+                           cfg)
+    return _denoise_finish(y, cfg, m, rows, xb.dtype == torch.uint8)
+
+
+def fused_retinex_canvas(xb: torch.Tensor, cfg: PipelineConfig, halo: int,
+                         rows: int) -> torch.Tensor:
+    """K1's canvas form: u8 or f32 planar block (B, 3, HB, WB), replicate
+    padded with ``halo`` rows above the output rows and
+    ``canvas_margin(cfg)`` columns before the image (``core.pad_planar``'s
+    canvas, halo = margin), -> (B, 3, rows, WB) of the block's dtype: output
+    row r is block row halo + r (row 0 the image's row 0), columns keep the
+    margin offset. Only the image's rows x [m, m + w) are defined; the
+    margin columns and the rows past the image are not (the caller crops
+    them). It runs K1's graph: max RGB, blur, boost, the denoise tail, then
+    quantize or clip; past MAX_BLUR_RADIUS the blur runs first as
+    ``blur_illumination`` into a plane of the block. Its bilateral launches
+    count on ``fused_retinex_canvas.launches``, the guided tail's on
+    ``fused_guided.launches``."""
+    if cfg.method != "retinex":
+        raise ValueError(f"fused_retinex_canvas runs method='retinex', not "
+                         f"{cfg.method!r}")
+    _check_block(xb)
+    m = _check_window(cfg, xb, halo, rows)
+    if xb.device.type == "cpu":
+        return fused_retinex_canvas_plain(xb, cfg, halo, rows)
+    _check_cuda_tensor(xb)
+    lib = _build.load_library()
+    b, _, hb, wb = xb.shape
+    out = torch.empty((b, 3, rows, wb), dtype=xb.dtype, device=xb.device)
+    lp = blur_illumination(xb, cfg, 0, hwc=False) if _wide_blur(cfg) \
+        else None
+    if _guided(cfg):
+        fused_guided("curve", cfg, xb, out, B=b, H=hb, W=wb, halo=halo,
+                     rows=rows, m=m, lp=lp, boost=BOOST_CANVAS,
+                     what="fused_retinex_canvas")
+        return out
+    with torch.cuda.device(xb.device):
+        rc = lib.llie_fused_retinex_canvas(
+            xb.data_ptr(), _ptr(lp), out.data_ptr(),
+            int(xb.dtype == torch.float32), b, hb, wb, halo, rows,
+            *_boost_args(cfg), *_tail_args(cfg), _stream(xb))
+    _raise_on(rc, lib, "fused_retinex_canvas")
+    fused_retinex_canvas.launches += 1
+    return out
+
+
+fused_retinex_canvas.launches = 0
 
 
 # --------------------------------------------------------------------- K3 #

@@ -1,6 +1,10 @@
 """Pipeline assembly: the public ``enhance`` API over the enhancement graph.
 
-u8 HWC in, u8 HWC out. ``device`` is explicit: a pipeline on ``"cuda"``
+u8 HWC in, u8 HWC out; the layout-persistent entry points take planar u8
+(``enhance_batch_device_planar``) or the padded planar canvas
+(``enhance_batch_device_canvas``, staged on the host by ``stage_canvas``),
+``enhance_stream`` runs a stream of frames through a pinned prefetch queue
+and ``enhance_file`` a file. ``device`` is explicit: a pipeline on ``"cuda"``
 runs the CUDA kernels (K1 for retinex; the curve CNN and K3 for
 curve/hybrid, at every ``curve_downsample``; the fcn or decom net and K5
 for their denoise tail; every method with the bilateral or the guided
@@ -12,6 +16,7 @@ other.
 
 from __future__ import annotations
 
+import collections
 import threading
 from typing import Any, Dict, Optional
 
@@ -29,8 +34,22 @@ from low_light_image_enhancement_tpu_torch.config import (
     canvas_margin,
 )
 from low_light_image_enhancement_tpu_torch.core import pad_edge, pad_planar
+from low_light_image_enhancement_tpu_torch.io.codec import (
+    decode_image,
+    encode_image,
+)
+from low_light_image_enhancement_tpu_torch.io.prefetch import (
+    PrefetchQueue,
+    from_planar,
+    to_planar,
+)
 from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
     fused_retinex,
+    fused_retinex_canvas,
+)
+from low_light_image_enhancement_tpu_torch.kernels.striping import (
+    CanvasPlan,
+    plan_canvas,
 )
 from low_light_image_enhancement_tpu_torch.models.curve_cnn import (
     init_curve_cnn,
@@ -43,8 +62,8 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     resolve_weights,
 )
 
-__all__ = ["pad_planar", "pad_block", "resolve_device", "params_on",
-           "EnhancePipeline", "enhance", "enhance_batch"]
+__all__ = ["pad_planar", "pad_block", "pad_block_planar", "resolve_device",
+           "params_on", "EnhancePipeline", "enhance", "enhance_batch"]
 
 
 def check_ported(cfg: PipelineConfig) -> None:
@@ -77,18 +96,22 @@ def params_on(model_params: Optional[Dict[str, Any]], device):
             for name, layer in model_params.items()}
 
 
-def pad_block(imgs_u8: torch.Tensor, cfg: PipelineConfig):
-    """(B, H, W, 3) u8 -> the learned methods' planar u8 block
-    (B, 3, HB, WB) and its halo: ``single_block_halo`` replicate rows above
-    and below the rounded rows, ``canvas_margin`` replicate cols before the
-    image, the width rounded to 128."""
-    _, h, w, _ = imgs_u8.shape
+def pad_block_planar(x: torch.Tensor, cfg: PipelineConfig):
+    """(B, 3, H, W) -> the learned methods' planar block (B, 3, HB, WB)
+    and its halo: ``single_block_halo`` replicate rows above and below the
+    rounded rows, ``canvas_margin`` replicate cols before the image, the
+    width rounded to 128."""
+    h, w = x.shape[-2:]
     m = canvas_margin(cfg)
     halo = single_block_halo(cfg)
     h_core, wp = block_geometry(cfg, h, w)
-    xb = pad_edge(imgs_u8.permute(0, 3, 1, 2), halo, halo + h_core - h,
-                  m, wp - w - m)
+    xb = pad_edge(x, halo, halo + h_core - h, m, wp - w - m)
     return xb.contiguous(), halo
+
+
+def pad_block(imgs_u8: torch.Tensor, cfg: PipelineConfig):
+    """(B, H, W, 3) u8 -> ``pad_block_planar``'s block and halo."""
+    return pad_block_planar(imgs_u8.permute(0, 3, 1, 2), cfg)
 
 
 def _enhance_u8_batch(
@@ -111,6 +134,30 @@ def _enhance_u8_batch(
     yb = enhance_learned_block(xb, cfg, model_params, row0=-halo, h=h, w=w,
                                halo=halo)
     return yb[..., :h, m:m + w].permute(0, 2, 3, 1).contiguous()
+
+
+def _enhance_u8_planar(
+    x: torch.Tensor,
+    model_params: Optional[Dict[str, Any]],
+    *,
+    cfg: PipelineConfig,
+) -> torch.Tensor:
+    """(B, 3, H, W) u8 -> (B, 3, H, W) u8 enhanced, on the input's device.
+
+    retinex pads the canvas on the device (``pad_planar``), runs K1's
+    canvas form and crops; the learned methods run the block graph on
+    ``pad_block_planar``'s block and crop."""
+    _, _, h, w = x.shape
+    m = canvas_margin(cfg)
+    if cfg.method == "retinex":
+        plan = plan_canvas(h, w, m)
+        canvas = pad_planar(x, plan, h, w).contiguous()
+        y = fused_retinex_canvas(canvas, cfg, m, plan.padded_h - 2 * m)
+    else:
+        xb, halo = pad_block_planar(x, cfg)
+        y = enhance_learned_block(xb, cfg, model_params, row0=-halo, h=h,
+                                  w=w, halo=halo)
+    return y[..., :h, m:m + w].contiguous()
 
 
 class EnhancePipeline:
@@ -192,6 +239,13 @@ class EnhancePipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _check_on_device(self, x: torch.Tensor) -> None:
+        if x.dtype != torch.uint8:
+            raise TypeError(f"expected uint8 input, got {x.dtype}")
+        if x.device.type != self.device.type:
+            raise ValueError(f"input on {x.device}, pipeline on "
+                             f"{self.device}")
+
     @torch.inference_mode()
     def enhance_batch_device(self, imgs_u8: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) u8 tensor on the pipeline's device -> enhanced u8
@@ -199,12 +253,22 @@ class EnhancePipeline:
         if imgs_u8.ndim != 4 or imgs_u8.shape[-1] != 3:
             raise ValueError(
                 f"expected RGB (B,H,W,3), got {tuple(imgs_u8.shape)}")
-        if imgs_u8.dtype != torch.uint8:
-            raise TypeError(f"expected uint8 input, got {imgs_u8.dtype}")
-        if imgs_u8.device.type != self.device.type:
-            raise ValueError(f"input on {imgs_u8.device}, pipeline on "
-                             f"{self.device}")
+        self._check_on_device(imgs_u8)
         return _enhance_u8_batch(imgs_u8, self.model_params, cfg=self.config)
+
+    @torch.inference_mode()
+    def enhance_batch_device_planar(self, imgs_pu8: torch.Tensor
+                                    ) -> torch.Tensor:
+        """(B, 3, H, W) PLANAR u8 tensor on the pipeline's device ->
+        enhanced planar u8 tensor there: no HWC transpose runs on the
+        device (the host stages planar in the prefetch workers,
+        ``io.prefetch.to_planar``). Equal to ``enhance_batch_device``."""
+        if imgs_pu8.ndim != 4 or imgs_pu8.shape[1] != 3:
+            raise ValueError(f"expected planar RGB (B,3,H,W), got "
+                             f"{tuple(imgs_pu8.shape)}")
+        self._check_on_device(imgs_pu8)
+        return _enhance_u8_planar(imgs_pu8, self.model_params,
+                                  cfg=self.config)
 
     def enhance_batch(self, imgs_u8) -> np.ndarray:
         """(B, H, W, 3) u8 -> (B, H, W, 3) u8 enhanced (host numpy)."""
@@ -227,6 +291,177 @@ class EnhancePipeline:
         return self.enhance_batch(img_u8[None])[0]
 
     __call__ = enhance
+
+    def enhance_file(self, in_path, out_path) -> None:
+        """Decode an image file, enhance it, encode the result (the format
+        from ``out_path``'s extension; ``io.codec``)."""
+        encode_image(self.enhance(decode_image(in_path)), out_path)
+
+    # ------------------------------------------------------------------ #
+    # Canvas I/O: the device step is K1's canvas form alone
+    # ------------------------------------------------------------------ #
+
+    def canvas_plan(self, h: int, w: int) -> CanvasPlan:
+        """The padded canvas that :meth:`enhance_batch_device_canvas` takes
+        for images of (h, w): ``margin`` replicate rows and columns before
+        the image, rows rounded to 8 and the width to 128."""
+        return plan_canvas(h, w, canvas_margin(self.config))
+
+    def stage_canvas(self, imgs_u8, plan: Optional[CanvasPlan] = None
+                     ) -> np.ndarray:
+        """Host-side staging for the canvas path: (B, H, W, 3) or (H, W, 3)
+        u8 HWC -> (B, 3, Hp, Wp) planar edge-padded canvas (numpy). Run it
+        in a prefetch worker, so that it overlaps the device's work."""
+        imgs_u8 = np.asarray(imgs_u8)
+        if imgs_u8.ndim == 3:
+            imgs_u8 = imgs_u8[None]
+        _, h, w, _ = imgs_u8.shape
+        if plan is None:
+            plan = self.canvas_plan(h, w)
+        m = plan.margin
+        return np.pad(np.moveaxis(imgs_u8, -1, 1),
+                      ((0, 0), (0, 0), (m, plan.padded_h - h - m),
+                       (m, plan.padded_w - w - m)), mode="edge")
+
+    def crop_canvas(self, canvas_out, h: int, w: int,
+                    plan: Optional[CanvasPlan] = None) -> np.ndarray:
+        """Host-side inverse of :meth:`stage_canvas` for the output canvas:
+        (B, 3, rows, Wp) -> (B, H, W, 3) u8 numpy (row 0 of the output is
+        image row 0; columns keep the margin offset)."""
+        if plan is None:
+            plan = self.canvas_plan(h, w)
+        if isinstance(canvas_out, torch.Tensor):
+            canvas_out = canvas_out.cpu().numpy()
+        m = plan.margin
+        return from_planar(np.asarray(canvas_out)[..., :h, m:m + w])
+
+    @torch.inference_mode()
+    def enhance_batch_device_canvas(self, canvas_u8: torch.Tensor, h: int,
+                                    w: int) -> torch.Tensor:
+        """(B, 3, Hp, Wp) u8 staged canvas (``stage_canvas``) on the
+        pipeline's device -> (B, 3, Hp - 2 margin, Wp) u8 enhanced canvas
+        there (``crop_canvas`` recovers HWC); (h, w) is the images' size.
+        The device step is K1's canvas form alone: no transpose, pad or
+        crop runs on the device. retinex only."""
+        if self.config.method != "retinex":
+            raise NotImplementedError(
+                "canvas I/O is the fused retinex path (method="
+                f"{self.config.method!r}); use enhance_batch_device for the "
+                "general path")
+        if canvas_u8.ndim != 4 or canvas_u8.shape[1] != 3 or \
+                canvas_u8.dtype != torch.uint8:
+            raise ValueError(f"expected a (B, 3, Hp, Wp) u8 canvas, got "
+                             f"{tuple(canvas_u8.shape)} {canvas_u8.dtype}")
+        self._check_on_device(canvas_u8)
+        plan = self.canvas_plan(h, w)
+        if tuple(canvas_u8.shape[-2:]) != (plan.padded_h, plan.padded_w):
+            raise ValueError(
+                f"canvas {canvas_u8.shape[-2]}x{canvas_u8.shape[-1]} does "
+                f"not match the canvas plan for ({h}, {w}) "
+                f"({plan.padded_h}x{plan.padded_w}); stage with "
+                "stage_canvas/canvas_plan")
+        m = plan.margin
+        return fused_retinex_canvas(canvas_u8, self.config, m,
+                                    plan.padded_h - 2 * m)
+
+    def enhance_stream(self, frames, depth: int = 2, staging: str = "hwc",
+                       workers: int = 1):
+        """Streaming enhancement: iterate u8 HWC frames (or (B, H, W, 3)
+        batches) and yield the enhanced ones as numpy, in order. The host's
+        staging and the host -> device copy run ahead of the device's work
+        in a :class:`~io.prefetch.PrefetchQueue` (pinned buffers on CUDA);
+        one batch stays in flight, its device -> host copy issued into a
+        pinned buffer on a stream of its own, so that fetching batch N
+        overlaps the compute of batch N + 1.
+
+        ``staging`` says where the layout work runs: ``"hwc"`` sends the
+        frames as they are (``enhance_batch_device``); ``"planar"`` has the
+        workers transpose them (``enhance_batch_device_planar``);
+        ``"canvas"`` has the workers stage the whole padded canvas, so that
+        the device step is K1's canvas form alone, and crops on the host
+        (retinex only). The output is the same in every mode. ``workers``
+        sizes the staging pool."""
+        if staging not in ("hwc", "planar", "canvas"):
+            raise ValueError(f"staging must be hwc|planar|canvas: "
+                             f"{staging!r}")
+        plans: Dict[Any, CanvasPlan] = {}
+        # (h, w, was_single) per staged item, in the order the source is
+        # pulled (one coordinator pulls it, even with a worker pool)
+        metas: "collections.deque" = collections.deque()
+
+        def tag(it):
+            for f in it:
+                a = np.asarray(f)
+                single = a.ndim == 3
+                if single:
+                    a = a[None]
+                metas.append((a.shape[1], a.shape[2], single))
+                yield a
+
+        def stage(a):
+            if staging == "planar":
+                return to_planar(a)
+            shp = a.shape[1:3]
+            if shp not in plans:
+                plans[shp] = self.canvas_plan(*shp)
+            return self.stage_canvas(a, plans[shp])
+
+        cuda = self.device.type == "cuda"
+        if cuda:
+            d2h = torch.cuda.Stream(self.device)
+            ring = [None, None]   # pinned output buffers, used in turn
+        turn = [0]
+
+        def fetch(out):
+            """Start the device -> host copy of a batch: (host tensor, the
+            copy's event or None)."""
+            if not cuda:
+                return out, None
+            k = turn[0]
+            turn[0] = 1 - k
+            buf = ring[k]
+            if buf is None or buf.shape != out.shape:
+                buf = ring[k] = torch.empty(out.shape, dtype=out.dtype,
+                                            pin_memory=True)
+            d2h.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(d2h):
+                buf.copy_(out, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(d2h)
+            out.record_stream(d2h)
+            return buf, event
+
+        def finish(host, event, h, w, single):
+            if event is not None:
+                event.synchronize()
+            res = host.numpy()
+            if staging == "canvas":
+                res = self.crop_canvas(res, h, w)
+            elif staging == "planar":
+                res = from_planar(res)
+            elif cuda:
+                res = res.copy()   # the pinned buffer is filled again
+            return res[0] if single else res
+
+        pending = []
+        # hwc has no host staging: no worker pool between the source and
+        # the copies
+        with PrefetchQueue(tag(frames), depth=depth, device=self.device,
+                           transform=None if staging == "hwc" else stage,
+                           workers=workers) as q:
+            for item in q:
+                h, w, single = metas.popleft()
+                if staging == "canvas":
+                    out = self.enhance_batch_device_canvas(item, h, w)
+                elif staging == "planar":
+                    out = self.enhance_batch_device_planar(item)
+                else:
+                    out = self.enhance_batch_device(item)
+                pending.append((*fetch(out), h, w, single))
+                if len(pending) > 1:
+                    yield finish(*pending.pop(0))
+        for args in pending:
+            yield finish(*args)
 
 
 # ---------------------------------------------------------------------- #

@@ -1,7 +1,9 @@
 """The port imports no jax and no module of the JAX package: in a fresh
-interpreter where both are blocked, it imports and runs CPU pipelines
-(with the nets' pallas and cascade arms among them), CPU video enhancers
-and the HWC entry point; chip_smoke.py names neither."""
+interpreter where both are blocked (and PIL, as on the card host), it
+imports every module and runs CPU pipelines (with the nets' pallas and
+cascade arms among them), CPU video enhancers, the HWC entry point,
+enhance_file through the zlib codec and enhance_stream; chip_smoke.py
+names neither."""
 
 import subprocess
 import sys
@@ -27,6 +29,7 @@ import sys
 preloaded = set(sys.modules)
 sys.modules["jax"] = None
 sys.modules["low_light_image_enhancement_tpu"] = None
+sys.modules["PIL"] = None
 import numpy as np
 import torch
 import low_light_image_enhancement_tpu_torch as llt
@@ -52,6 +55,24 @@ from low_light_image_enhancement_tpu_torch.kernels.fused_enhance_hwc import (
 out = enhance_hwc_u8(torch.from_numpy(lows), llt.PipelineConfig(
     denoise_guide="perchannel", denoise_taps="full"))
 assert out.shape == lows.shape and out.dtype == torch.uint8
+import tempfile
+from pathlib import Path
+from low_light_image_enhancement_tpu_torch import cli, http_server
+from low_light_image_enhancement_tpu_torch.data.lol import LOLDataset
+from low_light_image_enhancement_tpu_torch.eval.runner import eval_lol
+from low_light_image_enhancement_tpu_torch.io import codec
+from low_light_image_enhancement_tpu_torch.utils.logging import JSONLLogger
+assert codec.Image is None
+pipe = llt.EnhancePipeline(device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    src, dst = Path(tmp) / "dark.png", Path(tmp) / "bright.png"
+    llt.encode_image(lows[0], src)
+    pipe.enhance_file(src, dst)
+    assert (llt.decode_image(dst) == pipe.enhance(lows[0])).all()
+for staging in ("hwc", "planar", "canvas"):
+    outs = list(pipe.enhance_stream(iter([lows[0], lows]), staging=staging))
+    assert (outs[0] == pipe.enhance(lows[0])).all()
+    assert (outs[1] == pipe.enhance_batch(lows)).all()
 loaded = sorted(m for m in set(sys.modules) - preloaded
                 if m.startswith(("jax", "low_light_image_enhancement_tpu."))
                 and sys.modules[m] is not None)
@@ -90,7 +111,8 @@ def test_cuda_tensors_go_to_the_kernels_or_raise():
         plane = torch.empty((1, 24, 128), device="cuda")
     assert x.device.type == "cuda"
     wrappers = (fe.fused_retinex, fe.fused_curve_enhance,
-                fe.fused_retinex_ema, td.tiled_denoise)
+                fe.fused_retinex_ema, fe.fused_retinex_canvas,
+                td.tiled_denoise)
     before = [wr.launches for wr in wrappers]
     with pytest.raises(RuntimeError, match="nvcc"):
         fe.fused_retinex(x, PipelineConfig())
@@ -107,6 +129,8 @@ def test_cuda_tensors_go_to_the_kernels_or_raise():
                                gain=plane)
     with pytest.raises(RuntimeError, match="nvcc"):
         fe.fused_retinex_gain(xb, plane, PipelineConfig(), 8, 8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fe.fused_retinex_canvas(xb, PipelineConfig(), 4, 16)
     with pytest.raises(RuntimeError, match="nvcc"):
         fe.fused_retinex_ema(xb, plane, PipelineConfig(), 8, 8, 8, 0.3)
     for cfg in (PipelineConfig(method="fcn"),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The JAX package's quality numbers for the `quality` and `quality_fast`
-presets and the guided tail of retinex and hybrid (r 4) on the synthetic
-eval-15 set, on the CPU.
+presets, the guided tail of retinex and hybrid (r 4), and the default
+bilateral tail of retinex, curve, hybrid and decom on the synthetic eval-15
+set, on the CPU.
 
 These are the reference constants that ``chip_smoke.py`` (phase 4b) holds
 the PyTorch/CUDA port's numbers to. They come from the JAX package's own
@@ -43,6 +44,10 @@ CONFIGS = {
                                         guided_radius=4),
     "hybrid guided r4": PipelineConfig(method="hybrid", denoise_taps="guided",
                                        guided_radius=4),
+    "retinex": PipelineConfig(),
+    "curve": PipelineConfig(method="curve"),
+    "hybrid": PipelineConfig(method="hybrid"),
+    "decom": PipelineConfig(method="decom"),
 }
 
 
