@@ -24,7 +24,9 @@ curve_features 640 (K6 streaming its weights by piece group). The host
 boundary: the planar and canvas entry points (K1's canvas form,
 fused_retinex_canvas), enhance_stream in its three stagings on the pinned
 prefetch queue, enhance_file and the golden fixtures through the zlib PNG
-codec, the eval runner (eval_lol) and the HTTP front end.
+codec, the eval runner (eval_lol) and the HTTP front end. Training: the
+curve (zero-reference and paired hybrid), fcn and decom trainers' steps,
+config 3 at full width, and llie-torch train.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -124,7 +126,27 @@ Phases (each raises on failure, so the script exits non-zero):
      K1; the default paths no conv kernel; the wide blur the blur kernel
      once a K1 launch; the planar, canvas and planar/canvas stream paths
      K1's canvas form and no HWC K1, the hwc stream HWC K1 and not the
-     canvas form, and no other path the canvas form.
+     canvas form, and no other path the canvas form;
+  7. training (train.py), which runs no kernel of the port (cuDNN convs
+     and differentiable torch ops, as the JAX package trains with XLA's
+     convs and jnp): 7a two steps of each objective (zero-reference curve;
+     paired hybrid through the denoise tail; fcn; decom with the relit
+     term) at 64x64 b4 in float32, device="cuda" against device="cpu"
+     from the same weights and batches, loss and params (the whole
+     vector's L2 norm) within 1e-5 relative; 7b config 3 (TrainConfig():
+     512x512 b64, 32 features, 8 iterations, remat) zero-reference on
+     synth_device batches made on the card, 2 warm-up and 10 timed steps
+     (CUDA events) in bf16 and in f32: ms/step, img/s, peak memory,
+     every loss finite, the roofline (train_roofline_report: the rate's
+     share of the bound) and two steps' device time by kernel
+     (torch.profiler); 7c
+     microbatch 8 against the full batch of 16 at 256x256 within 1e-2
+     (bf16), and a run resumed from its checkpoint bit-equal to a straight
+     one under cudnn.deterministic; 7d the config-3 weights through
+     save_params into EnhancePipeline(method="curve") on the card: K3
+     launched, bf16 PSNR >= 40 dB and the f32 u8 bar against the CPU; 7e
+     llie-torch train --steps 2 --batch 4 --crop 64 --save-weights in a
+     process of its own, rc 0.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -412,6 +434,274 @@ def k5_bound(cfg, y, rows, m):
     b, _, _, wb = y.shape
     nbytes = b * (rows + 2 * m) * wb * 12 + b * rows * wb * 12
     return bound_ms(nbytes, (tail_ops(cfg) + 6) * b * rows * wb)
+
+
+# ------------------------------------------------------------- phase 7 --- #
+# training's bars: the card against the CPU in float32 with TF32 off (sums
+# in other orders), and bf16 against itself under another microbatching
+TRAIN_F32_REL = 1e-5
+TRAIN_BF16_REL = 1e-2
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| over max |want| (a leaf's or a scalar's)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def params_rel(tt, got, want) -> float:
+    """||got - want|| over ||want||, the whole parameter vector's L2 norms.
+    AdamW sizes each element's step by its own gradient's history, so an
+    element whose two gradients nearly cancel moves by a good part of the
+    learning rate either way on a rounding: float32 against float64 on the
+    CPU parts 2 steps of the curve CNN by 6e-4 of a leaf's largest value,
+    and by 6.3e-7 in this norm."""
+    flat = lambda ps: np.concatenate([t.detach().cpu().double().numpy()
+                                      .ravel() for t in tt._leaves(ps)])
+    g, w = flat(got), flat(want)
+    return float(np.linalg.norm(g - w) / np.linalg.norm(w))
+
+
+def profile_steps(torch, what: str, run, calls: int = 2, top: int = 10):
+    """Device time by kernel over ``calls`` calls of ``run`` under
+    torch.profiler: busy and idle share, then the kernels that take most."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    dev_us = lambda e: float(getattr(e, "self_device_time_total", 0.0))
+    kernels = sorted((e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in kernels) / 1e3 / calls
+    print(f"  {what} profile, {calls} calls: wall {wall:.2f} ms a call, "
+          f"device busy {busy:.2f}, idle share "
+          f"{max(0.0, 1.0 - busy / wall):.3f}")
+    for e in kernels[:top]:
+        ms = dev_us(e) / 1e3 / calls
+        print(f"    {ms:8.3f} ms {ms / busy:6.1%} x{e.count // calls:<4d} "
+              f"{e.key[:100]}")
+
+
+def phase7_training(torch, card, wrappers, t_start) -> None:
+    """Training on the card (train.py): each objective's steps against the
+    CPU's, config 3 at full width in bf16 and f32, microbatching and
+    resume, the trained weights served through K3, and llie-torch train."""
+    import dataclasses
+
+    from low_light_image_enhancement_tpu_torch import train as tt
+    from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+    from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
+    from low_light_image_enhancement_tpu_torch.data.synth_device import (
+        synth_batch_iter,
+    )
+    from low_light_image_enhancement_tpu_torch.models.decom import (
+        init_decom_net,
+    )
+    from low_light_image_enhancement_tpu_torch.models.fcn import init_fcn
+    from low_light_image_enhancement_tpu_torch.models.weights import (
+        params_from_numpy,
+        resolve_weights,
+        save_params,
+    )
+    from low_light_image_enhancement_tpu_torch.pipeline import (
+        EnhancePipeline,
+    )
+    from low_light_image_enhancement_tpu_torch.utils.roofline import (
+        train_roofline_report,
+    )
+
+    print(f"[7] ({time.perf_counter() - t_start:.0f} s) training "
+          "(train.py) on the card")
+
+    # 7a: two steps of each objective, device="cuda" against "cpu" from
+    # the same weights and batches, float32 with TF32 off
+    small = tt.TrainConfig(batch_size=4, crop=64, compute_dtype="float32")
+    lows, highs = synth_batch(4, 64, 64, seed=21)
+    gen = lambda: torch.Generator().manual_seed(5)
+    objectives = [
+        ("zeroref curve", small, tt.make_train_step,
+         lambda: tt.init_train_state(small, 5, "cpu")[0], False, False),
+        ("paired hybrid, denoise_in_loss",
+         dataclasses.replace(small, denoise_in_loss=True),
+         tt.make_paired_curve_train_step,
+         lambda: tt.init_train_state(small, 5, "cpu")[0], True, True),
+        ("fcn", dataclasses.replace(small, features=24),
+         tt.make_supervised_train_step,
+         lambda: init_fcn(gen(), features=24), True, False),
+        ("decom, w_relit 1", dataclasses.replace(small, w_relit=1.0),
+         tt.make_decom_train_step, lambda: init_decom_net(gen()), True,
+         False),
+    ]
+    for name, tcfg, make, init, paired, hybrid in objectives:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params = {n: {k: t.to(dev) for k, t in layer.items()}
+                      for n, layer in init().items()}
+            opt = tt.make_optimizer(tcfg).init(params)
+            low, high = tt._planar(lows, dev), tt._planar(highs, dev)
+            if hybrid:
+                from low_light_image_enhancement_tpu_torch.core import (
+                    illumination_boost,
+                )
+
+                low = illumination_boost(low, PipelineConfig())
+            args = (low, high) if paired else (low,)
+            step = make(tcfg)
+            # a process's first CPU conv may sum in another order than the
+            # next ones (7e-6 of the zero-reference loss, whose TV term
+            # weighs 1600): one warm-up step on each device first
+            step(params, opt, *args)
+            losses = []
+            for _ in range(2):
+                params, opt, m = step(params, opt, *args)
+                losses.append(float(m["loss"]))
+            runs[dev] = (losses, params)
+        loss_rel = max(max_rel(a, b) for a, b in zip(runs["cuda"][0],
+                                                      runs["cpu"][0]))
+        p_rel = params_rel(tt, runs["cuda"][1], runs["cpu"][1])
+        print(f"  7a {name} (64x64 b4, f32): cuda vs cpu over 2 steps, "
+              f"loss rel {loss_rel:.2e}, params rel {p_rel:.2e} "
+              f"(losses {runs['cuda'][0]})")
+        if loss_rel > TRAIN_F32_REL or p_rel > TRAIN_F32_REL:
+            raise AssertionError(f"7a {name}: cuda vs cpu loss rel "
+                                 f"{loss_rel:.2e}, params rel {p_rel:.2e} "
+                                 f"> {TRAIN_F32_REL}")
+
+    # 7b: config 3 (TrainConfig(): 32 features, 8 iterations, batch 64,
+    # crop 512, remat on) zero-reference on synth_device batches made on
+    # the card; 2 warm-up steps, 10 timed with CUDA events; bf16, then f32
+    trained = None
+    for dtype in ("bfloat16", "float32"):
+        tcfg = tt.TrainConfig(compute_dtype=dtype)
+        data = synth_batch_iter(tcfg.batch_size, tcfg.crop, tcfg.crop,
+                                seed=3)
+        batches = [next(data)[0] for _ in range(4)]
+        params, opt = tt.init_train_state(tcfg, seed=0)
+        step = tt.make_train_step(tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = []
+        for i in range(2):
+            params, opt, m = step(params, opt, batches[i % 4])
+            metrics.append(m["loss"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(10):
+            params, opt, m = step(params, opt, batches[i % 4])
+            metrics.append(m["loss"])
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 10
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in metrics]
+        ips = tcfg.batch_size * 1e3 / ms
+        rep = train_roofline_report(tcfg.features, tcfg.n_iter, tcfg.crop,
+                                    ips, tcfg.remat, dtype)
+        print(f"  7b config 3 {dtype} (512x512 b64, 32 features, 8 "
+              f"iterations, remat) on {card}: {ms:.2f} ms/step, "
+              f"{ips:.1f} img/s, peak memory {peak / 2**30:.2f} GiB, "
+              f"{rep['train_share_of_bound_pct']}% of the "
+              f"{rep['train_bound_images_per_sec']} img/s bound "
+              f"({rep['train_roofline_bound']}); losses {losses}")
+        print(f"  7b roofline {json.dumps(rep)}")
+        profile_steps(torch, f"7b config 3 {dtype}",
+                      lambda: step(params, opt, batches[0]))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"7b config 3 {dtype}: a loss is not "
+                                 f"finite: {losses}")
+        if dtype == "bfloat16":
+            trained = params
+        del batches, params, opt, data
+
+    # 7c: microbatch 8 against the full batch of 16 at crop 256 (bf16);
+    # then a resumed run against a straight one, cudnn deterministic
+    tcfg = tt.TrainConfig(batch_size=16, crop=256)
+    x = next(synth_batch_iter(16, 256, 256, seed=9))[0]
+    p0, o0 = tt.init_train_state(tcfg, seed=1)
+    full = tt.make_train_step(tcfg)(p0, o0, x)
+    mb = tt.make_train_step(dataclasses.replace(tcfg, microbatch=8))(p0, o0,
+                                                                     x)
+    loss_rel = max_rel(float(mb[2]["loss"]), float(full[2]["loss"]))
+    p_rel = params_rel(tt, mb[0], full[0])
+    print(f"  7c microbatch 8 vs batch 16 (256x256, bf16): loss rel "
+          f"{loss_rel:.2e}, params rel {p_rel:.2e}")
+    if loss_rel > TRAIN_BF16_REL or p_rel > TRAIN_BF16_REL:
+        raise AssertionError(f"7c microbatch: loss rel {loss_rel:.2e}, "
+                             f"params rel {p_rel:.2e} > {TRAIN_BF16_REL}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        rcfg = tt.TrainConfig(batch_size=4, crop=64, steps=4,
+                              checkpoint_every=2, ema_decay=0.9)
+        straight, _ = tt.train_curve_cnn(rcfg, seed=2)
+        with tempfile.TemporaryDirectory() as ck:
+            tt.train_curve_cnn(dataclasses.replace(rcfg, steps=2), seed=2,
+                               checkpoint_dir=ck)
+            resumed, hist = tt.train_curve_cnn(rcfg, seed=2,
+                                               checkpoint_dir=ck,
+                                               resume=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    equal = all(torch.equal(a, b) for a, b in zip(tt._leaves(resumed),
+                                                   tt._leaves(straight)))
+    print(f"  7c resume at step {hist[0]['step']} to 4 vs a straight 4-step "
+          f"run (EMA 0.9, 64x64 b4, cudnn deterministic): "
+          f"{'bit-equal' if equal else 'DIFFERENT'}")
+    if not equal or hist[0]["step"] != 2:
+        raise AssertionError("7c a resumed run differs from a straight one")
+
+    # 7d: the config-3 bf16 weights through save_params into the curve
+    # pipeline on the card (K3) against the CPU's
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "curve.npz"
+        save_params(trained, path)
+        served = params_from_numpy(resolve_weights(path))
+    img = synth_batch(2, 64, 96, seed=6)[0]
+    for dtype in ("bfloat16", "float32"):
+        cfg = PipelineConfig(method="curve", compute_dtype=dtype)
+        for wr in wrappers.values():
+            wr.launches = 0
+        got = EnhancePipeline(cfg, model_params=served,
+                              device="cuda").enhance_batch(img)
+        k3 = wrappers["k3"].launches
+        want = EnhancePipeline(cfg, model_params=served,
+                               device="cpu").enhance_batch(img)
+        if k3 < 1:
+            raise AssertionError(f"7d trained weights ({dtype}): K3 was "
+                                 "not launched")
+        if dtype == "bfloat16":
+            p = psnr(got, want)
+            print(f"  7d trained curve weights ({dtype}) served: K3 "
+                  f"launches {k3}, cuda vs cpu 96x64 b2 PSNR {p:.2f} dB")
+            if p < 40.0:
+                raise AssertionError(f"7d PSNR {p:.2f} < 40 dB")
+        else:
+            print(f"  7d trained curve weights ({dtype}) served: K3 "
+                  f"launches {k3}")
+            check_bar("7d trained curve weights (f32) cuda vs cpu 96x64 b2",
+                      delta_stats(got, want))
+
+    # 7e: the CLI in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        w = Path(tmp) / "w.npz"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "low_light_image_enhancement_tpu_torch.cli",
+             "train", "--steps", "2", "--batch", "4", "--crop", "64",
+             "--save-weights", str(w)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        print(f"  7e llie-torch train --steps 2 --batch 4 --crop 64 "
+              f"--save-weights: rc {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0 or not w.exists():
+            raise AssertionError(f"7e llie-torch train failed: "
+                                 f"{proc.stderr[-2000:]}")
 
 
 def main() -> int:
@@ -2183,6 +2473,8 @@ def main() -> int:
     err["k5g"] = err["k5b"] = err["k5"]
     print(f"  K5 launches: bilateral arm {total['k5b']}, guided arm "
           f"{total['k5g']}")
+
+    phase7_training(torch, card, wrappers, t_start)
 
     src = "low_light_image_enhancement_tpu_torch/kernels/csrc/"
     tpu = "low_light_image_enhancement_tpu/kernels/"

@@ -1,17 +1,20 @@
 """Command-line interface of the port: ``llie-torch enhance | eval | serve |
-video`` (``bench`` and ``train`` are not ported yet and exit non-zero).
+video | train`` (``bench`` is not ported yet and exits non-zero).
 
 The port of the JAX package's ``cli.py`` (``llie``, which stays the JAX
 package's), with the same config flags and ``--device cuda|cpu`` (default
 ``cuda``: every entry point runs on the card unless asked for the CPU).
 ``serve`` fronts the micro-batching EnhanceServer over HTTP
 (http_server.py); ``video`` runs the temporally stable frame-sequence path
-(video.py), one stream or, with ``--streams``, one per directory.
+(video.py), one stream or, with ``--streams``, one per directory; ``train``
+trains the curve (zero-reference or paired, also hybrid), fcn or decom net
+(train.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -25,7 +28,6 @@ from low_light_image_enhancement_tpu_torch.config import (
 # what is not ported yet, and the ROADMAP.md item (Queue 1) that ports it
 NOT_PORTED = {
     "bench": "the port's benchmark (ROADMAP.md Queue 1, item 1)",
-    "train": "training (ROADMAP.md Queue 1, item 3)",
     "enhance --raw": "RAW ingest (ROADMAP.md Queue 1, item 4)",
 }
 
@@ -124,6 +126,89 @@ def cmd_eval(args) -> int:
     report = eval_lol(_pipeline(args), ds, max_images=args.max_images,
                       parity=not args.no_parity)
     print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_train(args) -> int:
+    from low_light_image_enhancement_tpu_torch.train import (
+        TrainConfig,
+        train_curve_cnn,
+        train_decom,
+        train_fcn,
+    )
+    from low_light_image_enhancement_tpu_torch.utils.logging import (
+        JSONLLogger,
+        get_logger,
+    )
+
+    tcfg = TrainConfig(
+        batch_size=args.batch, crop=args.crop, steps=args.steps,
+        learning_rate=args.lr, ema_decay=args.ema_decay,
+        denoise_in_loss=args.denoise_in_loss,
+        eval_every=args.eval_every, eval_patience=args.eval_patience,
+    )
+    if args.model == "fcn":
+        tcfg = dataclasses.replace(tcfg, features=24)
+    logger = get_logger()
+    jsonl = JSONLLogger(args.log_file) if args.log_file else None
+
+    def log_fn(m):
+        if "eval_score" in m:
+            logger.info("step %s eval_score %.4f", m.get("step"),
+                        m["eval_score"])
+        else:
+            logger.info("step %s loss %.4f", m.get("step"),
+                        m.get("loss", 0.0))
+        if jsonl:
+            jsonl.log(m)
+
+    kw = dict(checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+              log_fn=log_fn, device=args.device)
+    queues = []  # the data factory's prefetch queues, closed at the end
+    if args.data_dir is not None:
+        # LOL pairs (or their synthetic stand-in) in place of the synthetic
+        # stream; zeroref reads the lows alone. The prefetch queue's
+        # workers decode ahead, so decoding overlaps the steps
+        from low_light_image_enhancement_tpu_torch.data.lol import LOLDataset
+        from low_light_image_enhancement_tpu_torch.io.prefetch import (
+            PrefetchQueue,
+        )
+
+        ds = LOLDataset(root=args.data_dir, split="train")
+        paired = not (args.model in ("curve", "hybrid")
+                      and args.objective == "zeroref")
+
+        def _data_factory(start_step):
+            # resume-aware: a restore re-creates the stream at the
+            # restored step, so a resumed run sees what a straight one does
+            plans = ds.train_batch_plans(args.batch, args.crop,
+                                         paired=paired,
+                                         start_step=start_step)
+            queues.append(PrefetchQueue(plans, depth=2,
+                                        transform=ds.materialize_batch,
+                                        workers=args.decode_workers,
+                                        device=args.device))
+            return queues[-1]
+
+        kw["data_factory"] = _data_factory
+    try:
+        if args.model in ("curve", "hybrid"):
+            params, _ = train_curve_cnn(tcfg, objective=args.objective,
+                                        hybrid=args.model == "hybrid", **kw)
+        elif args.model == "decom":
+            params, _ = train_decom(tcfg, **kw)
+        else:
+            params, _ = train_fcn(tcfg, **kw)
+    finally:
+        for q in queues:
+            q.close()
+    if args.save_weights:
+        from low_light_image_enhancement_tpu_torch.models.weights import (
+            save_params,
+        )
+
+        save_params(params, args.save_weights)
+        logger.info("weights saved to %s", args.save_weights)
     return 0
 
 
@@ -290,9 +375,50 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_config_args(p)
     p.set_defaults(fn=cmd_eval)
 
-    for name in ("bench", "train"):
-        p = sub.add_parser(name, help=f"not ported yet: {NOT_PORTED[name]}")
-        p.set_defaults(fn=lambda args, name=name: _not_ported(name))
+    p = sub.add_parser("bench", help=f"not ported yet: {NOT_PORTED['bench']}")
+    p.set_defaults(fn=lambda args: _not_ported("bench"))
+
+    p = sub.add_parser(
+        "train", help="model training: curve/hybrid (zero-reference or "
+                      "paired), fcn (supervised), decom (decomposition "
+                      "objective)")
+    p.add_argument("--model", choices=["curve", "hybrid", "fcn", "decom"],
+                   default="curve")
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="curve/hybrid: score held-out synthetic SSIM every "
+                        "N steps, keep the best snapshot, stop after "
+                        "--eval-patience evals that do not improve (0 = off)")
+    p.add_argument("--eval-patience", type=int, default=3)
+    p.add_argument("--denoise-in-loss", action="store_true",
+                   help="the paired losses compare after the pipeline's "
+                        "denoise tail (the shipped hybrid weights' recipe)")
+    p.add_argument("--objective", choices=["zeroref", "paired"],
+                   default="zeroref",
+                   help="curve/hybrid objective; 'paired' is the shipped "
+                        "weights' recipe")
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--crop", type=int, default=512)
+    p.add_argument("--steps", type=int, default=600)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--data-dir", default=None,
+                   help="train on LOL pairs from this root (our485 layout, "
+                        "or the synthetic stand-in where it is absent; "
+                        "random crop and flips, decoded on the prefetch "
+                        "queue's workers) in place of the synthetic stream")
+    p.add_argument("--decode-workers", type=int, default=1,
+                   help="decode threads for --data-dir")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="track an EMA of the weights (e.g. 0.999) and "
+                        "save/return the averaged weights")
+    p.add_argument("--log-file", default=None)
+    p.add_argument("--save-weights", default=None,
+                   help="write the final params to this .npz (the JAX "
+                        "package's layout)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the training runs")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser(
         "serve", help="HTTP enhancement server (POST /enhance with JPEG/PNG "
@@ -331,7 +457,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_video)
 
     args, rest = parser.parse_known_args(argv)
-    if rest and args.command not in ("bench", "train"):
+    if rest and args.command != "bench":
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
     return args.fn(args)
 

@@ -1,5 +1,5 @@
-"""LOL paired low-light dataset: the eval half of the JAX package's
-``data/lol.py`` (485 train / 15 eval pairs).
+"""LOL paired low-light dataset (485 train / 15 eval pairs): the port of
+the JAX package's ``data/lol.py``, its eval and its training half.
 
 Loads the standard on-disk layout when available::
 
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -68,3 +68,108 @@ class LOLDataset:
         h, w = self.size
         low, high = synth_pair(i, h, w, seed=self._seed)
         return low, high, f"synth_{self.split}_{i:04d}"
+
+    def low(self, i: int) -> np.ndarray:
+        """The low image alone: the unpaired (zero-reference) stream skips
+        the high image's decode."""
+        if self._files is not None:
+            return decode_image(self._files[i][0])
+        h, w = self.size
+        return synth_pair(i, h, w, seed=self._seed)[0]
+
+    def pairs(self) -> Iterator[Tuple[np.ndarray, np.ndarray, str]]:
+        for i in range(len(self)):
+            yield self[i]
+
+    def train_batch_plans(
+        self,
+        batch_size: int,
+        crop: int,
+        seed: int = 0,
+        start_step: int = 0,
+        augment: bool = True,
+        paired: bool = True,
+    ) -> Iterator[dict]:
+        """Infinite iterator of numpy batch plans (no decode): sample
+        indices, crop anchors as [0, 1) fractions (mapped to offsets at
+        decode time), flip bits. Each step draws from
+        ``default_rng((seed, step))``, so a run resumed at ``start_step``
+        sees the stream a straight run would, and the JAX package's plans
+        are the same."""
+        step = start_step
+        n = len(self)
+        while True:
+            r = np.random.default_rng((seed, step))
+            yield {
+                "idx": r.integers(0, n, batch_size),
+                "uv": r.random((batch_size, 2)),
+                "flips": (r.integers(0, 2, (batch_size, 2)) if augment
+                          else np.zeros((batch_size, 2), np.int64)),
+                "crop": crop,
+                "paired": paired,
+            }
+            step += 1
+
+    def materialize_batch(self, plan: dict):
+        """Decode, crop, flip and stack one plan into planar f32
+        ``(B, 3, crop, crop)`` numpy arrays: a ``(low, high)`` pair, or the
+        low batch alone when the plan is unpaired."""
+        crop = plan["crop"]
+        paired = plan["paired"]
+        lows, highs = [], []
+        for i, (u, v), (fh, fv) in zip(plan["idx"], plan["uv"],
+                                       plan["flips"]):
+            if paired:
+                lo, hi, _ = self[int(i)]
+            else:
+                lo, hi = self.low(int(i)), None
+            h, w = lo.shape[:2]
+            if h < crop or w < crop:
+                raise ValueError(
+                    f"crop {crop} exceeds image {h}x{w} in {self.split}")
+            y = int(u * (h - crop + 1))
+            x = int(v * (w - crop + 1))
+            for img, out in ((lo, lows), (hi, highs)):
+                if img is None:
+                    continue
+                img = img[y:y + crop, x:x + crop]
+                if fh:
+                    img = img[:, ::-1]
+                if fv:
+                    img = img[::-1]
+                out.append(img)
+
+        def _planar(imgs):
+            x8 = np.ascontiguousarray(np.stack(imgs))
+            return np.transpose(x8.astype(np.float32) / 255.0, (0, 3, 1, 2))
+
+        if paired:
+            return _planar(lows), _planar(highs)
+        return _planar(lows)
+
+    def train_batches(
+        self,
+        batch_size: int,
+        crop: int,
+        seed: int = 0,
+        start_step: int = 0,
+        augment: bool = True,
+        paired: bool = True,
+    ) -> Iterator:
+        """Infinite iterator of training batches: :meth:`train_batch_plans`
+        through :meth:`materialize_batch` in series (a ``PrefetchQueue``
+        with workers composes the same two and yields the same stream)."""
+        return map(self.materialize_batch,
+                   self.train_batch_plans(batch_size, crop, seed, start_step,
+                                          augment, paired))
+
+    def as_batch(self, n: Optional[int] = None):
+        """The first ``n`` (default: all) pairs stacked into (lows, highs)
+        u8 arrays; the images must share one size."""
+        n = len(self) if n is None else min(n, len(self))
+        lows, highs = [], []
+        for i in range(n):
+            lo, hi, _ = self[i]
+            lows.append(lo)
+            highs.append(hi)
+        return np.stack(lows), np.stack(highs)

@@ -83,7 +83,8 @@ class PrefetchQueue:
         device_put: bool = True,
         workers: int = 1,
     ):
-        """``device_put`` copies each (transformed) batch, an array, to
+        """``device_put`` copies each (transformed) batch, an array or a
+        tuple or list of arrays (yielded as a tuple of tensors), to
         ``device`` (``"cuda"`` or ``"cpu"``; a CUDA device that is not there
         raises); without it the batches are yielded as they are and
         ``device`` is not used. ``workers > 1`` runs ``transform`` (a
@@ -132,8 +133,17 @@ class PrefetchQueue:
         return buf
 
     def _stage(self, item: Any) -> Any:
+        """A batch on its way to the device: an array, or a tuple or list
+        of arrays (a ``(low, high)`` pair) staged element by element, each
+        through the pinned ring with its own event, as the JAX package's queue
+        stages a pytree."""
         if not self._device_put:
             return item
+        if isinstance(item, (tuple, list)):
+            return tuple(self._stage_one(x) for x in item)
+        return self._stage_one(item)
+
+    def _stage_one(self, item: Any) -> Any:
         host = item if isinstance(item, torch.Tensor) else \
             torch.from_numpy(np.ascontiguousarray(item))
         if not self._cuda:
@@ -222,12 +232,18 @@ class PrefetchQueue:
                     err, self._err = self._err, None
                     raise err
                 raise StopIteration
-            if isinstance(item, _Staged):
-                consumer = torch.cuda.current_stream(self._device)
-                consumer.wait_event(item.event)
-                item.tensor.record_stream(consumer)
-                return item.tensor
+            if isinstance(item, tuple):
+                return tuple(self._unstage(x) for x in item)
+            return self._unstage(item)
+
+    def _unstage(self, item: Any) -> Any:
+        """The consumer's stream waits for a staged tensor's copy."""
+        if not isinstance(item, _Staged):
             return item
+        consumer = torch.cuda.current_stream(self._device)
+        consumer.wait_event(item.event)
+        item.tensor.record_stream(consumer)
+        return item.tensor
 
     def close(self) -> None:
         """Stop the worker and drop queued batches."""

@@ -5,20 +5,25 @@ Seven 3x3 convs with U-style skip concatenations; the head emits
 Parameters are a dict ``{"c1": {"w": (Cout, Cin, 3, 3), "b": (Cout,)}, ...}``
 (``models.weights.params_from_numpy`` converts the JAX package's HWIO).
 ``apply_curve_cnn`` is the ``conv_impl="xla"`` arm (``F.conv2d``),
-``apply_curve_cnn_pallas`` the ``"pallas"`` arm (c2-c7 as K6a).
+``apply_curve_cnn_pallas`` the ``"pallas"`` arm (c2-c7 as K6a);
+``CurveEstimatorCNN`` is the net as an ``nn.Module``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from low_light_image_enhancement_tpu_torch.kernels.mxu_conv import (
     conv2d_patch_mxu,
 )
-from low_light_image_enhancement_tpu_torch.models.layers import conv2d, nhwc
+from low_light_image_enhancement_tpu_torch.models.layers import (
+    ParamsNet,
+    conv2d,
+    nhwc,
+)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -107,3 +112,30 @@ def apply_curve_cnn_pallas(
         torch.float32, memory_format=torch.contiguous_format)
     a = a.reshape(b, n_iter, 3, h, w)
     return a if batched else a[0]
+
+
+class CurveEstimatorCNN(ParamsNet):
+    """The curve CNN as an ``nn.Module``: its parameters are the params
+    dict (``c1.w``, ...; ``params`` given, or ``init`` from ``generator``,
+    seed 0 by default), ``forward`` is :func:`apply_curve_cnn`.
+    ``init``/``apply`` are the JAX package's functional pair."""
+
+    def __init__(self, features: int = 32, n_iter: int = 8,
+                 compute_dtype="float32", params: Optional[Params] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.features, self.n_iter = features, n_iter
+        self.compute_dtype = compute_dtype
+        if params is None:
+            params = self.init(generator if generator is not None
+                               else torch.Generator().manual_seed(0))
+        self.set_params(params)
+
+    def init(self, generator: torch.Generator) -> Params:
+        return init_curve_cnn(generator, self.features, self.n_iter)
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return apply_curve_cnn(params, x, self.n_iter, self.compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(self.params, x)

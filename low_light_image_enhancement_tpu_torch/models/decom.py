@@ -5,13 +5,14 @@ five 3x3 convs at 32 features on RGB plus its channel max (4 channels in),
 ReLU after the first four, a sigmoid head of 4 channels split into R and L.
 Parameters as in ``models/curve_cnn.py``. ``apply_decom_net`` is the
 ``conv_impl="xla"`` arm (``F.conv2d``), ``apply_decom_net_pallas`` the
-``"pallas"`` arm (c2-c4 as K6a).
+``"pallas"`` arm (c2-c4 as K6a); ``DecomNet`` is the net as an
+``nn.Module``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -19,6 +20,7 @@ from low_light_image_enhancement_tpu_torch.kernels.mxu_conv import (
     conv2d_patch_mxu,
 )
 from low_light_image_enhancement_tpu_torch.models.layers import (
+    ParamsNet,
     conv2d,
     nhwc,
     sigmoid,
@@ -83,3 +85,28 @@ def apply_decom_net_pallas(params: Params, x: torch.Tensor,
         torch.float32, memory_format=torch.contiguous_format)
     r, l = out[:, :3], out[:, 3:4]
     return (r, l) if batched else (r[0], l[0])
+
+
+class DecomNet(ParamsNet):
+    """The decomposition net as an ``nn.Module`` (parameters ``c1.w``,
+    ...; ``params`` given, or ``init`` from ``generator``, seed 0 by
+    default); ``forward`` is :func:`apply_decom_net`."""
+
+    def __init__(self, features: int = 32, compute_dtype="float32",
+                 params: Optional[Params] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.features, self.compute_dtype = features, compute_dtype
+        if params is None:
+            params = self.init(generator if generator is not None
+                               else torch.Generator().manual_seed(0))
+        self.set_params(params)
+
+    def init(self, generator: torch.Generator) -> Params:
+        return init_decom_net(generator, self.features)
+
+    def apply(self, params: Params, x: torch.Tensor):
+        return apply_decom_net(params, x, self.compute_dtype)
+
+    def forward(self, x: torch.Tensor):
+        return self.apply(self.params, x)

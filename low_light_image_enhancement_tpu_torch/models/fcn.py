@@ -8,12 +8,13 @@ at 24 features, then a 1x1 sigmoid head to RGB. Parameters are a dict
 ``apply_fcn`` is the ``conv_impl="xla"`` arm (``F.conv2d``);
 ``apply_fcn_pallas`` runs c2-c7 as K6b, one launch a layer, and
 ``kernels.fcn_cascade.apply_fcn_cascade`` all six as one K7 launch.
+``EnhanceFCN`` is the net as an ``nn.Module``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +23,7 @@ from low_light_image_enhancement_tpu_torch.kernels.mxu_conv import (
     conv2d_dense9_mxu,
 )
 from low_light_image_enhancement_tpu_torch.models.layers import (
+    ParamsNet,
     as_dtype,
     conv2d,
     nhwc,
@@ -117,3 +119,29 @@ def apply_fcn_pallas(params: Params, x: torch.Tensor,
         h = conv2d_dense9_mxu(h, p["w"], p["b"], act="leaky", dilation=dil)
     out = fcn_head_nhwc(params, h)
     return out if batched else out[0]
+
+
+class EnhanceFCN(ParamsNet):
+    """The dilated FCN as an ``nn.Module`` (parameters ``c1.w``, ...,
+    ``out.b``; ``params`` given, or ``init`` from ``generator``, seed 0 by
+    default); ``forward`` is :func:`apply_fcn`."""
+
+    def __init__(self, features: int = 24, depth: int = 7,
+                 compute_dtype="float32", params: Optional[Params] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.features, self.depth = features, depth
+        self.compute_dtype = compute_dtype
+        if params is None:
+            params = self.init(generator if generator is not None
+                               else torch.Generator().manual_seed(0))
+        self.set_params(params)
+
+    def init(self, generator: torch.Generator) -> Params:
+        return init_fcn(generator, self.features, self.depth)
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return apply_fcn(params, x, self.compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(self.params, x)

@@ -1,11 +1,15 @@
 """Shared primitives of the nets: NCHW (optionally dilated) SAME conv of
-any odd kernel size, the NHWC layout of the kernel arms, and the sigmoid as
-the JAX package computes it."""
+any odd kernel size, the NHWC layout of the kernel arms, the sigmoid as
+the JAX package computes it, and ``ParamsNet``, the ``nn.Module`` form of
+a functional params dict."""
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def as_dtype(compute_dtype) -> torch.dtype:
@@ -47,3 +51,23 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     ``torch.sigmoid`` rounds once instead, and a third of its outputs land
     one bf16 step away from the reference's."""
     return 1.0 / (1.0 + torch.exp(-x))
+
+
+class ParamsNet(nn.Module):
+    """An ``nn.Module`` over a functional params dict ``{"c1": {"w": ...,
+    "b": ...}, ...}``: each layer a submodule of its name holding its
+    tensors as parameters of theirs, so that ``named_parameters()`` gives
+    ``c1.w``, ``c1.b``, ... and :attr:`params` gives the dict back (the
+    same tensors) for the functional ``apply_*``."""
+
+    def set_params(self, params: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        for name, layer in params.items():
+            m = nn.Module()
+            for k, t in layer.items():
+                m.register_parameter(k, nn.Parameter(t))
+            self.add_module(name, m)
+
+    @property
+    def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {name: dict(m.named_parameters())
+                for name, m in self.named_children()}

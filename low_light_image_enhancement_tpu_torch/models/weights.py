@@ -1,6 +1,7 @@
 """The shipped ``.npz`` weights, read with numpy from the JAX package's
 ``weights/`` directory (by path: importing that package would import
-``jax``), and their conversion to this package's tensors."""
+``jax``), their conversion to this package's tensors and back, and
+``save_params``, which writes the JAX package's npz layout."""
 
 from __future__ import annotations
 
@@ -82,3 +83,31 @@ def params_from_numpy(
                 np.asarray(layer["b"], dtype=np.float32).copy()).to(device),
         }
     return out
+
+
+def params_to_numpy(params: Dict[str, Dict[str, torch.Tensor]]
+                    ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`params_from_numpy`: this package's layout
+    (OIHW tensors, on any device) -> JAX-layout float32 numpy arrays (conv
+    weights HWIO ``(3, 3, cin, cout)``)."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, layer in params.items():
+        w = layer["w"].detach().to("cpu", torch.float32).numpy()
+        out[name] = {
+            "w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+            "b": layer["b"].detach().to("cpu", torch.float32).numpy().copy(),
+        }
+    return out
+
+
+def save_params(params: Dict[str, Dict[str, torch.Tensor]],
+                path: Union[str, Path]) -> None:
+    """This package's params -> a flat npz in the JAX package's layout
+    (HWIO conv weights, keys ``layer::w``), which its ``load_params`` and
+    this package's :func:`load_params` both read."""
+    flat = {f"{name}{_SEP}{k}": v
+            for name, layer in params_to_numpy(params).items()
+            for k, v in layer.items()}
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **flat)

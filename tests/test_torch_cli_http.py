@@ -54,7 +54,7 @@ def test_cli_eval_json_report(tmp_path, capsys):
     assert rep["parity_max_abs_u8"] == 0.0
 
 
-@pytest.mark.parametrize("argv", [["bench"], ["train", "--model", "fcn"],
+@pytest.mark.parametrize("argv", [["bench"],
                                   ["enhance", "a.png", "b.png", "--raw"]])
 def test_cli_not_ported_exits_nonzero(argv, capsys):
     assert cli.main(argv) == 2

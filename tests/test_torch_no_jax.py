@@ -2,8 +2,8 @@
 interpreter where both are blocked (and PIL, as on the card host), it
 imports every module and runs CPU pipelines (with the nets' pallas and
 cascade arms among them), CPU video enhancers, the HWC entry point,
-enhance_file through the zlib codec and enhance_stream; chip_smoke.py
-names neither."""
+enhance_file through the zlib codec, enhance_stream, a CPU train step and
+a checkpoint save and restore; chip_smoke.py names neither."""
 
 import subprocess
 import sys
@@ -73,6 +73,27 @@ for staging in ("hwc", "planar", "canvas"):
     outs = list(pipe.enhance_stream(iter([lows[0], lows]), staging=staging))
     assert (outs[0] == pipe.enhance(lows[0])).all()
     assert (outs[1] == pipe.enhance_batch(lows)).all()
+from low_light_image_enhancement_tpu_torch import train
+from low_light_image_enhancement_tpu_torch.data import synth_device
+from low_light_image_enhancement_tpu_torch.models import (
+    CurveEstimatorCNN, DecomNet, EnhanceFCN)
+from low_light_image_enhancement_tpu_torch.models.weights import save_params
+from low_light_image_enhancement_tpu_torch.utils import roofline
+from low_light_image_enhancement_tpu_torch.utils.checkpoint import (
+    CheckpointManager)
+tcfg = train.TrainConfig(features=8, n_iter=2, batch_size=2, crop=32)
+params, opt = train.init_train_state(tcfg, device="cpu")
+batch = next(synth_device.synth_batch_iter(2, 32, 32, device="cpu"))[0]
+params, opt, m = train.make_train_step(tcfg)(params, opt, batch)
+assert int(opt["count"]) == 1 and np.isfinite(float(m["loss"]))
+with tempfile.TemporaryDirectory() as tmp:
+    ck = CheckpointManager(tmp)
+    ck.save({"params": params, "opt_state": opt, "step": 1}, step=1)
+    back = ck.restore_latest({"params": params, "opt_state": opt, "step": 0})
+    assert back["step"] == 1 and torch.equal(back["params"]["c1"]["w"],
+                                             params["c1"]["w"])
+    save_params(params, Path(tmp) / "w.npz")
+assert roofline.train_step_cost(8, 2, 32).tensor_flops > 0
 loaded = sorted(m for m in set(sys.modules) - preloaded
                 if m.startswith(("jax", "low_light_image_enhancement_tpu."))
                 and sys.modules[m] is not None)
