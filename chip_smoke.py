@@ -26,7 +26,10 @@ fused_retinex_canvas), enhance_stream in its three stagings on the pinned
 prefetch queue, enhance_file and the golden fixtures through the zlib PNG
 codec, the eval runner (eval_lol) and the HTTP front end. Training: the
 curve (zero-reference and paired hybrid), fcn and decom trainers' steps,
-config 3 at full width, and llie-torch train.
+config 3 at full width, and llie-torch train. Parallel (parallel/): meshes
+of cuda:0 repeated, config 5 (K1's canvas form a shard), hybrid sharded
+(K3, K6a), the sharded video enhancer (K4, K1's gain form, K3), the
+data-parallel pipeline (K1) and training steps, and a process group.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -146,7 +149,32 @@ Phases (each raises on failure, so the script exits non-zero):
      save_params into EnhancePipeline(method="curve") on the card: K3
      launched, bf16 PSNR >= 40 dB and the f32 u8 bar against the CPU; 7e
      llie-torch train --steps 2 --batch 4 --crop 64 --save-weights in a
-     process of its own, rc 0.
+     process of its own, rc 0;
+  8. parallel, on meshes whose devices are all cuda:0 (one card shows the
+     cost of sharding, not scaling): 8a config 5 (PRESETS
+     ["config5_4k_sharded"]) at 2160x3840 through enhance_spatial_sharded
+     on 1, 4 and 8 spatial shards and a 2x4 mesh on b2, each Δu8 0 against
+     the single-device enhance_batch_device, with frames/s (CUDA events
+     around each call, median of 5 after a warm-up) beside the single
+     device's and the halo bytes, the f32 frame on 8 shards (K1's canvas
+     form on f32 blocks) within 1e-6 of HWC K1 on it, and
+     EnhancePipeline(config 5) (one card: clamped to one shard, which runs
+     the single-device path, HWC K1); 8b hybrid at 1080p b2 on 4 shards under auto (cuDNN) and
+     pallas (K6a, 6 launches a K3 launch), f32 to the u8 bar and bf16 PSNR
+     >= 40 dB against the single-device pipeline; 8c
+     SpatialShardedVideoEnhancer over 8 frames, 4K retinex on 4 shards
+     (K4, then K1's gain form) and hybrid ds 4 at 1080p on 2 shards (K3)
+     with f32 nets, each frame to the u8 bar against VideoEnhancer, and
+     with the default bf16 nets, each frame PSNR >= 40 dB, with frames/s;
+     8d the
+     default config at 600x400 b48 through shard_batch_fn on 2x1 and
+     data_shards=2, Δ 0; config 3's step (512x512 b16) on 2x1 against
+     one device, f32 (loss within 1e-6, params' L2 within 1e-5) and bf16
+     (7c's bar); the row-sharded paired step at 512x512 b4 f32 on 1x4;
+     and a process group of one on nccl (initialize_distributed) whose
+     2x1 step equals the one without it. Each path's launch counts,
+     reset just before it runs and read just after: its kernels and no
+     other.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -441,6 +469,10 @@ def k5_bound(cfg, y, rows, m):
 # in other orders), and bf16 against itself under another microbatching
 TRAIN_F32_REL = 1e-5
 TRAIN_BF16_REL = 1e-2
+# phase 8: a sharded float32 step against the one-device step on the card
+# (sums in another order): the loss relative, the parameters' L2 relative
+TRAIN_DP_LOSS_REL = 1e-6
+TRAIN_DP_PARAMS_REL = 1e-5
 
 
 def max_rel(got, want) -> float:
@@ -702,6 +734,339 @@ def phase7_training(torch, card, wrappers, t_start) -> None:
         if proc.returncode != 0 or not w.exists():
             raise AssertionError(f"7e llie-torch train failed: "
                                  f"{proc.stderr[-2000:]}")
+
+
+# ------------------------------------------------------------- phase 8 --- #
+
+def median_ms(torch, fn, reps: int = 5) -> float:
+    """Median ms of ``reps`` calls of ``fn`` after a warm-up, each timed by
+    CUDA events around the call (the launches' host time included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def check_launches(expected, launches) -> None:
+    """Every path launched each of its kernels and none it must not."""
+    for name, kernels, nv in expected:
+        if min(launches[name][k] for k in kernels) < 1:
+            raise AssertionError(f"path {name} never launched one of "
+                                 f"{kernels}: {launches[name]}")
+        if any(launches[name][k] for k in nv):
+            raise AssertionError(f"path {name} launched one of {nv}: "
+                                 f"{launches[name]}")
+
+
+def phase8_parallel(torch, card, wrappers, t_start):
+    """The mesh paths (parallel/) on the card, the mesh's devices repeated
+    on cuda:0: config 5 at 4K, the learned methods and the video enhancer
+    sharded, the data-parallel pipeline and training steps, and a process
+    group. Returns the paths' (name, kernels, never) and their launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from low_light_image_enhancement_tpu_torch import train as tt
+    from low_light_image_enhancement_tpu_torch.config import (
+        PRESETS,
+        PipelineConfig,
+        canvas_margin,
+    )
+    from low_light_image_enhancement_tpu_torch.data.synth_device import (
+        synth_pair_batch,
+    )
+    from low_light_image_enhancement_tpu_torch.kernels import (
+        fused_enhance as fe,
+    )
+    from low_light_image_enhancement_tpu_torch.ops.colorspace import (
+        normalize_u8,
+        quantize_u8,
+    )
+    from low_light_image_enhancement_tpu_torch.parallel import (
+        SpatialShardedVideoEnhancer,
+        enhance_spatial_sharded,
+        make_mesh,
+        shard_batch_fn,
+    )
+    from low_light_image_enhancement_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        process_group_size,
+    )
+    from low_light_image_enhancement_tpu_torch.pipeline import (
+        EnhancePipeline,
+    )
+    from low_light_image_enhancement_tpu_torch.video import VideoEnhancer
+
+    print(f"[8] ({time.perf_counter() - t_start:.0f} s) parallel: meshes "
+          "of cuda:0 repeated (one card: the cost of sharding, not scaling)")
+    dev = torch.device("cuda", 0)
+    mesh = lambda nd, ns: make_mesh(nd, ns, [dev] * (nd * ns))
+    gen = torch.Generator(device=dev)
+    all_k = tuple(wrappers)
+    paths, launches = [], {}
+
+    def frames_u8(b, h, w, seed):
+        """Seeded synthetic low-light frames (B, H, W, 3) u8, made on the
+        card."""
+        low, _ = synth_pair_batch(gen.manual_seed(seed), b, h, w, dev)
+        return quantize_u8(low).permute(0, 2, 3, 1).contiguous()
+
+    def counted(name, kernels, run):
+        never = tuple(k for k in all_k if k not in kernels)
+        paths.append((name, kernels, never))
+        for wr in wrappers.values():
+            wr.launches = 0
+        out = run()
+        launches[name] = {k: wr.launches for k, wr in wrappers.items()}
+        return out
+
+    def planar(x):
+        return x.permute(0, 3, 1, 2)
+
+    # 8a: config 5 at 4K through enhance_spatial_sharded on meshes of 1, 4
+    # and 8 spatial shards and a (2, 4) mesh on a batch of 2, each Δ 0
+    # against the single-device pipeline (K1 on HWC)
+    cfg5 = PRESETS["config5_4k_sharded"]
+    h, w = 2160, 3840
+    x2 = frames_u8(2, h, w, seed=8)
+    single = EnhancePipeline(cfg5.replace(spatial_shards=1), device="cuda")
+    m5 = canvas_margin(cfg5)
+    wp = -(-(w + 2 * m5) // 128) * 128
+    one_ms = median_ms(torch, lambda: single.enhance_batch_device(x2[:1]))
+    print(f"  8a config 5 (retinex, 2160x3840) single device "
+          f"(enhance_batch_device, K1): {one_ms:.3f} ms, "
+          f"{1e3 / one_ms:.1f} frames/s on {card}")
+    for nd, ns in ((1, 1), (1, 4), (1, 8), (2, 4)):
+        x = x2[:nd]
+        want = single.enhance_batch_device(x).cpu().numpy()
+        msh = mesh(nd, ns)
+        run = lambda: enhance_spatial_sharded(planar(x), cfg5, msh)
+        got = counted(f"8a config5 {nd}x{ns}", ("kc",), run)
+        got = got.permute(0, 2, 3, 1).cpu().numpy()
+        st = delta_stats(got, want)
+        ms = median_ms(torch, run)
+        halo = (ns - 1) * 2 * m5 * wp * 3 * nd
+        print(f"  8a config 5 on a {nd}x{ns} mesh (b{nd}): max|du8|="
+              f"{st['max_abs']}, K1 canvas launches "
+              f"{launches[f'8a config5 {nd}x{ns}']['kc']}, {ms:.3f} ms, "
+              f"{nd * 1e3 / ms:.1f} frames/s (single device "
+              f"{1e3 / one_ms:.1f}), halo {halo} B a call, on {card}")
+        if st["max_abs"] != 0:
+            raise AssertionError(f"8a config 5 {nd}x{ns}: sharded differs "
+                                 f"from the single device: {st}")
+    # f32 in and out: K1's canvas form on f32 blocks, on 8 shards, against
+    # the single-device f32 path (HWC K1 on the f32 frame)
+    xf = normalize_u8(x2[:1])
+    want = fe.fused_retinex(xf, cfg5).permute(0, 3, 1, 2)
+    msh = mesh(1, 8)
+    run = lambda: enhance_spatial_sharded(planar(xf), cfg5, msh)
+    got = counted("8a config5 f32 1x8", ("kc",), run)
+    d = float((got - want).abs().max())
+    ms = median_ms(torch, run)
+    print(f"  8a config 5 f32 on a 1x8 mesh (b1): max|d|={d!r} against HWC "
+          f"K1 on the f32 frame, K1 canvas launches "
+          f"{launches['8a config5 f32 1x8']['kc']}, {ms:.3f} ms, "
+          f"{1e3 / ms:.1f} frames/s, on {card}")
+    if got.dtype != torch.float32 or d > 1e-6:
+        raise AssertionError(f"8a config 5 f32 1x8: {got.dtype}, max|d| "
+                             f"{d} > 1e-6 against the single device")
+    del xf, want, got
+    # the pipeline's own dispatch: config 5 on one card is clamped to one
+    # shard, which runs the single-device path (HWC K1)
+    pipe5 = EnhancePipeline(cfg5, device="cuda")
+    run = lambda: pipe5.enhance_batch_device(x2[:1])
+    got = counted("8a pipeline config5", ("k1",), run)
+    if not torch.equal(got, single.enhance_batch_device(x2[:1])):
+        raise AssertionError("8a EnhancePipeline(config 5) differs from "
+                             "the single device")
+    ms = median_ms(torch, run)
+    print(f"  8a EnhancePipeline(config 5) on one card (one shard: the "
+          f"single-device path): Δ 0, K1 launches "
+          f"{launches['8a pipeline config5']['k1']}, {ms:.3f} ms, "
+          f"{1e3 / ms:.1f} frames/s, on {card}")
+    del x2
+
+    # 8b: hybrid at 1080p b2 on 4 shards, cuDNN (auto) and K6a (pallas),
+    # f32 and bf16, against the single-device pipeline
+    x = frames_u8(2, 1080, 1920, seed=9)
+    hybrid = PipelineConfig(method="hybrid")
+    params = EnhancePipeline(hybrid, device="cuda").model_params
+    for conv, kernels in (("auto", ("k3",)), ("pallas", ("k6a", "k3"))):
+        for dtype in ("float32", "bfloat16"):
+            cfg = hybrid.replace(conv_impl=conv, compute_dtype=dtype)
+            want = EnhancePipeline(cfg, model_params=params, device="cuda"
+                                   ).enhance_batch_device(x).cpu().numpy()
+            name = f"8b hybrid {conv} {dtype}"
+            got = counted(name, kernels, lambda: enhance_spatial_sharded(
+                planar(x), cfg, mesh(1, 4), params))
+            got = got.permute(0, 2, 3, 1).cpu().numpy()
+            lc = launches[name]
+            if conv == "pallas" and lc["k6a"] != 6 * lc["k3"]:
+                raise AssertionError(f"{name}: {lc['k6a']} K6a launches, "
+                                     f"not 6 per K3 ({lc['k3']})")
+            if dtype == "float32":
+                check_bar(f"{name} 1080p b2 on 1x4 vs single device",
+                          delta_stats(got, want))
+            else:
+                p = psnr(got, want)
+                print(f"  {name} 1080p b2 on 1x4 vs single device: PSNR "
+                      f"{p:.2f} dB")
+                if p < 40.0:
+                    raise AssertionError(f"{name}: PSNR {p:.2f} < 40 dB")
+    del x
+
+    # 8c: SpatialShardedVideoEnhancer against VideoEnhancer, 8 frames: 4K
+    # retinex on 4 shards (K4, then K1's gain form), hybrid ds 4 at 1080p
+    # on 2 shards (K3); frames/s by the host clock over frames 2-8
+    def flicker(h, w, n=8):
+        low, high = synth_pair_batch(gen.manual_seed(11), 1, h, w, dev)
+        levels = torch.linspace(0.15, 0.25, n, device=dev)
+        noise = torch.randn((n, 3, h, w), generator=gen, device=dev) * 0.005
+        f = torch.clamp(high * levels[:, None, None, None] + noise, 0, 1)
+        return list(quantize_u8(f).permute(0, 2, 3, 1).contiguous().cpu()
+                    .numpy())
+
+    video_cases = [
+        ("8c video retinex 4K 1x4 K4", PipelineConfig(), True, 4,
+         (2160, 3840), ("k4",)),
+        ("8c video retinex 4K 1x4 gain form", PipelineConfig(), False, 4,
+         (2160, 3840), ("k1",)),
+        # f32 nets to the u8 bar; the default bf16 nets to PSNR >= 40 dB a
+        # frame, as 8b: bf16 convs sum by other algorithms on a shard's
+        # block than on the whole frame's
+        ("8c video hybrid ds4 1080p 1x2 f32",
+         PipelineConfig(method="hybrid", curve_downsample=4,
+                        compute_dtype="float32"), True, 2, (1080, 1920),
+         ("k3",)),
+        ("8c video hybrid ds4 1080p 1x2 bf16",
+         PipelineConfig(method="hybrid", curve_downsample=4), True, 2,
+         (1080, 1920), ("k3",)),
+    ]
+    clips = {}
+    for name, cfg, eik, ns, size, kernels in video_cases:
+        if size not in clips:
+            clips[size] = flicker(*size)
+        clip = clips[size]
+        sve = SpatialShardedVideoEnhancer(mesh(1, ns), cfg, alpha=0.3,
+                                          device="cuda", ema_in_kernel=eik)
+        ve = VideoEnhancer(cfg, alpha=0.3, model_params=sve.model_params,
+                           device="cuda", ema_in_kernel=eik)
+
+        def run_clip(enh):
+            outs, t0 = [], 0.0
+            for i, f in enumerate(clip):
+                if i == 1:
+                    t0 = time.perf_counter()
+                outs.append(enh.process(f))
+            return outs, (len(clip) - 1) / (time.perf_counter() - t0)
+
+        got, fps = counted(name, kernels, lambda: run_clip(sve))
+        want, fps_one = run_clip(ve)
+        if cfg.compute_dtype == "float32" or cfg.method == "retinex":
+            worst = max((delta_stats(a, b) for a, b in zip(got, want)),
+                        key=lambda st: (st["max_abs"], st["changed_share"]))
+            check_bar(f"{name} ({len(clip)} frames, worst frame) vs "
+                      f"VideoEnhancer", worst)
+        else:
+            p = min(psnr(a, b) for a, b in zip(got, want))
+            print(f"  {name} ({len(clip)} frames) vs VideoEnhancer: worst "
+                  f"frame PSNR {p:.2f} dB")
+            if p < 40.0:
+                raise AssertionError(f"{name}: PSNR {p:.2f} < 40 dB")
+        print(f"  {name}: {fps:.1f} frames/s sharded, {fps_one:.1f} "
+              f"single device (host clock, frames 2-{len(clip)}), carry "
+              f"{sve.carry_bytes} B, on {card}")
+    del clips
+
+    # 8d: data parallel. The default pipeline at 600x400 b48 through
+    # shard_batch_fn on a (2, 1) mesh, Δ 0; config 3's step on a (2, 1)
+    # mesh against one device (f32: TF32 off; bf16, TrainConfig() itself:
+    # its convs sum by other algorithms at batch 8 than at 16, held to the
+    # microbatch bar of 7c); the row-sharded paired step at 512^2 b4 on a
+    # (1, 4) mesh; a process group of one on nccl
+    pipe = EnhancePipeline(PipelineConfig(), device="cuda")
+    x = frames_u8(48, 400, 600, seed=12)
+    want = pipe.enhance_batch_device(x)
+    got = counted("8d shard_batch_fn 2x1", ("k1",), lambda: shard_batch_fn(
+        pipe.enhance_batch_device, mesh(2, 1))(x))
+    dp = EnhancePipeline(PipelineConfig(data_shards=2), device="cuda")
+    got_dp = counted("8d pipeline data_shards", ("k1",),
+                     lambda: dp.enhance_batch_device(x))
+    if not (torch.equal(got, want) and torch.equal(got_dp, want)):
+        raise AssertionError("8d data-parallel pipeline differs from the "
+                             "single device")
+    print("  8d PipelineConfig() 600x400 b48 through shard_batch_fn on 2x1 "
+          "and data_shards=2 (one card: 1 shard): Δ 0")
+    del x, want, got, got_dp
+
+    def step_check(what, make, tcfg, args, msh, bar, **kw):
+        p0, o0 = tt.init_train_state(tcfg, seed=0)
+        ref = make(tcfg)(p0, o0, *args)
+        got = make(tcfg, msh, **kw)(p0, o0, *args)
+        loss_rel = max_rel(float(got[2]["loss"]), float(ref[2]["loss"]))
+        p_rel = params_rel(tt, got[0], ref[0])
+        print(f"  {what}: loss rel {loss_rel:.2e}, params rel {p_rel:.2e}")
+        if loss_rel > bar[0] or p_rel > bar[1]:
+            raise AssertionError(f"{what}: loss rel {loss_rel:.2e}, params "
+                                 f"rel {p_rel:.2e} > {bar}")
+        return p0, o0, got
+
+    low16, _ = synth_pair_batch(gen.manual_seed(13), 16, 512, 512,
+                                dev)
+    f32_bar = (TRAIN_DP_LOSS_REL, TRAIN_DP_PARAMS_REL)
+    f32 = tt.TrainConfig(batch_size=16, compute_dtype="float32")
+    p0, o0, got = step_check("8d config 3 (f32, 512x512 b16) on 2x1 vs one "
+                             "device", tt.make_train_step, f32, (low16,),
+                             mesh(2, 1), f32_bar)
+    step_check("8d config 3 (TrainConfig(): bf16, 512x512 b16) on 2x1 vs "
+               "one device", tt.make_train_step,
+               tt.TrainConfig(batch_size=16), (low16,), mesh(2, 1),
+               (TRAIN_BF16_REL, TRAIN_BF16_REL))
+    low4, high4 = synth_pair_batch(gen.manual_seed(14), 4, 512, 512,
+                                   dev)
+    step_check("8d row-sharded paired curve step (f32, 512x512 b4) on 1x4 "
+               "vs unsharded", tt.make_paired_curve_train_step,
+               tt.TrainConfig(batch_size=4, compute_dtype="float32"),
+               (low4, high4), mesh(1, 4), f32_bar, spatial_batch=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # both steps under cudnn.deterministic: cuDNN's default backward
+    # algorithms sum in a varying order (1e-9 of the params between two
+    # runs of one step)
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = tt.make_train_step(f32, mesh(2, 1))(p0, o0, low16)
+        initialize_distributed(f"localhost:{port}", num_processes=1,
+                               process_id=0, device="cuda")
+        try:
+            size, backend = process_group_size(), dist.get_backend()
+            pg = tt.make_train_step(f32, mesh(2, 1))(p0, o0, low16)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    p_rel = params_rel(tt, pg[0], got[0])
+    equal = all(torch.equal(a, b) for a, b in
+                zip(tt._leaves(pg[0]), tt._leaves(got[0])))
+    print(f"  8d process group of {size} on {backend} "
+          f"(initialize_distributed): its config-3 step (f32, b16) on 2x1 "
+          f"vs the same without it, cudnn deterministic: loss "
+          f"{float(pg[2]['loss'])!r} vs {float(got[2]['loss'])!r}, params "
+          f"rel {p_rel:.2e}, {'bit-equal' if equal else 'not bit-equal'}")
+    if size != 1 or backend != "nccl" or max_rel(float(pg[2]["loss"]), float(got[2]["loss"])) \
+            > TRAIN_DP_LOSS_REL or p_rel > TRAIN_DP_PARAMS_REL:
+        raise AssertionError("8d the process group's step differs")
+    return paths, launches
 
 
 def main() -> int:
@@ -2446,13 +2811,7 @@ def main() -> int:
                  for name, _, _, kernels, nv in video_paths]
     expected += [("hwc", ("k8",), never["hwc"])]
     expected += host_paths
-    for name, kernels, nv in expected:
-        if min(launches[name][k] for k in kernels) < 1:
-            raise AssertionError(f"path {name} never launched one of "
-                                 f"{kernels}: {launches[name]}")
-        if any(launches[name][k] for k in nv):
-            raise AssertionError(f"path {name} launched one of {nv}: "
-                                 f"{launches[name]}")
+    check_launches(expected, launches)
     for name, (k, n, ref) in per_block.items():
         if launches[name][k] != n * launches[name][ref]:
             raise AssertionError(f"path {name}: {launches[name][k]} {k} "
@@ -2475,6 +2834,13 @@ def main() -> int:
           f"{total['k5g']}")
 
     phase7_training(torch, card, wrappers, t_start)
+    par_paths, par_launches = phase8_parallel(torch, card, wrappers,
+                                              t_start)
+    print(f"  phase 8 launches per path: {par_launches}")
+    check_launches(par_paths, par_launches)
+    for name, kernels, _ in par_paths:
+        for k in kernels:
+            total[k] += par_launches[name][k]
 
     src = "low_light_image_enhancement_tpu_torch/kernels/csrc/"
     tpu = "low_light_image_enhancement_tpu/kernels/"

@@ -16,6 +16,8 @@ Public API::
     pipe.enhance_file("dark.png", "bright.png")  # io.codec: PIL or zlib PNG
     for out in pipe.enhance_stream(frames, staging="canvas"):
         ...                                      # pinned prefetch queue
+    mesh = llt.make_mesh(n_data=1, n_spatial=4)  # cuda:0..3, one process
+    sve = llt.SpatialShardedVideoEnhancer(mesh, llt.PipelineConfig())
 
 Methods: retinex (kernel K1), curve and hybrid (the curve CNN, then K3),
 fcn and decom (their net, then K5, the bilateral or guided denoise tail).
@@ -26,7 +28,11 @@ Video (``VideoEnhancer``, ``MultiStreamVideoEnhancer``): retinex as one
 kernel K4 per frame (or K1's gain form), curve and hybrid through K3.
 ``eval.metrics`` has PSNR, SSIM and CIE76 delta-E on tensors,
 ``eval.runner.eval_lol`` the LOL eval; ``http_server`` and ``cli`` (the
-``llie-torch`` command) are the front ends.
+``llie-torch`` command) are the front ends. ``parallel`` runs on a mesh
+of devices: ``PipelineConfig(spatial_shards=n)`` (config 5) and
+``data_shards``, ``enhance_spatial_sharded``, the sharded video enhancer,
+and the trainers' ``mesh`` and ``spatial_batch`` (``train``), with data
+parallelism across processes in ``parallel.distributed``.
 """
 
 from low_light_image_enhancement_tpu_torch.config import (
@@ -37,6 +43,11 @@ from low_light_image_enhancement_tpu_torch.io import (
     PrefetchQueue,
     decode_image,
     encode_image,
+)
+from low_light_image_enhancement_tpu_torch.parallel import (
+    SpatialShardedVideoEnhancer,
+    enhance_spatial_sharded,
+    make_mesh,
 )
 from low_light_image_enhancement_tpu_torch.pipeline import (
     EnhancePipeline,
@@ -62,6 +73,9 @@ __all__ = [
     "ServerSaturated",
     "VideoEnhancer",
     "MultiStreamVideoEnhancer",
+    "SpatialShardedVideoEnhancer",
+    "make_mesh",
+    "enhance_spatial_sharded",
     "PrefetchQueue",
     "decode_image",
     "encode_image",

@@ -63,7 +63,8 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                         "port's conv kernels, cascade fcn's stack as one "
                         "kernel")
     p.add_argument("--data-shards", type=int, default=None,
-                   help="shard batches over N devices (not ported yet)")
+                   help="shard batches over N devices (clamped to the "
+                        "cards there are)")
     p.add_argument("--weights", default=None,
                    help="model weights: an .npz path or a shipped name "
                         "(models.weights.NAMED); default: the method's "

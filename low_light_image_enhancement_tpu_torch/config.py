@@ -97,8 +97,10 @@ class PipelineConfig:
                                  # "gemm", "packed", "packed12" raise
 
     # --- sharding ------------------------------------------------------------
-    spatial_shards: int = 1      # >1 is not yet ported (raises)
-    data_shards: int = 1         # >1 is not yet ported (raises)
+    # >1 runs on a mesh of devices (parallel/): rows over spatial_shards,
+    # the batch over data_shards; on CUDA each is clamped to the cards
+    spatial_shards: int = 1
+    data_shards: int = 1
 
     # Named shipped weights this config pairs with (models.weights.NAMED);
     # None = the method's default .npz. Explicit model_params still win.

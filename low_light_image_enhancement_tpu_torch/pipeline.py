@@ -11,7 +11,11 @@ for their denoise tail; every method with the bilateral or the guided
 tail and any blur radius; the nets' convs through ``F.conv2d``, or under
 ``conv_impl="pallas"`` through K6 and ``"cascade"`` through K7), one on
 ``"cpu"`` their plain versions. There is no fallback from one to the
-other.
+other. ``spatial_shards`` splits the rows over a mesh of devices
+(``parallel.enhance_spatial_sharded``, BASELINE config 5) and
+``data_shards`` the batch (``parallel.shard_batch_fn``); on CUDA each count
+is clamped to the cards there are (a count clamped to one runs the
+single-device path), on the CPU the mesh repeats the CPU device.
 """
 
 from __future__ import annotations
@@ -68,10 +72,6 @@ __all__ = ["pad_planar", "pad_block", "pad_block_planar", "resolve_device",
 
 def check_ported(cfg: PipelineConfig) -> None:
     """Raise for configs whose path is not ported yet."""
-    if cfg.spatial_shards > 1 or cfg.data_shards > 1:
-        raise NotImplementedError(
-            "spatial_shards/data_shards > 1 are not ported yet (ROADMAP "
-            "Queue 1: parallel)")
     if cfg.method != "retinex":
         resolve_conv_impl(cfg)  # raises for the conv arms not ported
 
@@ -229,8 +229,10 @@ class EnhancePipeline:
         return (-(-h // g) * g, -(-w // g) * g) if g else (h, w)
 
     def warmup(self, shapes) -> None:
-        """Run each (batch, height, width) once (bucket-rounded), so the
-        kernel build and cuDNN's first-call set-up happen before traffic."""
+        """Run each (batch, height, width) once (bucket-rounded) through
+        the real dispatch (the sharded one under ``spatial_shards`` or
+        ``data_shards``), so the kernel build and cuDNN's first-call set-up
+        happen before traffic."""
         for b, h, w in shapes:
             h, w = self._bucketed(h, w)
             self.enhance_batch_device(
@@ -254,7 +256,50 @@ class EnhancePipeline:
             raise ValueError(
                 f"expected RGB (B,H,W,3), got {tuple(imgs_u8.shape)}")
         self._check_on_device(imgs_u8)
-        return _enhance_u8_batch(imgs_u8, self.model_params, cfg=self.config)
+        cfg = self.config
+        if cfg.spatial_shards > 1:
+            mesh = self._mesh(1, cfg.spatial_shards)
+            if mesh.shape["spatial"] > 1:
+                from low_light_image_enhancement_tpu_torch.parallel.sharding \
+                    import enhance_spatial_sharded
+
+                y = enhance_spatial_sharded(imgs_u8.permute(0, 3, 1, 2), cfg,
+                                            mesh, self.model_params)
+                return y.permute(0, 2, 3, 1).contiguous()
+        if cfg.data_shards > 1:
+            return self._data_sharded(_enhance_u8_batch, imgs_u8)
+        return _enhance_u8_batch(imgs_u8, self.model_params, cfg=cfg)
+
+    def _mesh(self, n_data: int, n_spatial: int):
+        """The mesh of the sharded configs: ``n_data x n_spatial`` devices
+        of the pipeline's type, each count clamped to the cards there are
+        (``parallel.sharding.mesh_for``)."""
+        from low_light_image_enhancement_tpu_torch.parallel.sharding import (
+            mesh_for,
+        )
+
+        return mesh_for(self.device, n_data, n_spatial)
+
+    def _data_sharded(self, fn, imgs: torch.Tensor) -> torch.Tensor:
+        """``fn(chunk, params, cfg=...)`` on the batch split over the
+        ``data_shards`` mesh; the batch must divide by the mesh's size
+        (``enhance_batch`` pads it for you). A mesh clamped to one device
+        runs ``fn`` on the whole batch."""
+        from low_light_image_enhancement_tpu_torch.parallel.sharding import (
+            shard_batch_fn,
+        )
+
+        mesh = self._mesh(self.config.data_shards, 1)
+        n = mesh.shape["data"]
+        if imgs.shape[0] % n:
+            raise ValueError(
+                f"batch {imgs.shape[0]} not divisible by data_shards={n}; "
+                "enhance_batch pads the batch for you")
+        cfg = self.config
+        if n == 1:
+            return fn(imgs, self.model_params, cfg=cfg)
+        return shard_batch_fn(lambda x, p: fn(x, p, cfg=cfg), mesh)(
+            imgs, self.model_params)
 
     @torch.inference_mode()
     def enhance_batch_device_planar(self, imgs_pu8: torch.Tensor
@@ -267,6 +312,13 @@ class EnhancePipeline:
             raise ValueError(f"expected planar RGB (B,3,H,W), got "
                              f"{tuple(imgs_pu8.shape)}")
         self._check_on_device(imgs_pu8)
+        if self.config.spatial_shards > 1:
+            raise NotImplementedError(
+                "planar I/O is a single-device/DP fast path; the spatially "
+                "sharded route is already planar inside: use "
+                "parallel.enhance_spatial_sharded directly")
+        if self.config.data_shards > 1:
+            return self._data_sharded(_enhance_u8_planar, imgs_pu8)
         return _enhance_u8_planar(imgs_pu8, self.model_params,
                                   cfg=self.config)
 
@@ -275,13 +327,18 @@ class EnhancePipeline:
         imgs_u8 = np.ascontiguousarray(imgs_u8)
         if imgs_u8.ndim != 4 or imgs_u8.shape[-1] != 3:
             raise ValueError(f"expected RGB (B,H,W,3), got {imgs_u8.shape}")
-        _, h, w, _ = imgs_u8.shape
+        b, h, w, _ = imgs_u8.shape
+        if self.config.data_shards > 1:
+            n = self._mesh(self.config.data_shards, 1).shape["data"]
+            if b % n:   # replicate the last image up to a multiple
+                imgs_u8 = np.concatenate(
+                    [imgs_u8, np.repeat(imgs_u8[-1:], n - b % n, axis=0)])
         hb, wb = self._bucketed(h, w)
         if (hb, wb) != (h, w):
             imgs_u8 = np.pad(imgs_u8, ((0, 0), (0, hb - h), (0, wb - w),
                                        (0, 0)), mode="edge")
         x = torch.from_numpy(imgs_u8).to(self.device)
-        return self.enhance_batch_device(x).cpu().numpy()[:, :h, :w]
+        return self.enhance_batch_device(x).cpu().numpy()[:b, :h, :w]
 
     def enhance(self, img_u8) -> np.ndarray:
         """(H, W, 3) u8 -> (H, W, 3) u8 enhanced."""

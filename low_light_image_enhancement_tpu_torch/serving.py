@@ -30,6 +30,7 @@ import torch
 
 from low_light_image_enhancement_tpu_torch.config import PipelineConfig
 from low_light_image_enhancement_tpu_torch.kernels import _build
+from low_light_image_enhancement_tpu_torch.parallel.sharding import mesh_for
 from low_light_image_enhancement_tpu_torch.pipeline import EnhancePipeline
 
 ShapeKey = Tuple[int, int]
@@ -69,13 +70,20 @@ class EnhanceServer:
         self._max_batch = max_batch
         self._max_delay = max_delay_ms / 1000.0
         # geometric batch buckets: a few batch sizes per shape, under 4x
-        # padding compute in the worst case
+        # padding compute in the worst case. Under data parallelism
+        # (data_shards > 1) every batch must divide over the data mesh, so
+        # the buckets start at its size, clamped to the cards there are as
+        # the pipeline clamps it (data_shards=4 on 3 cards shards over 3)
+        dshards = self._pipe.config.data_shards
+        if dshards > 1:
+            dshards = mesh_for(self._pipe.device, dshards, 1).shape["data"]
+        top = -(-max_batch // dshards) * dshards   # a multiple of it
         self._batch_buckets = []
-        b = 1
-        while b < max_batch:
+        b = dshards
+        while b < top:
             self._batch_buckets.append(b)
             b *= 4
-        self._batch_buckets.append(max_batch)
+        self._batch_buckets.append(top)
         if self._pipe.device.type == "cuda":
             _build.load_library()
         self._q: "queue.Queue" = queue.Queue()

@@ -7,7 +7,10 @@ AdamW step, microbatching, remat, EMA, early stopping, checkpoints and data
 streams, in eager PyTorch on ``device`` ("cuda" unless the caller asks for
 "cpu"). The convs run in cuDNN through ``models.layers.conv2d``; the curves,
 the boost and the denoise tail are differentiable torch ops, as they are
-jnp under ``jax.grad`` there (no Pallas kernel runs in training).
+jnp under ``jax.grad`` there (no Pallas kernel runs in training). A
+step made with a mesh (``parallel.make_mesh``) is data parallel, its
+gradients all-reduced over a process group when one is up
+(``parallel.distributed``); with ``spatial_batch`` the crop's rows shard.
 
 Zero-DCE-family losses, no ground truth needed:
   * exposure control: local mean luminance pulled toward a target level
@@ -26,6 +29,7 @@ curves saturate at 0 and 1, decom's sigmoid illumination reaches 1.0.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -39,14 +43,10 @@ from low_light_image_enhancement_tpu_torch.models.curve_cnn import (
     init_curve_cnn,
 )
 from low_light_image_enhancement_tpu_torch.ops.curves import apply_curves
+from low_light_image_enhancement_tpu_torch.parallel.sharding import replicas
 from low_light_image_enhancement_tpu_torch.pipeline import resolve_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
-
-# what a mesh or a spatial batch would need, and the ROADMAP.md item
-# (Queue 1) that ports it
-PARALLEL_NOT_PORTED = ("data-parallel and spatial training are not in the "
-                       "port yet: parallel (ROADMAP.md Queue 1, item 2)")
 
 
 # ------------------------------------------------------------ tie forms #
@@ -177,10 +177,13 @@ def _curve_net(tcfg: TrainConfig) -> Callable:
 
 
 def zero_reference_loss(
-    params: Params, batch: torch.Tensor, tcfg: TrainConfig
+    params: Params, batch: torch.Tensor, tcfg: TrainConfig,
+    net: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: (B, 3, H, W) f32 low-light input in [0, 1]."""
-    a = _curve_net(tcfg)(params, batch)
+    """batch: (B, 3, H, W) f32 low-light input in [0, 1]. ``net(params,
+    x)`` gives the curve maps (default: the curve CNN; the row-sharded
+    step passes its sharded form)."""
+    a = (net or _curve_net(tcfg))(params, batch)
     y = _clip(apply_curves(batch, a), 0.0, 1.0)
     if tcfg.denoise_in_loss:
         y = _denoise_tail(y, tcfg)
@@ -225,13 +228,15 @@ def _denoise_tail(y: torch.Tensor,
 def paired_curve_loss(
     params: Params, low: torch.Tensor, high: torch.Tensor,
     tcfg: TrainConfig, w_ssim: float = 0.5,
+    net: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """L1 + (1 - SSIM) of the curve-enhanced output against the paired
     ground truth, plus a weak TV prior on the maps (``w_smooth_paired``):
-    the recipe of the shipped curve and hybrid weights."""
+    the recipe of the shipped curve and hybrid weights. ``net`` as in
+    :func:`zero_reference_loss`."""
     from low_light_image_enhancement_tpu_torch.eval.metrics import ssim
 
-    a = _curve_net(tcfg)(params, low)
+    a = (net or _curve_net(tcfg))(params, low)
     y = _clip(apply_curves(low, a), 0.0, 1.0)
     if tcfg.denoise_in_loss:
         y = _denoise_tail(y, tcfg)
@@ -403,18 +408,126 @@ def _accumulated_grads(loss_fn, params: Params, tcfg: TrainConfig,
             [g * scale for g in grads])
 
 
+def _all_reduce(total: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum the tensors over the process group, when one is initialized, as
+    one flat all-reduce."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return total
+    flat = torch.cat([t.reshape(-1) for t in total])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    out, i = [], 0
+    for t in total:
+        out.append(flat[i:i + t.numel()].reshape(t.shape))
+        i += t.numel()
+    return out
+
+
+def _data_parallel_grads(loss_fn, params: Params, tcfg: TrainConfig, mesh,
+                         *batches):
+    """(metrics, grads) of the batch split over every mesh device in order
+    (the JAX package's ``P(("data", "spatial"))``): each shard's
+    (microbatched) gradients and metrics, weighted by its share of the
+    batch and summed onto the first device, then over the process group
+    (``parallel.distributed``), whose processes each hold a part of the
+    global batch. Equal to the unsharded step up to summation order."""
+    devs = mesh.flat
+    n = batches[0].shape[0]
+    if n % len(devs):
+        raise ValueError(f"batch {n} not divisible by the mesh's "
+                         f"{len(devs)} devices")
+    k = n // len(devs)
+    home = _leaves(params)[0].device
+    copies = replicas(params, mesh)
+    names, total = None, None
+    for i, dev in enumerate(devs):
+        chunk = [b[i * k:(i + 1) * k].to(dev, non_blocking=True)
+                 for b in batches]
+        metrics, grads = _accumulated_grads(loss_fn, copies[dev], tcfg,
+                                            *chunk)
+        if names is None:
+            names = list(metrics)
+        part = [t.to(home, non_blocking=True) * float(k)
+                for t in [metrics[m] for m in names] + grads]
+        total = part if total is None else [a + b for a, b in
+                                            zip(total, part)]
+    count = torch.full((), float(n), device=home)
+    *total, count = _all_reduce(total + [count])
+    total = [t / count for t in total]
+    return dict(zip(names, total[:len(names)])), total[len(names):]
+
+
+def _row_sharded_net(net: Callable, mesh, halo: int) -> Callable:
+    """``net(params, x)`` with the crop's rows split over the mesh's
+    ``spatial`` axis and its batch over ``data``: each shard runs the net
+    on its rows and ``halo`` rows of each neighbour (the net's receptive
+    field), on its device, and keeps its own rows; the outputs are
+    gathered onto ``x``'s device under autograd, so the losses run there
+    unchanged. At the crop's top and bottom a shard's block ends where the
+    crop does: the convs' zero padding then falls past the crop's edge, as
+    it does for the unsharded crop, after every layer (edge-replicating
+    the input instead would give another step)."""
+    n_d, n_sp = mesh.shape["data"], mesh.shape["spatial"]
+
+    def apply(params, x):
+        b, _, h, _ = x.shape
+        if h % n_sp:
+            raise ValueError(f"crop rows {h} not divisible by the mesh's "
+                             f"spatial axis ({n_sp})")
+        if b % n_d:
+            raise ValueError(f"batch {b} not divisible by the mesh's data "
+                             f"axis ({n_d})")
+        hl, bs = h // n_sp, b // n_d
+        copies = replicas(params, mesh)
+        chunks = []
+        for d, row in enumerate(mesh.devices):
+            parts = []
+            for s, dev in enumerate(row):
+                lo, hi = max(0, s * hl - halo), min(h, (s + 1) * hl + halo)
+                xs = x[d * bs:(d + 1) * bs, :, lo:hi].to(dev,
+                                                         non_blocking=True)
+                a = net(copies[dev], xs)
+                keep = a[..., s * hl - lo:s * hl - lo + hl, :]
+                parts.append(keep.to(x.device, non_blocking=True))
+            chunks.append(torch.cat(parts, dim=-2))
+        return torch.cat(chunks)
+
+    return apply
+
+
 def _make_step(loss_fn: Callable, tcfg: TrainConfig, mesh=None,
                spatial_batch: bool = False) -> Callable:
     """``step(params, opt_state, *batch_args) -> (params, opt_state,
     metrics)`` for any ``loss_fn(params, *batch_args, tcfg) -> (loss,
-    metrics)``. A mesh or a spatial batch raises ``NotImplementedError``."""
-    if mesh is not None or spatial_batch:
-        raise NotImplementedError(PARALLEL_NOT_PORTED)
+    metrics)``.
+
+    With a mesh (``parallel.make_mesh``) the batch args are split over all
+    its devices and the parameters replicated (``_data_parallel_grads``);
+    AdamW then runs once, on the parameters' device. ``spatial_batch=True``
+    splits the crop ROWS over the mesh's ``spatial`` axis instead (the
+    batch over ``data``): the curve CNN's convs run sharded with halos
+    (``_row_sharded_net``), the losses on the gathered maps, for crops too
+    large for one device; the crop rows must divide by the axis. It takes
+    the curve objectives' ``net`` (zero-reference and paired)."""
     optimizer = make_optimizer(tcfg)
+    if mesh is None:
+        grads_of = lambda params, *b: _accumulated_grads(loss_fn, params,
+                                                         tcfg, *b)
+    elif spatial_batch:
+        from low_light_image_enhancement_tpu_torch.blocks import cnn_radius
+
+        halo = cnn_radius(PipelineConfig(method="curve"))
+        sharded = functools.partial(
+            loss_fn, net=_row_sharded_net(_curve_net(tcfg), mesh, halo))
+        grads_of = lambda params, *b: _accumulated_grads(sharded, params,
+                                                         tcfg, *b)
+    else:
+        grads_of = lambda params, *b: _data_parallel_grads(
+            loss_fn, params, tcfg, mesh, *b)
 
     def step(params, opt_state, *batch_args):
-        metrics, grads = _accumulated_grads(loss_fn, params, tcfg,
-                                            *batch_args)
+        metrics, grads = grads_of(params, *batch_args)
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, metrics
 

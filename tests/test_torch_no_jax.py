@@ -3,7 +3,9 @@ interpreter where both are blocked (and PIL, as on the card host), it
 imports every module and runs CPU pipelines (with the nets' pallas and
 cascade arms among them), CPU video enhancers, the HWC entry point,
 enhance_file through the zlib codec, enhance_stream, a CPU train step and
-a checkpoint save and restore; chip_smoke.py names neither."""
+a checkpoint save and restore, and the parallel package (config 5's
+sharded pipeline, the sharded video enhancer and a data-parallel step on
+CPU meshes); chip_smoke.py names neither."""
 
 import subprocess
 import sys
@@ -94,6 +96,19 @@ with tempfile.TemporaryDirectory() as tmp:
                                              params["c1"]["w"])
     save_params(params, Path(tmp) / "w.npz")
 assert roofline.train_step_cost(8, 2, 32).tensor_flops > 0
+from low_light_image_enhancement_tpu_torch import parallel
+from low_light_image_enhancement_tpu_torch.parallel import distributed
+cpu2 = parallel.make_mesh(1, 2, ["cpu", "cpu"])
+out = llt.EnhancePipeline(llt.PRESETS["config5_4k_sharded"],
+                          device="cpu").enhance_batch(lows)
+assert (out == pipe.enhance_batch(lows)).all()
+sve = parallel.SpatialShardedVideoEnhancer(cpu2, llt.PipelineConfig(),
+                                           device="cpu")
+assert (sve.process(lows[0]) == llt.VideoEnhancer(
+    device="cpu").process(lows[0])).all()
+params, opt, m = train.make_train_step(tcfg, parallel.make_mesh(
+    2, 1, ["cpu", "cpu"]))(params, opt, batch)
+assert int(opt["count"]) == 2 and distributed.process_group_size() == 0
 loaded = sorted(m for m in set(sys.modules) - preloaded
                 if m.startswith(("jax", "low_light_image_enhancement_tpu."))
                 and sys.modules[m] is not None)

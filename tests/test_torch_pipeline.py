@@ -118,8 +118,11 @@ def test_default_params_are_the_shipped_weights():
      True),
     (dict(method="curve", denoise_taps="guided", compute_dtype="float32"),
      True),
-    (dict(spatial_shards=2), False),
-    (dict(data_shards=2), False), (dict(denoise_taps="guided"), True),
+    # the sharded configs, ported since these ids were given (parallel/):
+    # against the JAX package's sharded pipeline on its fake devices
+    pytest.param(dict(spatial_shards=2), True, id="kw2-False"),
+    pytest.param(dict(data_shards=2), True, id="kw3-False"),
+    (dict(denoise_taps="guided"), True),
     (dict(method="hybrid", curve_downsample=4, denoise_taps="guided",
           compute_dtype="float32"), True),
     (dict(method="fcn", conv_impl="gemm"), False),
@@ -127,8 +130,8 @@ def test_default_params_are_the_shipped_weights():
 ])
 def test_unported_configs_raise(kw, ported):
     """The configs still to port raise; the guided tails on retinex, curve
-    and hybrid, which raised before they were ported, match the JAX
-    package's jnp path."""
+    and hybrid and the sharded configs, which raised before they were
+    ported, match the JAX package's jnp path."""
     if not ported:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.EnhancePipeline(PipelineConfig(**kw), device="cpu")

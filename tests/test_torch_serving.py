@@ -70,8 +70,12 @@ def test_full_group_dispatches_without_waiting_and_checks_args():
             srv.submit(img[..., :2])
     with pytest.raises(ValueError):
         EnhanceServer(PipelineConfig(), device="cpu", overflow="drop")
-    with pytest.raises(NotImplementedError):
-        EnhanceServer(PipelineConfig(data_shards=2), device="cpu")
+    # data parallelism: the batch buckets start at data_shards (a CPU mesh
+    # repeats the CPU device, so it is not clamped) and are its multiples
+    with EnhanceServer(PipelineConfig(data_shards=2), device="cpu",
+                       max_batch=5, max_delay_ms=1.0) as srv:
+        assert srv._batch_buckets == [2, 6]
+        assert srv.submit(img).result(timeout=60).shape == img.shape
 
 
 @pytest.mark.parametrize("kw", [dict(denoise_taps="guided"),

@@ -280,10 +280,20 @@ def test_synth_stream_is_the_jax_one():
 
 
 def test_mesh_and_cuda_rules():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        tt.make_train_step(port_cfg(TINY), mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tt.make_paired_curve_train_step(port_cfg(TINY), spatial_batch=True)
+    """A mesh step takes a parallel.Mesh (tests/test_torch_train_parallel.py
+    holds it to the JAX package's); spatial_batch without a mesh is the
+    unsharded step, as in the JAX package."""
+    from low_light_image_enhancement_tpu_torch.parallel import make_mesh
+
+    x = torch.from_numpy(lows())
+    _, _, pp, po = carried_state(TINY)
+    ref = tt.make_paired_curve_train_step(port_cfg(TINY))(pp, po, x, x)
+    got = tt.make_paired_curve_train_step(port_cfg(TINY),
+                                          spatial_batch=True)(pp, po, x, x)
+    assert float(got[2]["loss"]) == float(ref[2]["loss"])
+    mesh = make_mesh(2, 1, ["cpu", "cpu"])
+    with pytest.raises(ValueError, match="not divisible"):
+        tt.make_train_step(port_cfg(TINY), mesh=mesh)(pp, po, x[:3])
     if torch.cuda.is_available():
         pytest.skip("the card is there: chip_smoke.py phase 7 trains on it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
