@@ -30,6 +30,10 @@ config 3 at full width, and llie-torch train. Parallel (parallel/): meshes
 of cuda:0 repeated, config 5 (K1's canvas form a shard), hybrid sharded
 (K3, K6a), the sharded video enhancer (K4, K1's gain form, K3), the
 data-parallel pipeline (K1) and training steps, and a process group.
+RAW ingest (config 8): RGGB mosaics through enhance_raw_batch (the ISP,
+then K1; hybrid: K3), also under spatial_shards and from llie-torch
+enhance --raw; and the toolkit ops (ops: colour spaces, filters, retinex,
+gamma, Fourier, contrast) on the card.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -174,7 +178,22 @@ Phases (each raises on failure, so the script exits non-zero):
      and a process group of one on nccl (initialize_distributed) whose
      2x1 step equals the one without it. Each path's launch counts,
      reset just before it runs and read just after: its kernels and no
-     other.
+     other;
+  9. RAW and the toolkit ops: 9a config 8 (600x400 b48 RGGB mosaics made
+     from 8 seeded synthetic lows by keeping each Bayer site's channel)
+     through enhance_raw_batch on the card: one K1 launch a call and no
+     canvas form, the 8 distinct mosaics to the u8 bar against
+     device="cpu", the ISP's u8 through enhance_batch_device equal to
+     enhance_raw_batch_device (Δ 0), a 12-bit u16 mosaic (white_level 4095,
+     DNs above it) with explicit gains to the u8 bar, --method hybrid (K3)
+     PSNR >= 40 dB against the CPU, spatial_shards=4 (one card: the
+     single-device path) Δ 0, llie-torch enhance --raw on a .npy in a
+     process of its own (rc 0, equal to enhance_raw); 9b the ISP alone,
+     the ISP + K1 and K1 alone on the ISP's u8, device-resident (CUDA
+     events around each call, median of 5); 9c each toolkit op at 1080p
+     against the CPU port within its CPU bar (FFT ops 1e-4), with its ms,
+     and autocontrast on a 2160x3840 frame (past torch.quantile's limit).
+     Each path's launch counts as in 8.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -1066,6 +1085,215 @@ def phase8_parallel(torch, card, wrappers, t_start):
     if size != 1 or backend != "nccl" or max_rel(float(pg[2]["loss"]), float(got[2]["loss"])) \
             > TRAIN_DP_LOSS_REL or p_rel > TRAIN_DP_PARAMS_REL:
         raise AssertionError("8d the process group's step differs")
+    return paths, launches
+
+
+# ------------------------------------------------------------- phase 9 --- #
+
+# the toolkit ops on the card against the CPU port: each op's CPU bar
+# against the JAX package (tests/test_torch_toolkit_ops.py), the FFT ops
+# within 1e-4 on cuFFT
+TOOLKIT_BARS = {"rgb_to_hsv": 1e-6, "hsv_to_rgb": 1e-6, "rgb_to_ycbcr": 1e-6,
+                "ycbcr_to_rgb": 1e-6, "rgb_to_hvi": 1e-5, "hvi_to_rgb": 1e-5,
+                "gaussian_blur": 0.0, "bilateral_denoise": 1e-6,
+                "illumination_map": 1e-6, "retinex_enhance": 1e-6,
+                "gamma_correct": 1e-6, "fourier_amplitude_boost": 1e-4,
+                "amplitude_phase_swap": 1e-4, "autocontrast": 1e-6,
+                "equalize_hist": 0.0, "clahe": 1e-5}
+
+
+def mosaic_from_rgb(rgb_u8: np.ndarray) -> np.ndarray:
+    """(..., H, W, 3) u8 -> (..., H, W) f32 RGGB mosaics: each Bayer site
+    keeps its own channel (the ideal-sensor inverse of a demosaic), as the
+    JAX package's bench config 8 makes its mosaics."""
+    x = rgb_u8.astype(np.float32) / 255.0
+    raw = np.empty(x.shape[:-1], np.float32)
+    raw[..., 0::2, 0::2] = x[..., 0::2, 0::2, 0]
+    raw[..., 0::2, 1::2] = x[..., 0::2, 1::2, 1]
+    raw[..., 1::2, 0::2] = x[..., 1::2, 0::2, 1]
+    raw[..., 1::2, 1::2] = x[..., 1::2, 1::2, 2]
+    return raw
+
+
+def phase9_raw(torch, card, wrappers, t_start):
+    """RAW ingest (config 8: 600x400 b48 RGGB mosaics through
+    enhance_raw_batch, the ISP then K1) and the toolkit ops on the card.
+    Every check runs and prints before the first failure raises. Returns
+    the paths' (name, kernels, never) and their launches."""
+    from low_light_image_enhancement_tpu_torch import ops
+    from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+    from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
+    from low_light_image_enhancement_tpu_torch.io import codec
+    from low_light_image_enhancement_tpu_torch.ops.isp import DEFAULT_CCM
+    from low_light_image_enhancement_tpu_torch.pipeline import (
+        EnhancePipeline,
+        _isp_u8_hwc,
+    )
+
+    print(f"[9] ({time.perf_counter() - t_start:.0f} s) RAW (config 8) and "
+          "the toolkit ops")
+    dev = torch.device("cuda", 0)
+    all_k = tuple(wrappers)
+    paths, launches = [], {}
+    failed = []
+
+    def counted(name, kernels, run):
+        never = tuple(k for k in all_k if k not in kernels)
+        paths.append((name, kernels, never))
+        for wr in wrappers.values():
+            wr.launches = 0
+        out = run()
+        launches[name] = {k: wr.launches for k, wr in wrappers.items()}
+        return out
+
+    def bar(what, got, want):
+        try:
+            check_bar(what, delta_stats(got, want))
+        except AssertionError as e:
+            failed.append(str(e))
+
+    # config 8: 48 mosaics of 600x400 from 8 seeded synthetic lows, tiled
+    b, h, w = 48, 400, 600
+    lows, _ = synth_batch(8, h, w, seed=0)
+    raws = mosaic_from_rgb(np.tile(lows, (b // 8, 1, 1, 1)))
+    pipe = EnhancePipeline(PipelineConfig(), device="cuda")
+    cpu = EnhancePipeline(PipelineConfig(), device="cpu")
+    got = counted("9 raw config8", ("k1",),
+                  lambda: pipe.enhance_raw_batch(raws))
+    k1 = launches["9 raw config8"]["k1"]
+    print(f"  9a config 8 enhance_raw_batch 600x400 b48 on the card: "
+          f"{got.shape} {got.dtype}, K1 launches {k1}, K1's canvas form "
+          f"{launches['9 raw config8']['kc']}")
+    if k1 != 1 or got.shape != (b, h, w, 3) or got.dtype != np.uint8:
+        failed.append(f"9a config 8: {k1} K1 launches (not 1), "
+                      f"{got.shape} {got.dtype}")
+    # the 8 distinct mosaics against the CPU port (each image's ISP and
+    # enhance are its own)
+    bar("9a config 8 cuda vs cpu (the 8 distinct mosaics)", got[:8],
+        cpu.enhance_raw_batch(raws[:8]))
+    x = torch.from_numpy(raws).to(dev)
+    srgb = _isp_u8_hwc(x, None, DEFAULT_CCM, 1.0 / 2.2)
+    staged = pipe.enhance_batch_device(srgb)
+    fused = pipe.enhance_raw_batch_device(x)
+    same = torch.equal(staged, fused) and np.array_equal(
+        fused.cpu().numpy(), got)
+    print(f"  9a ISP u8 -> enhance_batch_device vs enhance_raw_batch: "
+          f"{'Δ 0' if same else 'DIFFERENT'}")
+    if not same:
+        failed.append("9a ISP u8 -> enhance_batch_device differs from "
+                      "enhance_raw_batch")
+    # a 12-bit sensor in u16 with DNs above its white level, explicit gains
+    u16 = np.round(raws[:8] * 4095.0).astype(np.uint16)
+    u16[:, ::7, ::5] = 5000
+    kw = dict(white_level=4095, wb_gains=(1.6, 1.0, 1.4))
+    bar("9a white_level 4095, wb_gains (1.6, 1, 1.4), u16 600x400 b8 "
+        "cuda vs cpu", pipe.enhance_raw_batch(u16, **kw),
+        cpu.enhance_raw_batch(u16, **kw))
+    # hybrid (the curve CNN, then K3), bf16 nets, on a small input
+    small = mosaic_from_rgb(synth_batch(2, 128, 192, seed=3)[0])
+    hyb = EnhancePipeline(PipelineConfig(method="hybrid"), device="cuda")
+    got_h = counted("9 raw hybrid", ("k3",),
+                    lambda: hyb.enhance_raw_batch(small))
+    p = psnr(got_h, EnhancePipeline(PipelineConfig(method="hybrid"),
+                                    device="cpu").enhance_raw_batch(small))
+    print(f"  9a --method hybrid enhance_raw_batch 192x128 b2 cuda vs cpu: "
+          f"PSNR {p:.2f} dB, K3 launches "
+          f"{launches['9 raw hybrid']['k3']}")
+    if p < 40.0:
+        failed.append(f"9a hybrid RAW PSNR {p:.2f} < 40 dB")
+    # spatial_shards=4: one card clamps it to the single-device path
+    sh = EnhancePipeline(PipelineConfig(spatial_shards=4), device="cuda")
+    got_s = counted("9 raw spatial_shards 4", ("k1",),
+                    lambda: sh.enhance_raw_batch(raws))
+    same = np.array_equal(got_s, got)
+    print(f"  9a spatial_shards=4 (one card: the single-device path) vs "
+          f"the default: {'Δ 0' if same else 'DIFFERENT'}, K1 launches "
+          f"{launches['9 raw spatial_shards 4']['k1']}")
+    if not same:
+        failed.append("9a spatial_shards=4 RAW differs")
+    # the CLI in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp) / "in.npy", Path(tmp) / "out.png"
+        np.save(src, np.round(raws[0] * 65535.0).astype(np.uint16))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "low_light_image_enhancement_tpu_torch.cli",
+             "enhance", "--raw", str(src), str(dst)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        ok = proc.returncode == 0 and dst.exists() and np.array_equal(
+            codec.decode_image(dst), pipe.enhance_raw(np.load(src)))
+        print(f"  9a llie-torch enhance --raw in.npy out.png: rc "
+              f"{proc.returncode} in {time.perf_counter() - t0:.1f} s, "
+              f"{'equal to' if ok else 'NOT equal to'} enhance_raw")
+        if not ok:
+            failed.append(f"9a llie-torch enhance --raw: rc "
+                          f"{proc.returncode} {proc.stderr[-2000:]}")
+
+    # 9b timings, device-resident: CUDA events around each call, median of
+    # 5 after a warm-up (the calls' host launches included)
+    isp_ms = median_ms(torch, lambda: _isp_u8_hwc(x, None, DEFAULT_CCM,
+                                                  1.0 / 2.2))
+    raw_ms = median_ms(torch, lambda: pipe.enhance_raw_batch_device(x))
+    k1_ms = median_ms(torch, lambda: pipe.enhance_batch_device(srgb))
+    print(f"  9b config 8 (600x400 b48) device-resident on {card}: ISP "
+          f"{isp_ms:.3f} ms, ISP + K1 {raw_ms:.3f} ms ({b * 1e3 / raw_ms:.1f}"
+          f" img/s), K1 alone on the ISP's u8 {k1_ms:.3f} ms "
+          f"({b * 1e3 / k1_ms:.1f} img/s); ISP {isp_ms / raw_ms:.1%}, K1 "
+          f"{k1_ms / raw_ms:.1%} of the RAW call")
+    del x, srgb, staged, fused
+
+    # 9c the toolkit ops at 1080p on the card against the CPU port
+    rng = np.random.default_rng(9)
+    a = rng.random((1, 3, 1080, 1920), dtype=np.float32) * 0.6
+    a2 = rng.random((1, 3, 1080, 1920), dtype=np.float32)
+
+    def on_cpu(fn, v):
+        return fn(torch.from_numpy(v)).numpy()
+
+    cases = [
+        ("rgb_to_hsv", ops.rgb_to_hsv, (a,)),
+        ("hsv_to_rgb", ops.hsv_to_rgb, (on_cpu(ops.rgb_to_hsv, a),)),
+        ("rgb_to_ycbcr", ops.rgb_to_ycbcr, (a,)),
+        ("ycbcr_to_rgb", ops.ycbcr_to_rgb, (on_cpu(ops.rgb_to_ycbcr, a),)),
+        ("rgb_to_hvi", ops.rgb_to_hvi, (a,)),
+        ("hvi_to_rgb", ops.hvi_to_rgb, (on_cpu(ops.rgb_to_hvi, a),)),
+        ("gaussian_blur", ops.gaussian_blur, (a,)),
+        ("bilateral_denoise", ops.bilateral_denoise, (a,)),
+        ("illumination_map", ops.illumination_map, (a,)),
+        ("retinex_enhance", ops.retinex_enhance, (a,)),
+        ("gamma_correct", lambda t: ops.gamma_correct(t, 0.45), (a,)),
+        ("fourier_amplitude_boost",
+         lambda t: ops.fourier_amplitude_boost(t, 1.5, preserve_dc=True),
+         (a,)),
+        ("amplitude_phase_swap", ops.amplitude_phase_swap, (a, a2)),
+        ("autocontrast", ops.autocontrast, (a,)),
+        ("equalize_hist", ops.equalize_hist, (a,)),
+        ("clahe", ops.clahe, (a,)),
+    ]
+    for name, fn, args in cases:
+        want = fn(*(torch.from_numpy(v) for v in args)).numpy()
+        dargs = [torch.from_numpy(v).to(dev) for v in args]
+        got = fn(*dargs).cpu().numpy()
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        ms = median_ms(torch, lambda: fn(*dargs))
+        ok = got.shape == want.shape and err <= TOOLKIT_BARS[name]
+        print(f"  9c {name} 1080p cuda vs cpu: max |d| {err:.3g} (bar "
+              f"{TOOLKIT_BARS[name]:g}) {'ok' if ok else 'FAILED'}, "
+              f"{ms:.3f} ms on {card}")
+        if not ok:
+            failed.append(f"9c {name}: max |d| {err:.3g} > "
+                          f"{TOOLKIT_BARS[name]:g}")
+    # autocontrast on a 4K frame: 24.9M values, past torch.quantile's 2**24
+    big = rng.random((1, 3, 2160, 3840), dtype=np.float32)
+    want = ops.autocontrast(torch.from_numpy(big)).numpy()
+    got = ops.autocontrast(torch.from_numpy(big).to(dev)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    print(f"  9c autocontrast 2160x3840 (24.9M values) cuda vs cpu: max |d| "
+          f"{err:.3g}")
+    if err > TOOLKIT_BARS["autocontrast"]:
+        failed.append(f"9c autocontrast 4K: max |d| {err:.3g}")
+    if failed:
+        raise AssertionError("phase 9 failed: " + "; ".join(failed))
     return paths, launches
 
 
@@ -2841,6 +3069,12 @@ def main() -> int:
     for name, kernels, _ in par_paths:
         for k in kernels:
             total[k] += par_launches[name][k]
+    raw_paths, raw_launches = phase9_raw(torch, card, wrappers, t_start)
+    print(f"  phase 9 launches per path: {raw_launches}")
+    check_launches(raw_paths, raw_launches)
+    for name, kernels, _ in raw_paths:
+        for k in kernels:
+            total[k] += raw_launches[name][k]
 
     src = "low_light_image_enhancement_tpu_torch/kernels/csrc/"
     tpu = "low_light_image_enhancement_tpu/kernels/"

@@ -14,6 +14,7 @@ Public API::
     ve = llt.VideoEnhancer(llt.PipelineConfig(), alpha=0.3, device="cuda")
     out = ve.process(frame_u8_hwc)               # temporally smoothed
     pipe.enhance_file("dark.png", "bright.png")  # io.codec: PIL or zlib PNG
+    out = pipe.enhance_raw(mosaic_u16)           # RGGB Bayer: ISP, then enhance
     for out in pipe.enhance_stream(frames, staging="canvas"):
         ...                                      # pinned prefetch queue
     mesh = llt.make_mesh(n_data=1, n_spatial=4)  # cuda:0..3, one process
@@ -33,6 +34,12 @@ of devices: ``PipelineConfig(spatial_shards=n)`` (config 5) and
 ``data_shards``, ``enhance_spatial_sharded``, the sharded video enhancer,
 and the trainers' ``mesh`` and ``spatial_batch`` (``train``), with data
 parallelism across processes in ``parallel.distributed``.
+``EnhancePipeline.enhance_raw``/``enhance_raw_batch`` take RGGB Bayer
+mosaics through the ISP (demosaic, white balance, CCM, gamma), then the
+same u8 path (K1 for retinex). ``ops`` holds the plain toolkit ops, the
+JAX package's ``ops`` name for name: colour spaces (HSV, YCbCr, HVI),
+filters and denoise, retinex and gamma, the ISP, the Fourier ops,
+autocontrast, histogram equalization and CLAHE.
 """
 
 from low_light_image_enhancement_tpu_torch.config import (

@@ -1,11 +1,14 @@
-"""Command-line interface of the port: ``llie-torch enhance | eval | serve |
-video | train`` (``bench`` is not ported yet and exits non-zero).
+"""Command-line interface of the port: ``llie-torch enhance [--raw] | eval |
+serve | video | train`` (``bench`` is not ported yet and exits non-zero).
 
 The port of the JAX package's ``cli.py`` (``llie``, which stays the JAX
 package's), with the same config flags and ``--device cuda|cpu`` (default
 ``cuda``: every entry point runs on the card unless asked for the CPU).
 ``serve`` fronts the micro-batching EnhanceServer over HTTP
-(http_server.py); ``video`` runs the temporally stable frame-sequence path
+(http_server.py); ``enhance --raw`` takes an RGGB Bayer mosaic (``.npy``;
+16-bit PNG or PGM where PIL imports) through the ISP and the pipeline
+(``EnhancePipeline.enhance_raw``); ``video`` runs the temporally stable
+frame-sequence path
 (video.py), one stream or, with ``--streams``, one per directory; ``train``
 trains the curve (zero-reference or paired, also hybrid), fcn or decom net
 (train.py).
@@ -28,7 +31,6 @@ from low_light_image_enhancement_tpu_torch.config import (
 # what is not ported yet, and the ROADMAP.md item (Queue 1) that ports it
 NOT_PORTED = {
     "bench": "the port's benchmark (ROADMAP.md Queue 1, item 1)",
-    "enhance --raw": "RAW ingest (ROADMAP.md Queue 1, item 4)",
 }
 
 
@@ -111,10 +113,73 @@ def _not_ported(what: str) -> int:
     return 2
 
 
+def _load_raw_mosaic(path: str):
+    """Load a (H, W) Bayer mosaic: a .npy (u8, u16 or float, or int16/int32
+    with values in [0, 65535], the common RAW container dtypes, converted
+    to u16), or, where PIL imports, a single-channel image file (16-bit
+    PNG or PGM load as u16 through PIL's modes I and I;16)."""
+    import numpy as np
+
+    from low_light_image_enhancement_tpu_torch.io import codec
+
+    if path.endswith(".npy"):
+        arr = np.load(path)
+        if np.issubdtype(arr.dtype, np.signedinteger):
+            # int16/int32 containers hold u16 sensor DNs: converted when
+            # the values fit, refused otherwise (the float branch of
+            # enhance_raw would clip DNs to [0, 1]: an all-white result)
+            if arr.size and (arr.min() < 0 or arr.max() > 65535):
+                raise ValueError(
+                    f"--raw .npy {path} has {arr.dtype} values outside "
+                    f"[0, 65535] ({arr.min()}..{arr.max()}); convert to "
+                    "uint16 (with the sensor's white level) first")
+            arr = arr.astype(np.uint16)
+        return arr
+    if codec.Image is None:
+        raise ValueError(
+            f"--raw {path}: reading a mosaic image file needs PIL, which "
+            "is not installed here; save the mosaic as a .npy (u8, u16 or "
+            "float) instead")
+    img = codec.Image.open(path)
+    if img.mode not in ("L", "I", "I;16"):
+        raise ValueError(
+            f"--raw expects a single-channel mosaic, got mode {img.mode!r} "
+            f"from {path}; use a .npy, 16-bit PNG, or PGM file")
+    arr = np.asarray(img)
+    if arr.dtype == np.int32:   # PIL mode "I": 16-bit data, in range
+        arr = arr.astype(np.uint16)
+    return arr
+
+
+def _wb_gains_arg(s: str):
+    """argparse type of --wb-gains: 'R,G,B' floats -> (r, g, b), a parser
+    error (not a traceback) on malformed input."""
+    parts = s.split(",")
+    try:
+        vals = tuple(float(g) for g in parts)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--wb-gains wants three comma-separated numbers, got {s!r}")
+    if len(vals) != 3:
+        raise argparse.ArgumentTypeError(
+            f"--wb-gains wants exactly three values (R,G,B), got "
+            f"{len(vals)} in {s!r}")
+    return vals
+
+
 def cmd_enhance(args) -> int:
+    pipe = _pipeline(args)
     if args.raw:
-        return _not_ported("enhance --raw")
-    _pipeline(args).enhance_file(args.input, args.output)
+        from low_light_image_enhancement_tpu_torch.io.codec import (
+            encode_image,
+        )
+
+        out = pipe.enhance_raw(_load_raw_mosaic(args.input),
+                               wb_gains=args.wb_gains,
+                               white_level=args.white_level)
+        encode_image(out, args.output)
+    else:
+        pipe.enhance_file(args.input, args.output)
     print(f"wrote {args.output}")
     return 0
 
@@ -364,7 +429,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("input")
     p.add_argument("output")
     p.add_argument("--raw", action="store_true",
-                   help="input is a Bayer mosaic (not ported yet)")
+                   help="input is an RGGB Bayer mosaic (.npy; 16-bit PNG or "
+                        "PGM where PIL imports): the ISP (demosaic, white "
+                        "balance, CCM) on the device, then the pipeline")
+    p.add_argument("--wb-gains", default=None, metavar="R,G,B",
+                   type=_wb_gains_arg,
+                   help="white-balance gains for --raw (default: per-image "
+                        "gray-world)")
+    p.add_argument("--white-level", type=float, default=None,
+                   help="full-scale mosaic value for --raw uint16 input "
+                        "(e.g. 4095 for 12-bit sensors; default 65535)")
     _add_config_args(p)
     p.set_defaults(fn=cmd_enhance)
 

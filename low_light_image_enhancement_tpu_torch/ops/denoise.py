@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from low_light_image_enhancement_tpu_torch.ops.filters import roll2d, shift2d
 from low_light_image_enhancement_tpu_torch.ops.guided import (
     guided_core_shift,
     guided_joint_core_shift,
@@ -147,3 +148,27 @@ def denoise_planar(x, inv2s2, strength, shift_fn, kind: str = "exp",
         return core1(x, inv2s2, strength, shift_fn, kind)
     planes = [x[..., c, :, :] for c in range(3)]
     return torch.stack(corej(planes, inv2s2, strength, shift_fn, kind), dim=-3)
+
+
+def bilateral_denoise(
+    x: torch.Tensor,
+    sigma_range: float = 0.12,
+    strength: float = 0.5,
+    mode: str = "clamp",
+    kind: str = "exp",
+    guide: str = "perchannel",
+    taps: str = "full",
+) -> torch.Tensor:
+    """Edge-preserving 3x3 filter over the last two axes, blended by
+    ``strength`` (0 returns ``x`` itself). Any planar layout
+    (``guide="luma"`` needs the channel axis at -3).
+
+    mode="clamp": edge-replicate boundary (the public op's).
+    mode="wrap":  circular boundary, for inputs padded beforehand.
+    kind: the range weight, "exp" or "epan"; guide: "perchannel" weights or
+    "luma" (the joint bilateral); taps: "full" 3x3 or "sep" (3+3)."""
+    if strength == 0.0:
+        return x
+    shift_fn = shift2d if mode == "clamp" else roll2d
+    inv2s2 = 1.0 / (2.0 * sigma_range * sigma_range)
+    return denoise_planar(x, inv2s2, strength, shift_fn, kind, guide, taps)

@@ -107,3 +107,13 @@ def separable_blur(x, radius, sigma, shift_fn):
         term = t * shift_fn(acc, 0, j - radius)
         out = term if out is None else out + term
     return out
+
+
+def gaussian_blur(x: torch.Tensor, radius: int = 2, sigma: float = 1.0,
+                  mode: str = "clamp") -> torch.Tensor:
+    """Separable Gaussian blur over the last two axes.
+
+    mode="clamp": edge-replicate boundary (the public op's).
+    mode="wrap":  circular boundary, for inputs padded beforehand."""
+    shift_fn = shift2d if mode == "clamp" else roll2d
+    return separable_blur(x, radius, sigma, shift_fn)

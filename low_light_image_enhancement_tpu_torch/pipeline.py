@@ -4,9 +4,11 @@ u8 HWC in, u8 HWC out; the layout-persistent entry points take planar u8
 (``enhance_batch_device_planar``) or the padded planar canvas
 (``enhance_batch_device_canvas``, staged on the host by ``stage_canvas``),
 ``enhance_stream`` runs a stream of frames through a pinned prefetch queue
-and ``enhance_file`` a file. ``device`` is explicit: a pipeline on ``"cuda"``
-runs the CUDA kernels (K1 for retinex; the curve CNN and K3 for
-curve/hybrid, at every ``curve_downsample``; the fcn or decom net and K5
+and ``enhance_file`` a file; ``enhance_raw``/``enhance_raw_batch`` take RGGB
+Bayer mosaics through the ISP (``ops.isp``), then the same u8 path.
+``device`` is explicit: a pipeline on ``"cuda"`` runs the CUDA kernels
+(K1 for retinex; the curve CNN and K3 for curve/hybrid, at every
+``curve_downsample``; the fcn or decom net and K5
 for their denoise tail; every method with the bilateral or the guided
 tail and any blur radius; the nets' convs through ``F.conv2d``, or under
 ``conv_impl="pallas"`` through K6 and ``"cascade"`` through K7), one on
@@ -65,6 +67,14 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
     resolve_weights,
 )
+from low_light_image_enhancement_tpu_torch.ops.colorspace import quantize_u8
+from low_light_image_enhancement_tpu_torch.ops.isp import (
+    DEFAULT_CCM,
+    color_correction,
+    demosaic_bilinear_rggb,
+    gray_world_gains,
+    white_balance,
+)
 
 __all__ = ["pad_planar", "pad_block", "pad_block_planar", "resolve_device",
            "params_on", "EnhancePipeline", "enhance", "enhance_batch"]
@@ -112,6 +122,50 @@ def pad_block_planar(x: torch.Tensor, cfg: PipelineConfig):
 def pad_block(imgs_u8: torch.Tensor, cfg: PipelineConfig):
     """(B, H, W, 3) u8 -> ``pad_block_planar``'s block and halo."""
     return pad_block_planar(imgs_u8.permute(0, 3, 1, 2), cfg)
+
+
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """The source index of each position of a ``pad``-wide reflect pad of
+    an axis of ``n`` (``np.pad(mode="reflect")``, any pad)."""
+    i = torch.arange(-pad, n + pad, device=device)
+    p = 2 * (n - 1)
+    r = torch.remainder(i, p)
+    return torch.where(r >= n, p - r, r)
+
+
+def _isp_u8_hwc(raws: torch.Tensor, wb_gains, ccm, raw_gamma: float,
+                valid_hw=None) -> torch.Tensor:
+    """The ISP front end: (B, H, W) f32 RGGB mosaics -> (B, H, W, 3) u8
+    sRGB, on the mosaics' device.
+
+    Reflect-pads 2 px a side before the demosaic and crops after it: the
+    roll-based interpolation wraps at the edges, and the reflection keeps
+    the Bayer phase (-k mirrors +k, the same parity), so the borders come
+    out exact. Gray-world gains (``wb_gains=None``) are taken on the cropped
+    demosaic; with ``valid_hw=(h, w)`` only on the real image region of a
+    bucket-padded mosaic (a masked sum over its pixel count)."""
+    _, h, w = raws.shape
+    dev = raws.device
+    rp = raws.index_select(-2, _reflect_index(h, 2, dev)).index_select(
+        -1, _reflect_index(w, 2, dev))
+    rgb = demosaic_bilinear_rggb(rp)[..., 2:-2, 2:-2]
+    if wb_gains is None:
+        if valid_hw is None:
+            gains = gray_world_gains(rgb)   # (B, 3): per-image auto-WB
+        else:
+            mask = ((torch.arange(h, device=dev)[:, None] < valid_hw[0])
+                    & (torch.arange(w, device=dev)[None, :] < valid_hw[1])
+                    ).to(rgb.dtype)
+            cnt = float(max(valid_hw[0] * valid_hw[1], 1))
+            means = torch.sum(rgb * mask, dim=(-2, -1)) / cnt
+            gains = means[..., 1:2] / torch.clamp(means, min=1e-6)
+        gains = gains.reshape(gains.shape[:-1] + (3, 1, 1))
+        rgb = torch.clamp(rgb * gains, 0.0, 1.0)
+    else:
+        rgb = white_balance(rgb, wb_gains)
+    rgb = color_correction(rgb, ccm)
+    rgb = torch.clamp(rgb, 0.0, 1.0) ** raw_gamma
+    return quantize_u8(rgb).permute(0, 2, 3, 1).contiguous()
 
 
 def _enhance_u8_batch(
@@ -322,17 +376,24 @@ class EnhancePipeline:
         return _enhance_u8_planar(imgs_pu8, self.model_params,
                                   cfg=self.config)
 
+    def _pad_batch(self, arr: np.ndarray) -> np.ndarray:
+        """Under ``data_shards``, the host batch with its last item
+        replicated up to a multiple of the mesh's size."""
+        b = arr.shape[0]
+        if self.config.data_shards > 1:
+            n = self._mesh(self.config.data_shards, 1).shape["data"]
+            if b % n:
+                arr = np.concatenate(
+                    [arr, np.repeat(arr[-1:], n - b % n, axis=0)])
+        return arr
+
     def enhance_batch(self, imgs_u8) -> np.ndarray:
         """(B, H, W, 3) u8 -> (B, H, W, 3) u8 enhanced (host numpy)."""
         imgs_u8 = np.ascontiguousarray(imgs_u8)
         if imgs_u8.ndim != 4 or imgs_u8.shape[-1] != 3:
             raise ValueError(f"expected RGB (B,H,W,3), got {imgs_u8.shape}")
         b, h, w, _ = imgs_u8.shape
-        if self.config.data_shards > 1:
-            n = self._mesh(self.config.data_shards, 1).shape["data"]
-            if b % n:   # replicate the last image up to a multiple
-                imgs_u8 = np.concatenate(
-                    [imgs_u8, np.repeat(imgs_u8[-1:], n - b % n, axis=0)])
+        imgs_u8 = self._pad_batch(imgs_u8)
         hb, wb = self._bucketed(h, w)
         if (hb, wb) != (h, w):
             imgs_u8 = np.pad(imgs_u8, ((0, 0), (0, hb - h), (0, wb - w),
@@ -353,6 +414,105 @@ class EnhancePipeline:
         """Decode an image file, enhance it, encode the result (the format
         from ``out_path``'s extension; ``io.codec``)."""
         encode_image(self.enhance(decode_image(in_path)), out_path)
+
+    # ------------------------------------------------------------------ #
+    # RAW (Bayer) ingest: the ISP, then the standard u8 path
+    # ------------------------------------------------------------------ #
+
+    @torch.inference_mode()
+    def enhance_raw_batch_device(self, raws: torch.Tensor, wb_gains=None,
+                                 ccm=None, raw_gamma: float = 1.0 / 2.2,
+                                 valid_hw=None) -> torch.Tensor:
+        """(B, H, W) float32 RGGB mosaics in [0, 1] on the pipeline's
+        device -> (B, H, W, 3) u8 enhanced there (no host sync): the ISP
+        (``_isp_u8_hwc``), then ``enhance_batch_device`` on its u8 output,
+        so the sharded configs take their own dispatch. The arguments are
+        ``enhance_raw_batch``'s after its host-side checks; ``valid_hw``
+        restricts the gray-world statistics to a bucket-padded mosaic's
+        real region."""
+        if raws.ndim != 3 or raws.dtype != torch.float32:
+            raise ValueError(f"expected (B, H, W) float32 mosaics, got "
+                             f"{tuple(raws.shape)} {raws.dtype}")
+        if raws.device.type != self.device.type:
+            raise ValueError(f"input on {raws.device}, pipeline on "
+                             f"{self.device}")
+        srgb = _isp_u8_hwc(raws, wb_gains, DEFAULT_CCM if ccm is None
+                           else ccm, float(raw_gamma), valid_hw)
+        return self.enhance_batch_device(srgb)
+
+    def enhance_raw_batch(self, raws, wb_gains=None, ccm=None,
+                          raw_gamma: float = 1.0 / 2.2,
+                          white_level: Optional[float] = None) -> np.ndarray:
+        """(B, H, W) RGGB Bayer mosaics -> (B, H, W, 3) u8 enhanced (host
+        numpy): the ISP front end (bilinear demosaic, white balance, CCM,
+        display gamma; ``ops.isp``) on the device, then the standard
+        enhance of its u8 output.
+
+        Args:
+          raws: uint16 (divided by ``white_level``, default 65535, and
+            clipped at it), uint8 (/255), or float (clipped to [0, 1]).
+            Other integer dtypes raise: int16/int32 RAW containers must be
+            converted first (the CLI's ``_load_raw_mosaic`` does so for
+            data in the 16-bit range), since clipping integer DNs to [0, 1]
+            would give an all-white result. H and W must be even (RGGB).
+          wb_gains: (3,) per-channel gains; None: per-image gray-world gains
+            on the device, over the real image region only.
+          ccm: 3x3 colour-correction matrix; None: ``ops.isp.DEFAULT_CCM``.
+          raw_gamma: the display gamma after the CCM (1.0 turns it off).
+          white_level: the uint16 full-scale value (4095 for a 12-bit
+            sensor stored in u16); for uint16 input only, raises otherwise.
+
+        ``bucket`` (the constructor's) applies here too: mosaics are
+        reflect-padded (even offsets, which keep the Bayer phase) up to
+        multiples of it, rounded up to even, and the output cropped back.
+        """
+        raws = np.asarray(raws)
+        if raws.ndim != 3:
+            raise ValueError(f"expected (B, H, W) Bayer mosaics, "
+                             f"got {raws.shape}")
+        b, h, w = raws.shape
+        if h % 2 or w % 2:
+            raise ValueError(f"RGGB mosaic needs even H and W, got {h}x{w}")
+        if white_level is not None and raws.dtype != np.uint16:
+            raise ValueError(
+                f"white_level applies to uint16 mosaics; got {raws.dtype} "
+                "(uint8 is always /255, float is taken as already in [0, 1])")
+        if raws.dtype == np.uint16:
+            scale = float(white_level) if white_level else 65535.0
+            # clipped at the white level: a 12-bit sensor's occasional DN
+            # above it saturates instead of skewing the gray-world means
+            raws = np.clip(raws.astype(np.float32) / scale, 0.0, 1.0)
+        elif raws.dtype == np.uint8:
+            raws = raws.astype(np.float32) / 255.0
+        elif np.issubdtype(raws.dtype, np.floating):
+            raws = np.clip(raws.astype(np.float32), 0.0, 1.0)
+        else:
+            raise ValueError(
+                f"unsupported mosaic dtype {raws.dtype}: use uint16 (with "
+                "white_level for sub-16-bit sensors), uint8, or float in "
+                "[0, 1]; integer RAW containers (int16/int32) must be "
+                "converted explicitly so DNs aren't clipped to [0, 1]")
+        valid_hw = None
+        if self.bucket:
+            g = self.bucket + self.bucket % 2   # even: keeps the RGGB phase
+            hb, wb = -(-h // g) * g, -(-w // g) * g
+            if (hb, wb) != (h, w):
+                raws = np.pad(raws, ((0, 0), (0, hb - h), (0, wb - w)),
+                              mode="reflect")
+                valid_hw = (h, w)
+        x = torch.from_numpy(np.ascontiguousarray(self._pad_batch(raws)))
+        out = self.enhance_raw_batch_device(
+            x.to(self.device), wb_gains=wb_gains, ccm=ccm,
+            raw_gamma=raw_gamma, valid_hw=valid_hw)
+        return out.cpu().numpy()[:b, :h, :w]
+
+    def enhance_raw(self, raw, **kwargs) -> np.ndarray:
+        """(H, W) RGGB Bayer mosaic -> (H, W, 3) u8 enhanced RGB; the
+        dtypes and keywords of ``enhance_raw_batch``."""
+        raw = np.asarray(raw)
+        if raw.ndim != 2:
+            raise ValueError(f"expected (H, W) Bayer mosaic, got {raw.shape}")
+        return self.enhance_raw_batch(raw[None], **kwargs)[0]
 
     # ------------------------------------------------------------------ #
     # Canvas I/O: the device step is K1's canvas form alone

@@ -55,7 +55,7 @@ def test_cli_eval_json_report(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["bench"],
-                                  ["enhance", "a.png", "b.png", "--raw"]])
+                                  ["bench", "--batch", "8"]])
 def test_cli_not_ported_exits_nonzero(argv, capsys):
     assert cli.main(argv) == 2
     assert "ROADMAP.md" in capsys.readouterr().err

@@ -5,7 +5,9 @@ cascade arms among them), CPU video enhancers, the HWC entry point,
 enhance_file through the zlib codec, enhance_stream, a CPU train step and
 a checkpoint save and restore, and the parallel package (config 5's
 sharded pipeline, the sharded video enhancer and a data-parallel step on
-CPU meshes); chip_smoke.py names neither."""
+CPU meshes); in the same way RAW ingest (enhance_raw, also sharded, and
+llie-torch enhance --raw on a .npy) and the toolkit ops; chip_smoke.py
+names neither."""
 
 import subprocess
 import sys
@@ -26,12 +28,23 @@ from low_light_image_enhancement_tpu_torch.kernels import tiled_denoise as td
 
 ROOT = Path(__file__).resolve().parents[1]
 
-_PROGRAM = r"""
+_BLOCKED = r"""
 import sys
 preloaded = set(sys.modules)
 sys.modules["jax"] = None
 sys.modules["low_light_image_enhancement_tpu"] = None
 sys.modules["PIL"] = None
+"""
+
+_LOADED = r"""
+loaded = sorted(m for m in set(sys.modules) - preloaded
+                if m.startswith(("jax", "low_light_image_enhancement_tpu."))
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
+_PROGRAM = _BLOCKED + r"""
 import numpy as np
 import torch
 import low_light_image_enhancement_tpu_torch as llt
@@ -109,17 +122,58 @@ assert (sve.process(lows[0]) == llt.VideoEnhancer(
 params, opt, m = train.make_train_step(tcfg, parallel.make_mesh(
     2, 1, ["cpu", "cpu"]))(params, opt, batch)
 assert int(opt["count"]) == 2 and distributed.process_group_size() == 0
-loaded = sorted(m for m in set(sys.modules) - preloaded
-                if m.startswith(("jax", "low_light_image_enhancement_tpu."))
-                and sys.modules[m] is not None)
-assert not loaded, loaded
-print("OK")
-"""
+""" + _LOADED
+
+# the slices' programs, each run in a fresh interpreter with jax, the JAX
+# package and PIL blocked
+_SLICES = {
+    "raw": r"""
+import tempfile
+from pathlib import Path
+import numpy as np
+import low_light_image_enhancement_tpu_torch as llt
+from low_light_image_enhancement_tpu_torch import cli
+from low_light_image_enhancement_tpu_torch.io import codec
+assert codec.Image is None
+raws = np.random.default_rng(0).integers(0, 4096, (2, 24, 40), np.uint16)
+pipe = llt.EnhancePipeline(device="cpu")
+out = pipe.enhance_raw_batch(raws, white_level=4095)
+assert out.shape == (2, 24, 40, 3) and out.dtype == np.uint8
+assert (pipe.enhance_raw(raws[0], white_level=4095) == out[0]).all()
+sharded = llt.EnhancePipeline(llt.PipelineConfig(spatial_shards=2),
+                              device="cpu")
+assert (sharded.enhance_raw_batch(raws, white_level=4095) == out).all()
+with tempfile.TemporaryDirectory() as tmp:
+    src, dst = Path(tmp) / "m.npy", Path(tmp) / "o.png"
+    np.save(src, raws[0])
+    assert cli.main(["enhance", "--raw", str(src), str(dst), "--device",
+                     "cpu", "--white-level", "4095"]) == 0
+    assert (llt.decode_image(dst) == out[0]).all()
+""",
+    "toolkit": r"""
+import torch
+from low_light_image_enhancement_tpu_torch import ops
+x = torch.rand(1, 3, 24, 40)
+for y in (ops.clahe(x), ops.autocontrast(x), ops.raw_to_srgb(x[:, 0]),
+          ops.hvi_to_rgb(ops.rgb_to_hvi(x)),
+          ops.fourier_amplitude_boost(x)):
+    assert y.shape[-2:] == x.shape[-2:] and torch.isfinite(y).all()
+""",
+}
 
 
 def test_port_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize("slice_", sorted(_SLICES))
+def test_port_slice_runs_without_jax(slice_):
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED + _SLICES[slice_] + _LOADED],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
 
