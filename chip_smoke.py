@@ -33,7 +33,10 @@ data-parallel pipeline (K1) and training steps, and a process group.
 RAW ingest (config 8): RGGB mosaics through enhance_raw_batch (the ISP,
 then K1; hybrid: K3), also under spatial_shards and from llie-torch
 enhance --raw; and the toolkit ops (ops: colour spaces, filters, retinex,
-gamma, Fourier, contrast) on the card.
+gamma, Fourier, contrast) on the card. The nets' conv arms gemm, packed and
+packed12 (hybrid then K3, the presets then K5), the utils (checked,
+profile_trace, the per-source kernel build) and a spatial mesh spanning
+two processes (config 5, curve).
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -193,7 +196,25 @@ Phases (each raises on failure, so the script exits non-zero):
      events around each call, median of 5); 9c each toolkit op at 1080p
      against the CPU port within its CPU bar (FFT ops 1e-4), with its ms,
      and autocontrast on a 2160x3840 frame (past torch.quantile's limit).
-     Each path's launch counts as in 8.
+     Each path's launch counts as in 8;
+  10. the conv_impl arms of ops/patch_conv.py and the utils: 10a hybrid,
+     quality_fast (fcn) and quality (decom, guided K5) with the shipped
+     weights in bf16 under gemm, packed and packed12, and hybrid packed in
+     f32, at 600x400 b48 against the card's xla arm on the same weights
+     (f32 the u8 bar, bf16 PSNR >= 40 dB), then at 192x128 b2 against the
+     CPU, each one K3 (hybrid) or K5 (the presets) launch a call and no
+     other kernel; 10b each arm's ms a call and img/s beside xla and
+     pallas (cascade for fcn), CUDA events, median of 5; 10c checked
+     raising on a NaN made on the card and passing K1, profile_trace of
+     one enhance_batch_device call in stage("enhance") naming the stage
+     and K1's kernel, the kernel library's build (objects compiled and
+     reused) and a rebuild with one source changed; 10d two processes on
+     cuda:0 over gloo, each holding its rows of a spatial mesh spanning
+     both (halos crossing the processes): config 5 at 2160x3840 b1 on 2 x
+     4 shards, Δ 0 against the same mesh in one process and the
+     single-device pipeline, and curve at 1080p on 2 x 2, Δ 0 against the
+     mesh in one process and PSNR >= 40 dB against the single device; the
+     processes load the library the parent built.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -1297,6 +1318,342 @@ def phase9_raw(torch, card, wrappers, t_start):
     return paths, launches
 
 
+# ------------------------------------------------------------ phase 10 --- #
+
+# 10d: one of two processes that share cuda:0 over gloo (NCCL refuses two
+# ranks on one device), each holding its rows of a spatial mesh that spans
+# both; argv: rank, port. Prints one line "RESULT {json}".
+PHASE10D_CHILD = r"""
+import json, math, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+pid, port = int(sys.argv[1]), int(sys.argv[2])
+from low_light_image_enhancement_tpu_torch.blocks import block_geometry
+from low_light_image_enhancement_tpu_torch.config import (
+    PRESETS, PipelineConfig)
+from low_light_image_enhancement_tpu_torch.data.synth_device import (
+    synth_pair_batch)
+from low_light_image_enhancement_tpu_torch.kernels import _build
+from low_light_image_enhancement_tpu_torch.ops.colorspace import quantize_u8
+from low_light_image_enhancement_tpu_torch.parallel import (
+    enhance_spatial_sharded, make_mesh)
+from low_light_image_enhancement_tpu_torch.parallel.distributed import (
+    initialize_distributed)
+from low_light_image_enhancement_tpu_torch.pipeline import EnhancePipeline
+
+initialize_distributed(f"127.0.0.1:{port}", num_processes=2, process_id=pid,
+                       device="cuda", backend="gloo")
+_build.load_library()
+dev = torch.device("cuda", 0)
+res = {"pid": pid, "build": dict(_build.LAST_BUILD)}
+gen = torch.Generator(device=dev)
+
+
+def planar_u8(h, w, seed):
+    low, _ = synth_pair_batch(gen.manual_seed(seed), 1, h, w, dev)
+    return quantize_u8(low)
+
+
+def cross(name, cfg, params, x, n_sp, hl):
+    # this process's rows of the mesh that spans both, against the same
+    # mesh in one process and the single-device pipeline
+    k = n_sp // 2
+    mine = slice(pid * k * hl, min((pid + 1) * k * hl, x.shape[-2]))
+    mesh = make_mesh(1, n_sp, [dev] * k)
+    part = x[:, :, mine].contiguous()
+    got = enhance_spatial_sharded(part, cfg, mesh, params)
+    one = enhance_spatial_sharded(x, cfg, make_mesh(1, n_sp, [dev] * n_sp),
+                                  params)[:, :, mine]
+    single = EnhancePipeline(cfg.replace(spatial_shards=1), device="cuda",
+                             model_params=params)
+    want = single.enhance_batch_device(
+        x.permute(0, 2, 3, 1).contiguous()).permute(0, 3, 1, 2)[:, :, mine]
+    d = (got.int() - want.int()).abs()
+    mse = ((got.double() - want.double()) ** 2).mean().item()
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enhance_spatial_sharded(part, cfg, mesh, params)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    res[name] = {
+        "rows": [mine.start, mine.stop], "shape": list(got.shape),
+        "vs_one_process_max": int((got.int() - one.int()).abs().max()),
+        "vs_single_max": int(d.max()),
+        "vs_single_share": float((d > 0).float().mean()),
+        "vs_single_psnr": (float("inf") if mse == 0
+                           else 10 * math.log10(255.0 ** 2 / mse)),
+        "ms_median_of_3": sorted(times[1:])[1]}
+
+
+cfg5 = PRESETS["config5_4k_sharded"]
+h, w = 2160, 3840
+cross("config5 2160x3840 b1 2x4", cfg5, None, planar_u8(h, w, 10), 8,
+      -(-math.ceil(h / 8) // 8) * 8)
+curve = PipelineConfig(method="curve")
+params = EnhancePipeline(curve, device="cuda").model_params
+cross("curve 1080x1920 b1 2x2", curve, params, planar_u8(1080, 1920, 11), 4,
+      block_geometry(curve, 1080, 1920, n_shards=4)[0])
+print("RESULT " + json.dumps(res), flush=True)
+"""
+
+
+# 10c: one enhance_batch_device call of the default config (K1) inside
+# stage("enhance") under profile_trace; argv: the trace's directory
+PHASE10C_CHILD = r"""
+import sys
+import torch
+from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+from low_light_image_enhancement_tpu_torch.pipeline import EnhancePipeline
+from low_light_image_enhancement_tpu_torch.utils import profile_trace, stage
+
+dev = torch.device("cuda", 0)
+x = torch.randint(0, 80, (8, 400, 600, 3), dtype=torch.uint8, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(22))
+pipe = EnhancePipeline(PipelineConfig(), device="cuda")
+pipe.enhance_batch_device(x)
+torch.cuda.synchronize()
+with profile_trace(sys.argv[1]):
+    with stage("enhance"):
+        pipe.enhance_batch_device(x)
+    torch.cuda.synchronize()
+"""
+
+
+def phase10_conv_arms_utils(torch, card, wrappers, t_start):
+    """The conv_impl arms gemm, packed and packed12 (ops/patch_conv.py) on
+    the card at full width, their times beside xla/pallas/cascade, the
+    utils (checked, profile_trace, stage, the per-source build) and halos
+    across two processes. Every check runs and prints before the first
+    failure raises. Returns the paths' (name, kernels, never) and their
+    launches."""
+    import socket
+
+    from low_light_image_enhancement_tpu_torch.config import (
+        PRESETS,
+        PipelineConfig,
+    )
+    from low_light_image_enhancement_tpu_torch.data.synth_device import (
+        synth_pair_batch,
+    )
+    from low_light_image_enhancement_tpu_torch.kernels import _build
+    from low_light_image_enhancement_tpu_torch.kernels import (
+        fused_enhance as fe,
+    )
+    from low_light_image_enhancement_tpu_torch.ops.colorspace import (
+        quantize_u8,
+    )
+    from low_light_image_enhancement_tpu_torch.pipeline import (
+        EnhancePipeline,
+    )
+    from low_light_image_enhancement_tpu_torch.utils import (
+        profile_trace,
+        stage,
+    )
+    from low_light_image_enhancement_tpu_torch.utils.debug import checked
+
+    print(f"[10] ({time.perf_counter() - t_start:.0f} s) the conv arms "
+          "gemm/packed/packed12, the utils, halos across processes")
+    dev = torch.device("cuda", 0)
+    all_k = tuple(wrappers)
+    paths, launches = [], {}
+    failed = []
+    gen = torch.Generator(device=dev)
+
+    def counted(name, kernels, run):
+        never = tuple(k for k in all_k if k not in kernels)
+        paths.append((name, kernels, never))
+        for wr in wrappers.values():
+            wr.launches = 0
+        out = run()
+        launches[name] = {k: wr.launches for k, wr in wrappers.items()}
+        return out
+
+    def frames_u8(b, h, w, seed):
+        low, _ = synth_pair_batch(gen.manual_seed(seed), b, h, w, dev)
+        return quantize_u8(low).permute(0, 2, 3, 1).contiguous()
+
+    def bar(what, got, want, f32):
+        """float32 nets: the u8 bar; bf16 nets: PSNR >= 40 dB."""
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        if f32:
+            try:
+                check_bar(what, delta_stats(got, want))
+            except AssertionError as e:
+                failed.append(str(e))
+            return
+        st = delta_stats(got, want)
+        p = psnr(got, want)
+        print(f"  {what}: PSNR {p:.2f} dB, max|du8|={st['max_abs']} "
+              f"changed={st['changed_share']:.3e}")
+        if p < 40.0:
+            failed.append(f"{what}: PSNR {p:.2f} < 40 dB")
+
+    # 10a: each arm at 600x400 b48 with the shipped weights, against the
+    # card's xla arm on the same weights, then on the CPU at 192x128 b2
+    x48 = frames_u8(48, 400, 600, seed=20)
+    x2 = frames_u8(2, 128, 192, seed=21)
+    presets = {"hybrid": (PipelineConfig(method="hybrid"), "k3"),
+               "quality_fast": (PRESETS["quality_fast"], "k5"),
+               "quality": (PRESETS["quality"], "k5")}
+    arms = [(name, impl, "bfloat16") for name in presets
+            for impl in ("gemm", "packed", "packed12")]
+    arms.append(("hybrid", "packed", "float32"))
+    for name, impl, dt in arms:
+        base, k = presets[name]
+        cfg = base.replace(conv_impl=impl, compute_dtype=dt)
+        f32 = dt == "float32"
+        what = f"10a {name} {impl} {dt}"
+        pipe = EnhancePipeline(cfg, device="cuda")
+        got = counted(what, (k,), lambda: pipe.enhance_batch_device(x48))
+        n = launches[what][k]
+        print(f"  {what} 600x400 b48: {k.upper()} launches {n}")
+        if n != 1:
+            failed.append(f"{what}: {n} {k} launches, not 1 (one block)")
+        ref = EnhancePipeline(cfg.replace(conv_impl="xla"), device="cuda")
+        bar(f"{what} vs the card's xla arm", got,
+            ref.enhance_batch_device(x48), f32)
+        cpu = EnhancePipeline(cfg, device="cpu")
+        bar(f"{what} 192x128 b2 cuda vs cpu", pipe.enhance_batch_device(x2),
+            cpu.enhance_batch_device(x2.cpu()), f32)
+        del pipe, ref, got
+
+    # 10b: each arm's time beside xla and pallas (cascade for fcn), CUDA
+    # events around each call, median of 5 after a warm-up
+    print(f"  10b ms a call (median of 5) at 600x400 b48 on {card}:")
+    for name, (base, _) in presets.items():
+        impls = ["xla", "pallas"] + (["cascade"] if name == "quality_fast"
+                                     else []) + ["gemm", "packed",
+                                                 "packed12"]
+        for dt in (("bfloat16", "float32") if name == "hybrid"
+                   else ("bfloat16",)):
+            row = []
+            for impl in impls if dt == "bfloat16" else ["xla", "packed"]:
+                pipe = EnhancePipeline(
+                    base.replace(conv_impl=impl, compute_dtype=dt),
+                    device="cuda")
+                ms = median_ms(torch, lambda: pipe.enhance_batch_device(x48))
+                row.append(f"{impl} {ms:.3f} ms ({48e3 / ms:.1f} img/s)")
+                del pipe
+            print(f"    {name} {dt}: " + ", ".join(row))
+    del x48
+    torch.cuda.empty_cache()
+
+    # 10c: the utils
+    try:
+        checked(torch.log)(torch.tensor([-1.0], device=dev))
+        failed.append("10c checked let a NaN made by a CUDA op pass")
+    except FloatingPointError as e:
+        print(f"  10c checked on the card raised: {e}")
+    cfg0 = PipelineConfig()
+    xk = frames_u8(8, 400, 600, seed=22)
+    plain = fe.fused_retinex(xk, cfg0)
+    clean = checked(fe.fused_retinex)(xk, cfg0)
+    print(f"  10c checked K1 (600x400 b8): "
+          f"{'passes, equal' if torch.equal(clean, plain) else 'DIFFERS'}")
+    if not torch.equal(clean, plain):
+        failed.append("10c checked K1 differs from K1")
+    # the trace, in a process of its own: in this one, after phases 8 and
+    # 9, torch.profiler records no CUDA activity (PERF.md §7)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        proc = subprocess.run([sys.executable, "-c", PHASE10C_CHILD, tmp],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        traces = list(Path(tmp).glob("*.json"))
+        ev = (json.loads(traces[0].read_text())["traceEvents"]
+              if proc.returncode == 0 and traces else [])
+    k1 = sorted({e["name"] for e in ev
+                 if "retinex_tile_kernel" in e.get("name", "")})
+    named = any(e.get("name") == "enhance" for e in ev) and bool(k1)
+    print(f"  10c profile_trace of one enhance_batch_device call in "
+          f"stage('enhance') (a process of its own, rc {proc.returncode}): "
+          f"{len(ev)} events, {len(traces)} trace file; the stage and K1's "
+          f"kernel {'named' if named else 'NOT both named'} "
+          f"({k1[0][:70] if k1 else 'no K1 event'})")
+    if not named:
+        failed.append(f"10c the trace does not name the stage and K1: "
+                      f"{proc.stderr[-2000:]}")
+    lb = _build.LAST_BUILD
+    print(f"  10c kernel library (phase 2): {lb.get('seconds', 0):.1f} s, "
+          f"{lb.get('built')} objects built, {lb.get('reused')} reused, in "
+          f"{_build.BUILD_DIR}")
+    # one source changed: a copy of csrc with a comment added to
+    # fused_enhance.cu, built into the same directory (its other objects
+    # are reused); the library this process loaded stays loaded
+    import shutil
+
+    saved = _build._CSRC
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        shutil.copytree(saved, Path(tmp) / "csrc")
+        src = Path(tmp) / "csrc" / "fused_enhance.cu"
+        src.write_text(src.read_text() + "\n// changed\n")
+        try:
+            _build._CSRC = Path(tmp) / "csrc"
+            _build._compile(_build.library_path())
+        finally:
+            _build._CSRC = saved
+    one = dict(_build.LAST_BUILD)
+    print(f"  10c the library with one source changed (fused_enhance.cu): "
+          f"{one['seconds']:.1f} s, {one['built']} object built, "
+          f"{one['reused']} reused")
+    if one["built"] != 1:
+        failed.append(f"10c one source changed rebuilt {one['built']}")
+
+    # 10d: two processes on cuda:0 over gloo, each holding its rows of a
+    # spatial mesh that spans both
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", PHASE10D_CHILD,
+                               str(pid), str(port)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    except subprocess.TimeoutExpired:
+        failed.append("10d a process did not finish in 300 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            failed.append(f"10d process rc {p.returncode}: {err[-2000:]}")
+            continue
+        res = json.loads(lines[-1][len("RESULT "):])
+        print(f"  10d process {res['pid']} of 2 (gloo, cuda:0; library "
+              f"built {res['build']['built']} objects, reused "
+              f"{res['build']['reused']}):")
+        if res["build"]["built"] != 0:
+            failed.append("10d a child process rebuilt the library")
+        for name, r in res.items():
+            if not isinstance(r, dict) or "rows" not in r:
+                continue
+            print(f"    {name}: rows {r['rows']} {r['shape']}: vs the mesh "
+                  f"in one process max|du8| {r['vs_one_process_max']}; vs "
+                  f"the single-device pipeline max|du8| "
+                  f"{r['vs_single_max']} changed {r['vs_single_share']:.3e}"
+                  f" PSNR {r['vs_single_psnr']:.2f} dB; "
+                  f"{r['ms_median_of_3']:.1f} ms a call (host clock)")
+            if r["vs_one_process_max"] != 0:
+                failed.append(f"10d {name}: differs from one process")
+            if name.startswith("config5") and r["vs_single_max"] != 0:
+                failed.append(f"10d {name}: differs from the single device")
+            if name.startswith("curve") and r["vs_single_psnr"] < 40.0:
+                failed.append(f"10d {name}: PSNR < 40 dB vs single device")
+    print(f"  10d took {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("phase 10 failed: " + "; ".join(failed))
+    return paths, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1372,7 +1729,9 @@ def main() -> int:
     lib_path = _build.library_path()
     _build.load_library()
     print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s -> "
-          f"{lib_path.name}")
+          f"{lib_path.name} ({_build.LAST_BUILD.get('built')} objects "
+          f"compiled, {_build.LAST_BUILD.get('reused')} reused, in "
+          f"{_build.BUILD_DIR})")
     # the tile plan of K1/K4/K3 (retinex_tile.cuh) against its CPU mirror
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from test_torch_retinex_tile import tile_plan
@@ -3075,6 +3434,16 @@ def main() -> int:
     for name, kernels, _ in raw_paths:
         for k in kernels:
             total[k] += raw_launches[name][k]
+    arm_paths, arm_launches = phase10_conv_arms_utils(torch, card, wrappers,
+                                                      t_start)
+    print(f"  phase 10 launches per path: {arm_launches}")
+    check_launches(arm_paths, arm_launches)
+    for name, kernels, _ in arm_paths:
+        for k in kernels:
+            total[k] += arm_launches[name][k]
+            if k == "k5":
+                arm = "k5g" if "quality " in name else "k5b"
+                total[arm] += arm_launches[name][k]
 
     src = "low_light_image_enhancement_tpu_torch/kernels/csrc/"
     tpu = "low_light_image_enhancement_tpu/kernels/"

@@ -24,6 +24,8 @@ Methods: retinex (kernel K1), curve and hybrid (the curve CNN, then K3),
 fcn and decom (their net, then K5, the bilateral or guided denoise tail).
 The nets' convs run as cuDNN or, under ``conv_impl="pallas"``, as kernels
 K6a/K6b, and fcn's dilated stack under ``"cascade"`` as one K7 launch;
+``"gemm"``, ``"packed"`` and ``"packed12"`` are ``ops/patch_conv.py``'s
+GEMM and space-to-depth forms in plain PyTorch;
 ``kernels.fused_enhance_hwc.enhance_hwc_u8`` is retinex on u8 HWC (K8).
 Video (``VideoEnhancer``, ``MultiStreamVideoEnhancer``): retinex as one
 kernel K4 per frame (or K1's gain form), curve and hybrid through K3.
@@ -33,7 +35,10 @@ kernel K4 per frame (or K1's gain form), curve and hybrid through K3.
 of devices: ``PipelineConfig(spatial_shards=n)`` (config 5) and
 ``data_shards``, ``enhance_spatial_sharded``, the sharded video enhancer,
 and the trainers' ``mesh`` and ``spatial_batch`` (``train``), with data
-parallelism across processes in ``parallel.distributed``.
+parallelism across processes in ``parallel.distributed`` and a spatial
+axis that may span processes. ``utils`` has ``profile_trace``/``stage``,
+``utils.debug.checked`` (NaN and division checks) and
+``enable_compile_cache`` (where the kernel library is built and reused).
 ``EnhancePipeline.enhance_raw``/``enhance_raw_batch`` take RGGB Bayer
 mosaics through the ISP (demosaic, white balance, CCM, gamma), then the
 same u8 path (K1 for retinex). ``ops`` holds the plain toolkit ops, the

@@ -1,6 +1,7 @@
 """Block-form graph of the learned methods: curve and hybrid (at every
 ``curve_downsample``), fcn and decom, each net under ``conv_impl`` "xla"
-(``F.conv2d``) or "pallas" (K6; fcn also "cascade", K7; see
+(``F.conv2d``), "pallas" (K6; fcn also "cascade", K7), "gemm" (patch and
+im2col GEMMs) or "packed"/"packed12" (convs on space-to-depth lanes; see
 ``resolve_conv_impl``).
 
 The net consumes the image extended by ``canvas_margin`` replicate
@@ -19,6 +20,7 @@ quantize after it.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional
 
 import torch
@@ -46,15 +48,21 @@ from low_light_image_enhancement_tpu_torch.kernels.tiled_denoise import (
 )
 from low_light_image_enhancement_tpu_torch.models.curve_cnn import (
     apply_curve_cnn,
+    apply_curve_cnn_gemm,
+    apply_curve_cnn_packed,
     apply_curve_cnn_pallas,
 )
 from low_light_image_enhancement_tpu_torch.models.decom import (
     apply_decom_net,
+    apply_decom_net_gemm,
+    apply_decom_net_packed,
     apply_decom_net_pallas,
 )
 from low_light_image_enhancement_tpu_torch.models.fcn import (
     _dilations,
     apply_fcn,
+    apply_fcn_gemm,
+    apply_fcn_packed,
     apply_fcn_pallas,
 )
 from low_light_image_enhancement_tpu_torch.ops.colorspace import quantize_u8
@@ -145,20 +153,20 @@ def resolve_conv_impl(cfg: PipelineConfig) -> PipelineConfig:
       fcn.
     - ``cascade`` stays on fcn (its c2-c7 as one K7 launch,
       ``kernels/fcn_cascade.py``) and is ``xla`` on the other methods.
-    - ``gemm``, ``packed`` and ``packed12`` raise: they are XLA-only arms
-      of the JAX package's ``ops/patch_conv.py`` and not ported.
+    - ``gemm``, ``packed`` and ``packed12`` stay: the JAX package's arms of
+      ``ops/patch_conv.py``, plain PyTorch here as plain jnp there
+      (``gemm`` the nets' convs as patch or im2col GEMMs, ``packed`` and
+      ``packed12`` one conv a layer on space-to-depth lanes, block (2, 2)
+      and (1, 2)).
 
+    ``auto`` may pick the fastest arm for the batch once the port's
+    benchmark has measured the arms on the card (ROADMAP Queue 1, item 1).
     The device of the tensors picks a kernel or its plain version, as for
     every kernel of this package; ``use_pallas`` has no effect."""
     if cfg.conv_impl in ("auto", "xla") or (
             cfg.conv_impl == "cascade" and cfg.method != "fcn"):
         return cfg.replace(conv_impl="xla")
-    if cfg.conv_impl in ("pallas", "cascade"):
-        return cfg
-    raise NotImplementedError(
-        f"conv_impl={cfg.conv_impl!r} is not ported yet (ROADMAP Queue 1: "
-        "the XLA-only arms of ops/patch_conv.py)"
-    )
+    return cfg
 
 
 def _mask_extent(y: torch.Tensor, row0: int, h: int, w: int,
@@ -189,8 +197,11 @@ def _curve_maps_lowres(cnn_in: torch.Tensor, cfg: PipelineConfig,
         cnn_in = F.interpolate(cnn_in, size=(hb // ds, wb // ds),
                                mode="bilinear", antialias=True,
                                align_corners=False)
-    apply = (apply_curve_cnn_pallas if cfg.conv_impl == "pallas"
-             else apply_curve_cnn)
+    apply = {"pallas": apply_curve_cnn_pallas,
+             "gemm": apply_curve_cnn_gemm,
+             "packed": apply_curve_cnn_packed,
+             "packed12": partial(apply_curve_cnn_packed, block=(1, 2)),
+             }.get(cfg.conv_impl, apply_curve_cnn)
     return apply(params, cnn_in, n_iter=cfg.curve_iters,
                  compute_dtype=cfg.compute_dtype)
 
@@ -265,11 +276,18 @@ def block_net_image(
     cnn_in = _mask_extent(_to_float(xb), row0, h, w, canvas_margin(cfg))
     if cfg.method == "fcn":
         apply = {"pallas": apply_fcn_pallas,
-                 "cascade": apply_fcn_cascade}.get(cfg.conv_impl, apply_fcn)
+                 "cascade": apply_fcn_cascade,
+                 "gemm": apply_fcn_gemm,
+                 "packed": apply_fcn_packed,
+                 "packed12": partial(apply_fcn_packed, block=(1, 2)),
+                 }.get(cfg.conv_impl, apply_fcn)
         y = apply(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
         return torch.clamp(y, 0.0, 1.0)
-    apply = (apply_decom_net_pallas if cfg.conv_impl == "pallas"
-             else apply_decom_net)
+    apply = {"pallas": apply_decom_net_pallas,
+             "gemm": apply_decom_net_gemm,
+             "packed": apply_decom_net_packed,
+             "packed12": partial(apply_decom_net_packed, block=(1, 2)),
+             }.get(cfg.conv_impl, apply_decom_net)
     r, l = apply(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
     l_boost = torch.clamp(l, cfg.illum_eps, 1.0) ** cfg.decom_gamma
     return torch.clamp(r * l_boost, 0.0, 1.0)

@@ -59,11 +59,13 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--curve-downsample", type=int, choices=[1, 2, 4, 8],
                    default=None, help="estimate curve maps at 1/N res")
     p.add_argument("--conv-impl", choices=["auto", "xla", "pallas",
-                                           "cascade"],
+                                           "cascade", "gemm", "packed",
+                                           "packed12"],
                    default=None,
                    help="the nets' convs: auto/xla F.conv2d, pallas the "
                         "port's conv kernels, cascade fcn's stack as one "
-                        "kernel")
+                        "kernel, gemm patch/im2col GEMMs, packed/packed12 "
+                        "convs on space-to-depth lanes")
     p.add_argument("--data-shards", type=int, default=None,
                    help="shard batches over N devices (clamped to the "
                         "cards there are)")
@@ -420,6 +422,14 @@ def _cmd_video_streams(args, decode_image, encode_image) -> int:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    # the kernel library's objects are reused across processes from the
+    # build directory (kernels/_build.py); LLIE_COMPILE_CACHE picks it, 0
+    # turns reuse off
+    from low_light_image_enhancement_tpu_torch.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     parser = argparse.ArgumentParser(
         prog="llie-torch",
         description="low-light image enhancement on PyTorch and CUDA")

@@ -94,7 +94,8 @@ class PipelineConfig:
     conv_impl: str = "auto"      # the nets' conv arm: "auto" and "xla" run
                                  # F.conv2d, "pallas" the K6 kernels,
                                  # "cascade" K7 on fcn (xla elsewhere);
-                                 # "gemm", "packed", "packed12" raise
+                                 # "gemm" patch/im2col GEMMs, "packed" and
+                                 # "packed12" convs on space-to-depth lanes
 
     # --- sharding ------------------------------------------------------------
     # >1 runs on a mesh of devices (parallel/): rows over spatial_shards,

@@ -1,12 +1,19 @@
 """Build and load the CUDA kernel library.
 
-``nvcc`` compiles every ``csrc/*.cu`` of this package for ``sm_90a``, one
-process per source, all started together, and links the objects into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
-The library lands in ``<repo>/build/torch_kernels/`` (resolved
-from this file, not from the working directory), named by a hash of the
-sources and the flags, and is built at first use under a lock. Nothing is
-built or loaded when the module is imported.
+``nvcc`` compiles each ``csrc/*.cu`` of this package for ``sm_90a`` into an
+object, one process per source, all started together, and links the
+objects into one shared library with a plain C interface, which is loaded
+with ``ctypes``. Each object is named by the hash of its source, of the
+headers it includes (transitively), of ``NVCC_FLAGS`` and of the compiler's
+version (:func:`source_key`), and is reused while that hash stands: a
+change to one source recompiles that source alone, a change to a header
+the sources that include it. The library is named by the hash of its
+objects. Both land in the build directory, ``<repo>/build/torch_kernels/``
+by default (resolved from this file, not from the working directory), or
+where ``utils.compile_cache.enable_compile_cache`` points it
+(``LLIE_COMPILE_CACHE``). Objects and the library are written under
+temporary names and renamed, so that a concurrent process sees either none
+or a whole one. Nothing is built or loaded when the module is imported.
 
 ``--fmad=false`` keeps every ``a*b+c`` a multiply and an add, as PyTorch's
 eager ops compute them, so the kernels agree with their plain versions; no
@@ -16,20 +23,30 @@ eager ops compute them, so the kernels agree with their plain versions; no
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
+    "torch_kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC",
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+# the last build of this process: seconds, objects compiled and reused
+LAST_BUILD: Dict[str, float] = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -132,17 +149,72 @@ def find_nvcc() -> str:
     )
 
 
-def _sources():
-    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+def set_build_dir(path) -> None:
+    """Build and look for the library in ``path`` from now on (a library
+    this process has loaded already stays loaded)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
+def _sources() -> List[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def included_headers(src: Path) -> List[Path]:
+    """The headers of ``csrc`` that ``src`` includes with ``#include
+    "..."``, directly or through other headers, sorted by name."""
+    seen: Dict[str, Path] = {}
+    todo = [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            path = src.parent / name
+            if name not in seen and path.is_file():
+                seen[name] = path
+                todo.append(path)
+    return [seen[n] for n in sorted(seen)]
+
+
+@functools.lru_cache(maxsize=1)
+def toolchain() -> str:
+    """``nvcc --version`` of the compiler :func:`find_nvcc` finds: objects
+    of another compiler are not reused."""
+    return subprocess.run([find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def source_key(src: Path, compiler: str) -> str:
+    """The hash that names ``src``'s object: the flags, the compiler's
+    version, the source and every header it includes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(compiler.encode())
+    for p in [src] + included_headers(src):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def object_paths(compiler: str, build_dir: Path) -> List[Tuple[Path, Path]]:
+    """(source, object) for every source, the object named by
+    :func:`source_key`."""
+    return [(src, build_dir / "obj"
+             / f"{src.stem}_{source_key(src, compiler)}.o")
+            for src in _sources()]
+
+
+def compile_commands(nvcc: str, pairs: Sequence[Tuple[Path, Path]],
+                     tmp: Path) -> List[Tuple[Path, Path, List[str]]]:
+    """(object, temporary object, nvcc command) for each object of
+    ``pairs`` that is not built yet."""
+    return [(obj, tmp / obj.name,
+             [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / obj.name), str(src)])
+            for src, obj in pairs if not obj.exists()]
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
+    """Where the library of the current sources, flags and compiler lives:
+    named by the hash of its objects' names."""
+    objs = [obj.name for _, obj in object_paths(toolchain(), BUILD_DIR)]
+    h = hashlib.sha256(" ".join(objs).encode())
     return BUILD_DIR / f"llie_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -162,18 +234,22 @@ def _run_all(cmds) -> None:
 
 
 def _compile(target: Path) -> None:
-    cu, _ = _sources()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Compile the objects not built yet, then link the library."""
     nvcc = find_nvcc()
-    # objects and the library under temporary names, then one rename: a
-    # concurrent process sees either no library or a whole one
+    pairs = object_paths(toolchain(), BUILD_DIR)
+    (BUILD_DIR / "obj").mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [str(Path(tmp) / f"{src.stem}.o") for src in cu]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                  for src, obj in zip(cu, objs)])
+        todo = compile_commands(nvcc, pairs, Path(tmp))
+        _run_all([cmd for _, _, cmd in todo])
+        for obj, built, _ in todo:
+            os.replace(built, obj)
         lib = str(Path(tmp) / target.name)
-        _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]])
+        _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                   *(str(obj) for _, obj in pairs)]])
         os.replace(lib, target)
+    LAST_BUILD.update(seconds=time.perf_counter() - t0, built=len(todo),
+                      reused=len(pairs) - len(todo))
 
 
 def load_library() -> ctypes.CDLL:
@@ -182,7 +258,10 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             path = library_path()
-            if not path.exists():
+            if path.exists():
+                LAST_BUILD.update(seconds=0.0, built=0,
+                                  reused=len(_sources()))
+            else:
                 _compile(path)
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():

@@ -7,8 +7,11 @@ at 24 features, then a 1x1 sigmoid head to RGB. Parameters are a dict
 
 ``apply_fcn`` is the ``conv_impl="xla"`` arm (``F.conv2d``);
 ``apply_fcn_pallas`` runs c2-c7 as K6b, one launch a layer, and
-``kernels.fcn_cascade.apply_fcn_cascade`` all six as one K7 launch.
-``EnhanceFCN`` is the net as an ``nn.Module``.
+``kernels.fcn_cascade.apply_fcn_cascade`` all six as one K7 launch;
+``apply_fcn_gemm`` (im2col GEMMs) and ``apply_fcn_packed`` (convs on
+space-to-depth lanes) are the ``"gemm"`` and ``"packed"``/``"packed12"``
+arms (``ops/patch_conv.py``). ``EnhanceFCN`` is the net as an
+``nn.Module``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,15 @@ from low_light_image_enhancement_tpu_torch.models.layers import (
     conv2d,
     nhwc,
     sigmoid,
+)
+from low_light_image_enhancement_tpu_torch.ops.patch_conv import (
+    cached_pack,
+    conv2d_block_xla,
+    conv2d_im2col_gemm,
+    depth_to_space,
+    pack_block_conv_weights,
+    pack_im2col_weights,
+    space_to_depth,
 )
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -55,6 +67,11 @@ def init_fcn(generator: torch.Generator, features: int = 24,
     return params
 
 
+def _leaky(h: torch.Tensor) -> torch.Tensor:
+    """leaky_relu 0.2 in h's dtype, the slope rounded to it, as JAX's."""
+    return torch.where(h >= 0, h, h * torch.tensor(0.2, dtype=h.dtype))
+
+
 def apply_fcn(params: Params, x: torch.Tensor,
               compute_dtype="float32") -> torch.Tensor:
     """(..., 3, H, W) in [0,1] -> enhanced (..., 3, H, W) in [0,1],
@@ -64,14 +81,11 @@ def apply_fcn(params: Params, x: torch.Tensor,
     if not batched:
         x = x[None]
     cd = as_dtype(compute_dtype)
-    # the slope as a value of the compute dtype, as JAX rounds it
-    slope = torch.tensor(0.2, dtype=cd)
     depth = sum(1 for k in params if k.startswith("c"))
     h = x
     for i, dil in enumerate(_dilations(depth), start=1):
         p = params[f"c{i}"]
-        h = conv2d(h, p["w"], p["b"], cd, dilation=dil)
-        h = torch.where(h >= 0, h, h * slope)
+        h = _leaky(conv2d(h, p["w"], p["b"], cd, dilation=dil))
     out = sigmoid(conv2d(h, params["out"]["w"], params["out"]["b"],
                                cd)).to(torch.float32)
     return out if batched else out[0]
@@ -89,7 +103,7 @@ def fcn_stem_nhwc(params: Params, x: torch.Tensor, cd: torch.dtype
     y = F.conv2d(xc.float(), p["w"].to(cd).float(), padding=dil,
                  dilation=dil)
     y = (y + p["b"].float()[:, None, None]).to(cd)
-    return nhwc(torch.where(y >= 0, y, y * torch.tensor(0.2, dtype=cd)))
+    return nhwc(_leaky(y))
 
 
 def fcn_head_nhwc(params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -118,6 +132,57 @@ def apply_fcn_pallas(params: Params, x: torch.Tensor,
         p = params[f"c{i}"]
         h = conv2d_dense9_mxu(h, p["w"], p["b"], act="leaky", dilation=dil)
     out = fcn_head_nhwc(params, h)
+    return out if batched else out[0]
+
+
+def apply_fcn_gemm(params: Params, x: torch.Tensor,
+                   compute_dtype="float32") -> torch.Tensor:
+    """:func:`apply_fcn` with every 3x3 layer, dilated or not, as three
+    accumulated im2col GEMMs (``ops.patch_conv.conv2d_im2col_gemm``) on
+    NHWC, and the 1x1 head as an f32-accumulated channel matmul; the JAX
+    package's ``apply_fcn_gemm``."""
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    cd = as_dtype(compute_dtype)
+    depth = sum(1 for k in params if k.startswith("c"))
+    h = x.permute(0, 2, 3, 1).to(cd)
+    for i, dil in enumerate(_dilations(depth), start=1):
+        p = params[f"c{i}"]
+        w9 = cached_pack((p["w"],), cd, "im2col",
+                         lambda: pack_im2col_weights(p["w"]))
+        h = _leaky(conv2d_im2col_gemm(h, w9, p["b"], cd, dilation=dil))
+    out = fcn_head_nhwc(params, h)
+    return out if batched else out[0]
+
+
+def apply_fcn_packed(params: Params, x: torch.Tensor,
+                     compute_dtype="bfloat16",
+                     block: tuple = (2, 2)) -> torch.Tensor:
+    """:func:`apply_fcn` with the dilated stack c2-c7 as one ``F.conv2d``
+    each on space-to-depth lanes (``ops.patch_conv.conv2d_block_xla``; an
+    even dilation d is the packed conv's dilation ``d // block`` on each
+    packed axis, with phase-keeping weights), the stem a normal conv and
+    the head an f32-accumulated channel matmul; the JAX package's
+    ``apply_fcn_packed``. ``block=(1, 2)`` packs the columns alone.
+    Differentiable."""
+    bh, bw = block
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    cd = as_dtype(compute_dtype)
+    dils = _dilations(sum(1 for k in params if k.startswith("c")))
+    p1 = params["c1"]
+    h = _leaky(conv2d(x, p1["w"], p1["b"], cd, dilation=dils[0]))
+    h = space_to_depth(nhwc(h), block)
+    for i, dil in enumerate(dils[1:], start=2):
+        p = params[f"c{i}"]
+        wk = cached_pack((p["w"],), cd, f"block {block} d{dil}",
+                         lambda: pack_block_conv_weights(
+                             p["w"], dilation=dil, block=block))
+        h = _leaky(conv2d_block_xla(
+            h, wk, p["b"], cd, step=(max(1, dil // bh), max(1, dil // bw))))
+    out = fcn_head_nhwc(params, depth_to_space(h, block))
     return out if batched else out[0]
 
 

@@ -1,11 +1,13 @@
-"""Data parallelism across processes on ``torch.distributed``.
+"""Parallelism across processes on ``torch.distributed``.
 
-Each process drives its own mesh (``parallel.sharding.make_mesh``); the
-process group joins them on the ``data`` axis alone. A train step made with
-a mesh (``train.make_train_step(tcfg, mesh)``) all-reduces its gradients
-and metrics over the group when one is initialized, so every process holds
-the same parameters and loss. The ``spatial`` axis stays inside one
-process: halos across processes are not ported.
+Each process drives its own mesh (``parallel.sharding.make_mesh``). For
+training the process group joins them on the ``data`` axis: a train step
+made with a mesh (``train.make_train_step(tcfg, mesh)``) all-reduces its
+gradients and metrics over the group when one is initialized, so every
+process holds the same parameters and loss. For inference a mesh's
+``spatial`` axis may span the group (``make_mesh`` with P times the
+process's devices): ``enhance_spatial_sharded`` then takes and returns
+each process's rows, the halos at the seams crossing the group.
 
 Launch one process a card with ``torchrun --nproc-per-node N script.py``;
 ``initialize_distributed()`` then reads its rank, world size and
@@ -31,9 +33,12 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     device="cuda",
+    backend: Optional[str] = None,
 ) -> None:
     """Join the process group: ``nccl`` when the process's devices are
-    CUDA (``device``), ``gloo`` on the CPU.
+    CUDA (``device``), ``gloo`` on the CPU, or the ``backend`` given
+    (gloo between processes that share one card, where NCCL refuses two
+    ranks on one device; it sends host copies).
 
     ``coordinator_address`` is ``host:port`` (a TCP rendezvous) or an
     ``init_method`` URL such as ``file:///path``; omitted, the group reads
@@ -61,9 +66,9 @@ def initialize_distributed(
         local = int(os.environ.get("LOCAL_RANK",
                                    process_id % torch.cuda.device_count()))
         torch.cuda.set_device(local)
-        backend = "nccl"
+        backend = backend or "nccl"
     elif device.type == "cpu":
-        backend = "gloo"
+        backend = backend or "gloo"
     else:
         raise ValueError(f"device must be cuda or cpu: {device!r}")
     dist.init_process_group(backend, init_method=init_method,

@@ -12,6 +12,13 @@ A mesh may hold a device more than once: ``[cpu] * 8`` is the CPU tests'
 counterpart of the JAX package's eight fake devices, and ``[cuda:0] * 8``
 runs eight shards on one card, which holds a sharded result to the
 single-device one. Shards on one device run one after another.
+
+Inside a process group (``parallel.distributed``), a mesh's ``spatial``
+axis may span the processes: each process holds the same number of
+consecutive shards on its own devices, process p the p-th run of them, and
+``enhance_spatial_sharded`` then takes and returns each process's own
+rows, the halos at the seams between processes crossing the group
+(``parallel.halo.exchange_seams``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,10 @@ from low_light_image_enhancement_tpu_torch.core import pad_edge
 from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
     fused_retinex_canvas,
 )
-from low_light_image_enhancement_tpu_torch.parallel.halo import halo_pad
+from low_light_image_enhancement_tpu_torch.parallel.halo import (
+    exchange_seams,
+    halo_pad,
+)
 
 __all__ = ["Mesh", "make_mesh", "local_devices", "mesh_for", "replicate",
            "replicas", "shard_batch_fn", "enhance_spatial_sharded"]
@@ -38,11 +48,15 @@ __all__ = ["Mesh", "make_mesh", "local_devices", "mesh_for", "replicate",
 
 class Mesh:
     """An ``n_data x n_spatial`` grid of devices: ``devices[d][s]`` holds
-    the s-th row block of the d-th batch chunk."""
+    the s-th row block of the d-th batch chunk. A mesh whose spatial axis
+    spans ``processes`` processes holds this process's columns of the grid
+    (shards ``process_index * k`` to ``process_index * k + k - 1``, k =
+    ``len(devices[0])``); ``shape`` is the whole grid's."""
 
     axis_names = ("data", "spatial")
 
-    def __init__(self, devices: Sequence[Sequence[Any]]):
+    def __init__(self, devices: Sequence[Sequence[Any]], processes: int = 1,
+                 process_index: int = 0):
         grid = [[torch.device(d) for d in row] for row in devices]
         if not grid or not grid[0] or any(len(r) != len(grid[0])
                                           for r in grid):
@@ -52,11 +66,22 @@ class Mesh:
         if len(types) != 1:
             raise ValueError(f"a mesh holds devices of one type, got "
                              f"{sorted(types)}")
+        if not 0 <= process_index < processes:
+            raise ValueError(f"process {process_index} of {processes}")
         self.devices = grid
+        self.processes, self.process_index = processes, process_index
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": len(self.devices), "spatial": len(self.devices[0])}
+        return {"data": len(self.devices),
+                "spatial": len(self.devices[0]) * self.processes}
+
+    def require_local(self, who: str) -> None:
+        """Raise unless the mesh lies within this process."""
+        if self.processes > 1:
+            raise ValueError(f"{who} runs on a mesh within one process; "
+                             f"this one spans {self.processes} processes "
+                             "(only enhance_spatial_sharded takes that)")
 
     @property
     def flat(self) -> List[torch.device]:
@@ -74,7 +99,9 @@ class Mesh:
         return list(dict.fromkeys(self.flat))
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {self.devices})"
+        span = (f", process {self.process_index} of {self.processes}"
+                if self.processes > 1 else "")
+        return f"Mesh({self.shape}, {self.devices}{span})"
 
 
 def local_devices() -> List[torch.device]:
@@ -95,9 +122,14 @@ def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1,
               devices: Optional[Sequence[Any]] = None) -> Mesh:
     """A ("data", "spatial") mesh over ``devices`` (default: this
     process's CUDA devices, :func:`local_devices`). ``n_data`` defaults to
-    the devices left over by ``n_spatial``."""
-    explicit = devices is not None
-    devices = [torch.device(d) for d in devices] if explicit \
+    the devices left over by ``n_spatial``.
+
+    Inside a process group of P > 1 processes, an ``n_data x n_spatial``
+    that is P times this process's devices spans the processes: its
+    spatial axis is split into P runs of ``n_spatial / P`` shards, process
+    p holding the p-th on its devices (``n_data * n_spatial / P`` of them),
+    as the JAX package's mesh over every process's devices is."""
+    devices = [torch.device(d) for d in devices] if devices is not None \
         else local_devices()
     if n_data is None:
         if len(devices) % n_spatial:
@@ -106,21 +138,27 @@ def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1,
                 f"n_spatial={n_spatial}")
         n_data = len(devices) // n_spatial
     need = n_data * n_spatial
-    if need > len(devices):
-        import torch.distributed as dist
-
-        if not explicit and dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise ValueError(
-                f"need {need} devices, this process has {len(devices)}: a "
-                "mesh holds one process's devices, and its spatial axis "
-                "stays inside the process (halos across processes are not "
-                "ported); data parallelism across processes is the process "
-                "group's")
-        raise ValueError(f"need {need} devices, have {len(devices)}")
     if need < 1:
         raise ValueError(f"a mesh needs at least one device: {n_data} x "
                          f"{n_spatial}")
+    from low_light_image_enhancement_tpu_torch.parallel.distributed import (
+        process_group_size,
+    )
+
+    procs = process_group_size()
+    if need > len(devices) and procs > 1 and n_spatial % procs == 0 \
+            and need == procs * len(devices):
+        import torch.distributed as dist
+
+        k = n_spatial // procs
+        return Mesh([devices[d * k:(d + 1) * k] for d in range(n_data)],
+                    processes=procs, process_index=dist.get_rank())
+    if need > len(devices):
+        across = (f": a mesh holds this process's devices or, for halos "
+                  f"across processes, the {procs} processes' ({procs} x "
+                  f"{len(devices)}, n_spatial a multiple of {procs})"
+                  if procs > 1 else "")
+        raise ValueError(f"need {need} devices, have {len(devices)}{across}")
     return Mesh([devices[d * n_spatial:(d + 1) * n_spatial]
                  for d in range(n_data)])
 
@@ -160,6 +198,7 @@ def shard_batch_fn(fn: Callable, mesh: Mesh) -> Callable:
     leading (batch) dim over every mesh device in order, runs ``fn(chunk,
     *rest)`` on each chunk's device (``rest`` copied there once a device),
     and returns the chunks' results joined on the mesh's first device."""
+    mesh.require_local("shard_batch_fn")
     devs = mesh.flat
 
     @functools.wraps(fn)
@@ -183,31 +222,83 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _process_rows(x: torch.Tensor, mesh: Mesh) -> List[int]:
+    """The rows each process of a mesh that spans processes holds, after
+    checking that all hold the same batch, channels, width and dtype."""
+    import torch.distributed as dist
+
+    b, c, rows, w = x.shape
+    mine = torch.tensor([b, c, rows, w, int(x.dtype == torch.float32)],
+                        dtype=torch.int64, device=_comm_device(mesh))
+    got = [torch.empty_like(mine) for _ in range(mesh.processes)]
+    dist.all_gather(got, mine)
+    got = [t.tolist() for t in got]
+    if any(g[:2] + g[3:] != got[0][:2] + got[0][3:] for g in got):
+        raise ValueError(f"the processes' rows differ in batch, channels, "
+                         f"width or dtype: {got}")
+    return [g[2] for g in got]
+
+
+def _check_split(rows: List[int], mesh: Mesh, hl: int) -> None:
+    """Each process must hold the rows its shards own: all but the last
+    ``k * hl``, the last the rest (at least one)."""
+    own = len(mesh.devices[0]) * hl
+    if rows[:-1] != [own] * (len(rows) - 1) or not 0 < rows[-1] <= own:
+        raise ValueError(
+            f"the processes hold {rows} rows of a {sum(rows)}-row image; "
+            f"{mesh.shape['spatial']} shards of {hl} rows give {own} to "
+            "each process but the last, which takes the rest")
+
+
+def _comm_device(mesh: Mesh) -> torch.device:
+    """Where the process group's tensors live: the card on NCCL, the host
+    on gloo (which sends host tensors only)."""
+    import torch.distributed as dist
+
+    return mesh.home if dist.get_backend() == "nccl" \
+        else torch.device("cpu")
+
+
 def _sharded_rows(x: torch.Tensor, mesh: Mesh, hl: int, wp: int, m: int,
                   halo: int, run: Callable) -> torch.Tensor:
-    """The shared frame of the sharded routes: ``x`` edge-padded to
-    ``n_spatial * hl`` rows and ``wp`` columns (``m`` of them before the
-    image), its batch split over ``data`` and its rows over ``spatial``,
-    each block halo-padded by ``halo`` rows on its device, ``run(block,
-    shard index, device)`` -> that shard's ``hl`` output rows, gathered
-    onto the mesh's first device and cropped to the image."""
-    n_d, n_sp = mesh.shape["data"], mesh.shape["spatial"]
-    b, _, h, w = x.shape
+    """The shared frame of the sharded routes: ``x`` edge-padded to this
+    process's ``k * hl`` rows (``k`` its shards; the rows past the image's
+    ``h`` replicate its last row) and ``wp`` columns (``m`` of them before
+    the image), its batch split over ``data`` and its rows over the
+    process's shards, each block halo-padded by ``halo`` rows on its device
+    (at a seam between processes, with the rows the neighbour process
+    sends), ``run(block, global shard index, device)`` -> that shard's
+    ``hl`` output rows, gathered onto the mesh's first device and cropped
+    to ``x``'s rows and the image's columns."""
+    n_d = mesh.shape["data"]
+    k = len(mesh.devices[0])
+    s0 = mesh.process_index * k
+    b, _, rows, w = x.shape
     if b % n_d:
         raise ValueError(f"batch {b} not divisible by the mesh's data axis "
                          f"({n_d})")
     bs = b // n_d
-    xc = pad_edge(x, 0, n_sp * hl - h, m, wp - w - m).contiguous()
+    if mesh.processes > 1 and hl < halo:
+        raise ValueError(
+            f"shards of {hl} rows hold fewer rows than the {halo}-row halo; "
+            "use fewer shards or larger frames")
+    xc = pad_edge(x, 0, k * hl - rows, m, wp - w - m).contiguous()
     chunks = []
     for d, row in enumerate(mesh.devices):
         part = xc[d * bs:(d + 1) * bs]
+        above = below = None
+        if mesh.processes > 1:
+            above, below = exchange_seams(
+                part, halo, mesh.process_index, mesh.processes,
+                _comm_device(mesh))
         blocks = halo_pad([part[..., s * hl:(s + 1) * hl, :].to(
-            dev, non_blocking=True) for s, dev in enumerate(row)], halo)
-        outs = [run(xb, s, dev) for s, (xb, dev) in
+            dev, non_blocking=True) for s, dev in enumerate(row)], halo,
+            above=above, below=below)
+        outs = [run(xb, s0 + s, dev) for s, (xb, dev) in
                 enumerate(zip(blocks, row))]
         chunks.append(torch.cat(
             [o.to(mesh.home, non_blocking=True) for o in outs], dim=-2))
-    return torch.cat(chunks)[..., :h, m:m + w]
+    return torch.cat(chunks)[..., :rows, m:m + w]
 
 
 def enhance_spatial_sharded(
@@ -219,7 +310,10 @@ def enhance_spatial_sharded(
     """Spatially sharded enhance (config 5: per-shard denoise), any method.
 
     Args:
-      x: (B, 3, H, W) planar batch, uint8, or float32 in [0, 1].
+      x: (B, 3, H, W) planar batch, uint8, or float32 in [0, 1]. On a mesh
+        that spans processes, this process's rows of the image: the rows
+        its shards own (rows a shard rounded to 8 over the whole mesh, as
+        for one process), the last process the rest.
       mesh: rows shard over its ``spatial`` axis, the batch over ``data``
         (the batch must divide by it).
       model_params: the learned methods' weights (unused by retinex).
@@ -232,50 +326,50 @@ def enhance_spatial_sharded(
     the halo (``blocks.learned_halo``), the same block function the
     pipeline runs.
 
-    Returns (B, 3, H, W) of the input's dtype on the mesh's first
-    device.
+    Returns (B, 3, H, W) of the input's dtype (on a mesh that spans
+    processes, this process's rows) on the mesh's first device.
     """
     if x.ndim != 4 or x.shape[1] != 3:
         raise ValueError(f"expected a planar (B, 3, H, W) batch, got "
                          f"{tuple(x.shape)}")
     if x.dtype not in (torch.uint8, torch.float32):
         raise TypeError(f"expected uint8 or float32, got {x.dtype}")
-    if cfg.method != "retinex":
-        if model_params is None:
-            raise ValueError(
-                f"method={cfg.method!r} needs model_params (e.g. "
-                "EnhancePipeline._default_params(cfg, seed) or trained "
-                "weights); only 'retinex' runs weight-free")
-        return _enhance_learned_sharded(x, cfg, mesh, model_params)
+    if cfg.method != "retinex" and model_params is None:
+        raise ValueError(
+            f"method={cfg.method!r} needs model_params (e.g. "
+            "EnhancePipeline._default_params(cfg, seed) or trained "
+            "weights); only 'retinex' runs weight-free")
     n_sp = mesh.shape["spatial"]
-    h, w = x.shape[-2:]
+    w = x.shape[-1]
     m = canvas_margin(cfg)
-    hl = _round_up(math.ceil(h / n_sp), 8)   # rows a shard
-    wp = _round_up(w + 2 * m, 128)
+    if cfg.method == "retinex":
+        halo = m
+        geometry = lambda h: (_round_up(math.ceil(h / n_sp), 8),
+                              _round_up(w + 2 * m, 128))
+    else:
+        from low_light_image_enhancement_tpu_torch.blocks import (
+            block_geometry,
+            learned_halo,
+        )
 
-    return _sharded_rows(x, mesh, hl, wp, m, m, lambda canvas, s, dev:
-                         fused_retinex_canvas(canvas, cfg, m, hl))
+        halo = learned_halo(cfg)
+        geometry = lambda h: block_geometry(cfg, h, w, n_shards=n_sp)
+    rows = _process_rows(x, mesh) if mesh.processes > 1 else [x.shape[-2]]
+    h = sum(rows)
+    hl, wp = geometry(h)
+    if mesh.processes > 1:
+        _check_split(rows, mesh, hl)
+    if cfg.method == "retinex":
+        run = lambda canvas, s, dev: fused_retinex_canvas(canvas, cfg, m, hl)
+    else:
+        from low_light_image_enhancement_tpu_torch.blocks import (
+            enhance_learned_block,
+        )
 
+        params = replicas(model_params, mesh)
 
-def _enhance_learned_sharded(x, cfg, mesh, model_params):
-    """The learned methods' route: each shard runs
-    ``blocks.enhance_learned_block`` on its block with the net's receptive
-    field as the halo; ``block_geometry`` raises when a shard would hold
-    fewer rows than that halo."""
-    from low_light_image_enhancement_tpu_torch.blocks import (
-        block_geometry,
-        enhance_learned_block,
-        learned_halo,
-    )
-
-    h, w = x.shape[-2:]
-    m = canvas_margin(cfg)
-    halo = learned_halo(cfg)
-    hl, wp = block_geometry(cfg, h, w, n_shards=mesh.shape["spatial"])
-    params = replicas(model_params, mesh)
-
-    def run(xb, s, dev):
-        return enhance_learned_block(xb, cfg, params[dev], s * hl - halo, h,
-                                     w, halo=halo)
+        def run(xb, s, dev):
+            return enhance_learned_block(xb, cfg, params[dev], s * hl - halo,
+                                         h, w, halo=halo)
 
     return _sharded_rows(x, mesh, hl, wp, m, halo, run)

@@ -71,6 +71,7 @@ class SpatialShardedVideoEnhancer(_VideoBase):
             raise ValueError(
                 f"mesh needs a 'spatial' axis, has "
                 f"{getattr(mesh, 'axis_names', None)}")
+        mesh.require_local("SpatialShardedVideoEnhancer")
         self.mesh = mesh
         self._init_common(config, alpha, model_params, device, ema_in_kernel)
         self._row = Mesh([mesh.devices[0]])   # the shards: the first row

@@ -32,7 +32,6 @@ import torch
 from low_light_image_enhancement_tpu_torch.blocks import (
     block_geometry,
     enhance_learned_block,
-    resolve_conv_impl,
     single_block_halo,
 )
 from low_light_image_enhancement_tpu_torch.config import (
@@ -78,12 +77,6 @@ from low_light_image_enhancement_tpu_torch.ops.isp import (
 
 __all__ = ["pad_planar", "pad_block", "pad_block_planar", "resolve_device",
            "params_on", "EnhancePipeline", "enhance", "enhance_batch"]
-
-
-def check_ported(cfg: PipelineConfig) -> None:
-    """Raise for configs whose path is not ported yet."""
-    if cfg.method != "retinex":
-        resolve_conv_impl(cfg)  # raises for the conv arms not ported
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -241,7 +234,6 @@ class EnhancePipeline:
 
         ``bucket``: optional size granularity. ``enhance_batch`` edge-pads
         inputs up to multiples of it and crops the output back."""
-        check_ported(config)
         self.device = resolve_device(device, "EnhancePipeline")
         self.config = config
         self.bucket = bucket

@@ -511,6 +511,8 @@ def _make_step(loss_fn: Callable, tcfg: TrainConfig, mesh=None,
     large for one device; the crop rows must divide by the axis. It takes
     the curve objectives' ``net`` (zero-reference and paired)."""
     optimizer = make_optimizer(tcfg)
+    if mesh is not None:
+        mesh.require_local("a train step")
     if mesh is None:
         grads_of = lambda params, *b: _accumulated_grads(loss_fn, params,
                                                          tcfg, *b)

@@ -60,7 +60,6 @@ from low_light_image_enhancement_tpu_torch.ops.filters import (
 )
 from low_light_image_enhancement_tpu_torch.pipeline import (
     EnhancePipeline,
-    check_ported,
     params_on,
     resolve_device,
 )
@@ -217,7 +216,6 @@ class _VideoBase:
                 f"video path supports methods {_VIDEO_METHODS}, got "
                 f"{config.method!r}: it has no temporal carry; enhance its "
                 "frames with EnhancePipeline")
-        check_ported(config)
         self.device = resolve_device(device, type(self).__name__)
         self.config = config
         self.alpha = float(alpha)

@@ -78,5 +78,6 @@ def test_canvas_matches_one_stripe_plan(h, w):
 
 def test_conv_impl_resolution():
     assert tblocks.resolve_conv_impl(tc.PipelineConfig()).conv_impl == "xla"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblocks.resolve_conv_impl(tc.PipelineConfig(conv_impl="packed"))
+    # ported: ops/patch_conv.py's arms resolve to themselves
+    assert tblocks.resolve_conv_impl(
+        tc.PipelineConfig(conv_impl="packed")).conv_impl == "packed"

@@ -317,9 +317,10 @@ def test_conv_impl_mapping():
     # use_pallas does not steer it
     assert impl(method="fcn", conv_impl="pallas", use_pallas=False) \
         == "pallas"
-    for other in ("gemm", "packed", "packed12"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            impl(method="fcn", conv_impl=other)
+    # ops/patch_conv.py's arms, ported: each resolves to itself
+    for method in ("curve", "hybrid", "fcn", "decom"):
+        for other in ("gemm", "packed", "packed12"):
+            assert impl(method=method, conv_impl=other) == other
 
 
 # --------------------------------------------------------- pipelines #

@@ -7,7 +7,8 @@ a checkpoint save and restore, and the parallel package (config 5's
 sharded pipeline, the sharded video enhancer and a data-parallel step on
 CPU meshes); in the same way RAW ingest (enhance_raw, also sharded, and
 llie-torch enhance --raw on a .npy) and the toolkit ops; chip_smoke.py
-names neither."""
+names neither. Also the gemm and packed conv arms and the utils
+(checked, profile_trace, stage, enable_compile_cache)."""
 
 import subprocess
 import sys
@@ -149,6 +150,35 @@ with tempfile.TemporaryDirectory() as tmp:
     assert cli.main(["enhance", "--raw", str(src), str(dst), "--device",
                      "cpu", "--white-level", "4095"]) == 0
     assert (llt.decode_image(dst) == out[0]).all()
+""",
+    "conv_arms_utils": r"""
+import os
+import tempfile
+import numpy as np
+import torch
+import low_light_image_enhancement_tpu_torch as llt
+from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
+from low_light_image_enhancement_tpu_torch.kernels import _build
+from low_light_image_enhancement_tpu_torch.utils import (
+    enable_compile_cache, profile_trace, stage)
+from low_light_image_enhancement_tpu_torch.utils.debug import checked
+lows, _ = synth_batch(1, 24, 40)
+for cfg in (llt.PipelineConfig(method="hybrid", conv_impl="packed"),
+            llt.PRESETS["quality_fast"].replace(conv_impl="gemm")):
+    out = llt.EnhancePipeline(cfg, device="cpu").enhance_batch(lows)
+    assert out.shape == lows.shape and out.dtype == np.uint8
+try:
+    checked(torch.log)(torch.tensor([-1.0]))
+    raise AssertionError("checked let a NaN pass")
+except FloatingPointError:
+    pass
+with tempfile.TemporaryDirectory() as tmp:
+    with profile_trace(tmp):
+        with stage("noop"):
+            torch.ones(4).sum()
+    assert os.listdir(tmp)
+    assert enable_compile_cache(os.path.join(tmp, "k")) == \
+        str(_build.BUILD_DIR)
 """,
     "toolkit": r"""
 import torch

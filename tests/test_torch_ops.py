@@ -121,8 +121,9 @@ def test_guided_taps_raise_not_ported():
         tguided.guided_core_shift(x[0], 1e-2, 0.7, tf.roll2d, 4),
         rtol=0, atol=0)
     for method in ("retinex", "curve", "hybrid"):
-        tpipe.check_ported(PipelineConfig(method=method,
-                                          denoise_taps="guided"))
+        tpipe.EnhancePipeline(PipelineConfig(method=method,
+                                             denoise_taps="guided"),
+                              device="cpu")
     with pytest.raises(ValueError):
         tdn.plane_cores("luma", "box")
 

@@ -6,7 +6,9 @@ For each named image path, ``EnhancePipeline(device="cuda")
 images); for each video path (``video_*``, the arms of the JAX package's
 1080p video benchmark), ``VideoEnhancer(device="cuda")``'s frame step runs
 at 1080p with its state fed forward, alternating two frames. Each runs
-under ``torch.profiler`` for a few calls after a warm-up. It prints, per
+under ``torch.profiler`` for a few calls after a warm-up
+(``utils.profiling.profile_trace``, the calls inside ``stage(path)``; the
+trace lands in ``build/traces/<path>/``). It prints, per
 call, the wall time, the device-busy time (the sum of the CUDA kernels' and
 copies' own device times), the idle share (1 - busy / wall), and the
 kernels that take the most device time with their shares. The guided
@@ -63,6 +65,13 @@ import low_light_image_enhancement_tpu_torch as llt  # noqa: E402
 from low_light_image_enhancement_tpu_torch.data.synth import (  # noqa: E402
     synth_batch,
 )
+from low_light_image_enhancement_tpu_torch.utils import (  # noqa: E402
+    profile_trace,
+    stage,
+)
+
+# each path's trace (Chrome trace JSON), one directory a path
+TRACE_DIR = Path(__file__).resolve().parents[1] / "build" / "traces"
 
 PATHS = {
     "retinex": llt.PipelineConfig(),
@@ -125,20 +134,23 @@ def _device_us(evt) -> float:
 
 
 def _report(what: str, run) -> None:
-    """Profile CALLS calls of ``run`` after two warm-up calls."""
+    """Profile CALLS calls of ``run`` after two warm-up calls, inside the
+    stage ``what``; the trace goes to ``TRACE_DIR``."""
     for _ in range(2):
         run()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(CALLS):
-            run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
+    slug = "".join(c if c.isalnum() else "_" for c in what)
+    with profile_trace(TRACE_DIR / slug) as prof:
+        with stage(what):
+            t0 = time.perf_counter()
+            for _ in range(CALLS):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
+    # the stage's own range on the device's timeline spans the kernels:
+    # not a kernel of its own
     kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+               if str(e.device_type).endswith("CUDA") and e.key != what]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / CALLS
     print(f"{what}, {CALLS} calls: wall {wall_ms:.3f} ms/call, device busy "
           f"{busy_ms:.3f} ms/call, idle share "
