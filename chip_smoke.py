@@ -35,8 +35,8 @@ then K1; hybrid: K3), also under spatial_shards and from llie-torch
 enhance --raw; and the toolkit ops (ops: colour spaces, filters, retinex,
 gamma, Fourier, contrast) on the card. The nets' conv arms gemm, packed and
 packed12 (hybrid then K3, the presets then K5), the utils (checked,
-profile_trace, the per-source kernel build) and a spatial mesh spanning
-two processes (config 5, curve).
+profile_trace, the per-source kernel build), a spatial mesh spanning
+two processes (config 5, curve) and K8's canvas form fused_retinex_hwc.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -206,9 +206,14 @@ Phases (each raises on failure, so the script exits non-zero):
      other kernel; 10b each arm's ms a call and img/s beside xla and
      pallas (cascade for fcn), CUDA events, median of 5; 10c checked
      raising on a NaN made on the card and passing K1, profile_trace of
-     one enhance_batch_device call in stage("enhance") naming the stage
-     and K1's kernel, the kernel library's build (objects compiled and
-     reused) and a rebuild with one source changed; 10d two processes on
+     one enhance_batch_device call in stage("enhance"), in this process
+     after phases 7b-9 (naming the stage and K1's kernel, or raising
+     DeviceEventsLost where torch's profiler dropped the card's activity)
+     and in a process of its own (naming both), the kernel library's
+     build (objects compiled and reused) and a rebuild with one source
+     changed; 10e fused_retinex_hwc (K8 on the edge-padded HWC canvas) at
+     600x400 b8, Δu8 0 against its plain version and, cropped, against
+     enhance_hwc_u8 on the image, its launches K8's; 10d two processes on
      cuda:0 over gloo, each holding its rows of a spatial mesh spanning
      both (halos crossing the processes): config 5 at 2160x3840 b1 on 2 x
      4 shards, Δ 0 against the same mesh in one process and the
@@ -1432,6 +1437,7 @@ def phase10_conv_arms_utils(torch, card, wrappers, t_start):
     import socket
 
     from low_light_image_enhancement_tpu_torch.config import (
+        MARGIN,
         PRESETS,
         PipelineConfig,
     )
@@ -1441,6 +1447,12 @@ def phase10_conv_arms_utils(torch, card, wrappers, t_start):
     from low_light_image_enhancement_tpu_torch.kernels import _build
     from low_light_image_enhancement_tpu_torch.kernels import (
         fused_enhance as fe,
+    )
+    from low_light_image_enhancement_tpu_torch.kernels import (
+        fused_enhance_hwc as hw,
+    )
+    from low_light_image_enhancement_tpu_torch.kernels.striping import (
+        plan_canvas,
     )
     from low_light_image_enhancement_tpu_torch.ops.colorspace import (
         quantize_u8,
@@ -1453,6 +1465,9 @@ def phase10_conv_arms_utils(torch, card, wrappers, t_start):
         stage,
     )
     from low_light_image_enhancement_tpu_torch.utils.debug import checked
+    from low_light_image_enhancement_tpu_torch.utils.profiling import (
+        DeviceEventsLost,
+    )
 
     print(f"[10] ({time.perf_counter() - t_start:.0f} s) the conv arms "
           "gemm/packed/packed12, the utils, halos across processes")
@@ -1555,8 +1570,40 @@ def phase10_conv_arms_utils(torch, card, wrappers, t_start):
           f"{'passes, equal' if torch.equal(clean, plain) else 'DIFFERS'}")
     if not torch.equal(clean, plain):
         failed.append("10c checked K1 differs from K1")
-    # the trace, in a process of its own: in this one, after phases 8 and
-    # 9, torch.profiler records no CUDA activity (PERF.md §7)
+    # the trace in this process, after phases 7b-9: it names the stage and
+    # K1, or, where torch's profiler dropped the card's activity (it does
+    # now and then in a process that ran an earlier session, PERF.md §7),
+    # profile_trace raises DeviceEventsLost; never an empty trace untold
+    pipe0 = EnhancePipeline(cfg0, device="cuda")
+    pipe0.enhance_batch_device(xk)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        try:
+            with profile_trace(tmp):
+                with stage("enhance"):
+                    pipe0.enhance_batch_device(xk)
+                torch.cuda.synchronize()
+            raised = None
+        except DeviceEventsLost as e:
+            raised = e
+        traces = list(Path(tmp).glob("*.json"))
+        ev = json.loads(traces[0].read_text())["traceEvents"] if traces \
+            else []
+    k1 = sorted({e["name"] for e in ev
+                 if "retinex_tile_kernel" in e.get("name", "")})
+    named = any(e.get("name") == "enhance" for e in ev) and bool(k1)
+    kernels = sum(1 for e in ev if e.get("cat") == "kernel")
+    print(f"  10c profile_trace of one enhance_batch_device call in "
+          f"stage('enhance') in this process, after phases 7b-9: "
+          f"{len(ev)} events, {kernels} kernel events; "
+          + (f"raised DeviceEventsLost: {raised}" if raised else
+             f"the stage and K1's kernel "
+             f"{'named' if named else 'NOT both named'}"))
+    if not (named or (raised and kernels == 0 and len(traces) == 1)):
+        failed.append("10c profile_trace in this process neither named the "
+                      "stage and K1 nor raised DeviceEventsLost")
+    del pipe0
+    # and in a process of its own
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         proc = subprocess.run([sys.executable, "-c", PHASE10C_CHILD, tmp],
                               cwd=ROOT, capture_output=True, text=True,
@@ -1600,6 +1647,31 @@ def phase10_conv_arms_utils(torch, card, wrappers, t_start):
           f"{one['reused']} reused")
     if one["built"] != 1:
         failed.append(f"10c one source changed rebuilt {one['built']}")
+
+    # 10e: fused_retinex_hwc, K8 on the edge-padded HWC canvas (the JAX
+    # function's contract), 600x400 b8, against its plain version on the
+    # same canvas (the whole canvas, Δu8 0) and against enhance_hwc_u8 on
+    # the image (the crop, Δu8 0)
+    hcfg = PipelineConfig(denoise_guide="perchannel", denoise_taps="full")
+    plan = plan_canvas(400, 600, MARGIN)
+    imgs = frames_u8(8, 400, 600, seed=23)
+    canvas = hw.pad_hwc(imgs, plan, 400, 600)
+    what = "10e fused_retinex_hwc 600x400 b8"
+    got = counted(what, ("k8",),
+                  lambda: hw.fused_retinex_hwc(canvas, hcfg, plan))
+    plain = hw.enhance_hwc_u8_plain(canvas, hcfg)[
+        :, MARGIN:plan.padded_h - MARGIN]
+    crop = got[:, :400, MARGIN:MARGIN + 600]
+    for vs, want, have in (("its plain version", plain, got),
+                           ("enhance_hwc_u8 on the image",
+                            hw.enhance_hwc_u8(imgs, hcfg), crop)):
+        st = delta_stats(have.cpu().numpy(), want.cpu().numpy())
+        print(f"  {what} {tuple(got.shape)} vs {vs}: max|du8|="
+              f"{st['max_abs']} hist={st['hist']}; K8 launches "
+              f"{launches[what]['k8']}")
+        if st["max_abs"]:
+            failed.append(f"{what} differs from {vs}: {st}")
+    del imgs, canvas, got, plain, crop
 
     # 10d: two processes on cuda:0 over gloo, each holding its rows of a
     # spatial mesh that spans both
@@ -3481,8 +3553,9 @@ def main() -> int:
             "mxu_conv.py:288", k6b_ms, k6b_plain_ms, k6b_b, k6b_lib_ms),
         row("fcn_cascade_mxu (K7)", "k7", "fcn_cascade.cu",
             "fcn_cascade.py:169", k7_ms, k7_plain_ms, k7_b),
-        row("enhance_hwc_u8 (K8)", "k8", "retinex_tile.cu",
-            "fused_enhance_hwc.py:178", k8_ms, k8_plain_ms, k8_b),
+        row("enhance_hwc_u8 / fused_retinex_hwc (K8)", "k8",
+            "retinex_tile.cu", "fused_enhance_hwc.py:99", k8_ms, k8_plain_ms,
+            k8_b),
         dict(row("blur_illumination (K1/K3/K4 blur past the tiles)", "kb",
                  "fused_enhance.cu", "fused_enhance.py:146", kb_ms,
                  kb_plain_ms, kb_b),

@@ -12,6 +12,12 @@ it raises for the other denoise guides and taps, and takes u8 alone. A
 blur radius past ``MAX_BLUR_RADIUS`` is blurred first into a plane
 (``blur_illumination``), as K1 does. A CPU tensor goes to the plain
 version, a CUDA tensor to the kernel (or the call raises).
+
+``pad_hwc`` and ``fused_retinex_hwc`` are the JAX function's canvas form:
+the edge-padded HWC batch in, the enhanced canvas out, the caller crops.
+``fused_retinex_hwc`` runs the same kernel over the whole canvas (its
+clamped reads of an edge-padded canvas are the image's own), so its
+launches count on ``enhance_hwc_u8``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
     blur_illumination,
     fused_retinex_plain,
 )
+from low_light_image_enhancement_tpu_torch.kernels.striping import CanvasPlan
 
 
 def _check(imgs: torch.Tensor, cfg: PipelineConfig) -> None:
@@ -83,3 +90,29 @@ def enhance_hwc_u8(imgs: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
 
 
 enhance_hwc_u8.launches = 0
+
+
+def pad_hwc(imgs_u8: torch.Tensor, plan: CanvasPlan, h: int,
+            w: int) -> torch.Tensor:
+    """(B, H, W, 3) -> edge-padded (B, Hp, Wp, 3): ``margin`` rows/cols
+    before the image origin, the plan's alignment padding after (the JAX
+    package's ``pad_hwc``)."""
+    m, dev = plan.margin, imgs_u8.device
+    rows = torch.clamp(torch.arange(-m, plan.padded_h - m, device=dev),
+                       0, h - 1)
+    cols = torch.clamp(torch.arange(-m, plan.padded_w - m, device=dev),
+                       0, w - 1)
+    return imgs_u8.index_select(1, rows).index_select(2, cols)
+
+
+def fused_retinex_hwc(padded_u8: torch.Tensor, cfg: PipelineConfig,
+                      plan: CanvasPlan) -> torch.Tensor:
+    """(B, Hp, Wp, 3) u8 edge-padded HWC (``pad_hwc``) -> (B, Hp - 2 *
+    margin, Wp, 3) u8, the JAX function's shape: row 0 is the image's row
+    0, and the caller crops rows [0, H) and cols [margin, margin + W). K8
+    over the whole canvas; the rows returned are a view of its output."""
+    if tuple(padded_u8.shape[1:3]) != (plan.padded_h, plan.padded_w):
+        raise ValueError(f"expected a ({plan.padded_h}, {plan.padded_w}) "
+                         f"canvas, got {tuple(padded_u8.shape)}")
+    m = plan.margin
+    return enhance_hwc_u8(padded_u8, cfg)[:, m:plan.padded_h - m]

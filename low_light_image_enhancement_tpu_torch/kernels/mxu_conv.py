@@ -187,6 +187,51 @@ def pack_conv_weights_wgmma(w: torch.Tensor, groups: Sequence[int],
     return torch.cat(chunks, 0).contiguous()
 
 
+_TAPS = tuple((by, bx) for by in (-1, 0, 1) for bx in (-1, 0, 1))
+
+
+def pack_dense9_weights(w: torch.Tensor, groups: Sequence[int] = (),
+                        dilation: int = 1) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> the JAX package's dense-9-tap packed weights,
+    (9 * Lpad, 4 * Cout), in its layout (``mxu_conv.pack_dense9_weights``
+    there): rows tap-major over the block shifts (by, bx), then the
+    space-to-depth input lanes ([group][phase p = py*2+px][ci]), each tap
+    padded to Lpad (4 * Cin rounded up to 128); columns output phase-major
+    (q * Cout + co). Dilation 1 routes across phases (dy = 2*by + py - qy
+    in {-1, 0, 1}); an even dilation keeps the phase (p == q, tap (by+1,
+    bx+1)). K6 takes unpacked NHWC activations and packs its own weights
+    (``pack_conv_weights``, ``pack_conv_weights_wgmma``); this is the
+    TPU kernel's operand, for a caller that holds weights in that layout."""
+    cout, cin = w.shape[:2]
+    groups = tuple(groups) or (cin,)
+    if sum(groups) != cin:
+        raise ValueError(f"groups {groups} do not sum to Cin {cin}")
+    if dilation != 1 and dilation % 2:
+        raise ValueError(f"dilation must be 1 or even, got {dilation}")
+    lpad = -(-4 * cin // 128) * 128
+    hwio = w.detach().permute(2, 3, 1, 0)
+    out = w.new_zeros((9 * lpad, 4 * cout))
+    start = 0
+    for cg in groups:
+        for t, (by, bx) in enumerate(_TAPS):
+            for p in range(4):
+                py, px = divmod(p, 2)
+                row0 = t * lpad + 4 * start + p * cg
+                for q in range(4):
+                    qy, qx = divmod(q, 2)
+                    if dilation == 1:
+                        dy, dx = 2 * by + py - qy, 2 * bx + px - qx
+                    elif p == q:
+                        dy, dx = by, bx
+                    else:
+                        continue
+                    if dy in (-1, 0, 1) and dx in (-1, 0, 1):
+                        out[row0:row0 + cg, q * cout:(q + 1) * cout] = \
+                            hwio[dy + 1, dx + 1, start:start + cg]
+        start += cg
+    return out
+
+
 def _check_layer(xs: Sequence[torch.Tensor], w: torch.Tensor,
                  b: torch.Tensor, act: str, dilation: int) -> None:
     if not 1 <= len(xs) <= 2:

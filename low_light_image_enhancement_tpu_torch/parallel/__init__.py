@@ -4,7 +4,10 @@ enhancer, and data parallelism across processes (``distributed``). One
 process drives a grid of ``torch.device``s; the port of the JAX package's
 ``parallel``."""
 
-from low_light_image_enhancement_tpu_torch.parallel.halo import halo_pad
+from low_light_image_enhancement_tpu_torch.parallel.halo import (
+    halo_pad,
+    halo_pad_local,
+)
 from low_light_image_enhancement_tpu_torch.parallel.sharding import (
     Mesh,
     enhance_spatial_sharded,
@@ -20,6 +23,7 @@ __all__ = [
     "shard_batch_fn",
     "enhance_spatial_sharded",
     "halo_pad",
+    "halo_pad_local",
     "SpatialShardedVideoEnhancer",
     "Mesh",
 ]

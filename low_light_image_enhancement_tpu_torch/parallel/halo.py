@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["halo_pad", "exchange_seams"]
+__all__ = ["halo_pad", "halo_pad_local", "exchange_seams"]
 
 
 def _replicate(row: torch.Tensor, margin: int) -> torch.Tensor:
@@ -72,6 +72,27 @@ def halo_pad(shards: Sequence[torch.Tensor], margin: int,
                                                        non_blocking=True)
         out.append(torch.cat([top, x, bottom], dim=-2).contiguous())
     return out
+
+
+def halo_pad_local(x_local: torch.Tensor, margin: int, index: int,
+                   count: int, comm_device=None) -> torch.Tensor:
+    """The per-shard form of ``halo_pad`` (the JAX package's
+    ``halo_pad_local``): one shard's rows ``(..., Hl, W)``, shard ``index``
+    of ``count`` along the spatial axis -> ``(..., Hl + 2*margin, W)``
+    with its neighbours' rows, its own edge row replicated at the image's
+    top and bottom. Each shard is held by the process of that rank in the
+    default process group, and every one of them calls this together: the
+    neighbours' rows cross the group (``exchange_seams``, on
+    ``comm_device``, by default the rows' device). A single shard only
+    replicates and needs no group."""
+    if not 0 <= index < count:
+        raise ValueError(f"shard {index} of {count}")
+    if count == 1:
+        return halo_pad([x_local], margin)[0]
+    above, below = exchange_seams(
+        x_local, margin, index, count,
+        x_local.device if comm_device is None else comm_device)
+    return halo_pad([x_local], margin, above, below)[0]
 
 
 def exchange_seams(rows: torch.Tensor, margin: int, process: int,

@@ -35,6 +35,9 @@ from low_light_image_enhancement_tpu_torch.ops.filters import (
     gaussian_kernel_1d,
 )
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 # ---------------------------------------------------------- the plan ---- #
 # Mirror of fused_enhance.cu's blur::Plan (llie_blur_plan).
 

@@ -9,6 +9,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from low_light_image_enhancement_tpu_torch import cli
 from low_light_image_enhancement_tpu_torch.config import PipelineConfig
@@ -25,6 +26,9 @@ from low_light_image_enhancement_tpu_torch.video import (
     MultiStreamVideoEnhancer,
     VideoEnhancer,
 )
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 
 def test_cli_enhance(tmp_path, capsys):

@@ -37,6 +37,9 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
 )
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 # net -> (layer widths (Cin, Cout, k), JAX module, port module, apply
 # name, input shape): fcn tall enough that its dilation-32 layer has
 # interior pixels

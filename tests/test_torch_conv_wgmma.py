@@ -35,6 +35,9 @@ import torch
 
 from low_light_image_enhancement_tpu_torch.kernels import mxu_conv as tmx
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 F32_BAR = 1e-5
 
 # (groups, Cout, act, dilation, (H, W)): fcn's 24->24 layers at d 1, 2 and

@@ -34,6 +34,9 @@ from low_light_image_enhancement_tpu_torch.core import denoise_tail
 from low_light_image_enhancement_tpu_torch.kernels import tiled_denoise as td
 from test_torch_retinex_tile import SMEM_PER_SM, TH, TW, YH, pitch
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 # The kernel's shared memory: the three ring planes (YH rows and a spare
 # one) and pass 1's three planes of TH rows, at the engine's pitch with no
 # blur; three blocks an SM.

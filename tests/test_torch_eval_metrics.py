@@ -1,7 +1,9 @@
 """The port's eval metrics (eval/metrics.py) against the JAX package's, on
 the same random u8 pairs (numpy, seeded). Bar: 1e-4 (float32 sums in
-another order; the cube root is a power in the port, ``cbrt`` in JAX)."""
+another order; the cube root is a power in the port, ``cbrt`` in JAX).
+The JAX metrics run under ``jax.jit``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +12,9 @@ import torch
 from low_light_image_enhancement_tpu.eval import metrics as jm
 from low_light_image_enhancement_tpu_torch.data.synth import synth_pair
 from low_light_image_enhancement_tpu_torch.eval import metrics as tm
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 
 def _pair(shape, seed):
@@ -25,7 +30,8 @@ def _pair(shape, seed):
 def test_metric_matches_jax(name, shape):
     a, b = _pair(shape, seed=len(shape))
     got = getattr(tm, name)(torch.from_numpy(a), torch.from_numpy(b))
-    want = np.asarray(getattr(jm, name)(jnp.asarray(a), jnp.asarray(b)))
+    want = np.asarray(jax.jit(getattr(jm, name))(jnp.asarray(a),
+                                                 jnp.asarray(b)))
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
@@ -37,7 +43,8 @@ def test_metrics_on_an_eval15_pair():
     for name in ("psnr_u8", "ssim_u8", "delta_e76_u8"):
         got = float(getattr(tm, name)(torch.from_numpy(low),
                                       torch.from_numpy(high)))
-        want = float(getattr(jm, name)(jnp.asarray(low), jnp.asarray(high)))
+        want = float(jax.jit(getattr(jm, name))(jnp.asarray(low),
+                                                jnp.asarray(high)))
         assert abs(got - want) <= 1e-4 * max(1.0, abs(want)), (name, got,
                                                                want)
     identical = tm.psnr_u8(torch.from_numpy(low), torch.from_numpy(low))

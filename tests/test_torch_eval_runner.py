@@ -5,6 +5,7 @@ path (a batch that fails twice is skipped)."""
 
 import numpy as np
 import pytest
+import torch
 
 from low_light_image_enhancement_tpu.data.lol import LOLDataset as JLOL
 from low_light_image_enhancement_tpu.eval.runner import eval_lol as jeval
@@ -12,6 +13,9 @@ from low_light_image_enhancement_tpu.pipeline import EnhancePipeline as JPipe
 from low_light_image_enhancement_tpu_torch.data.lol import LOLDataset
 from low_light_image_enhancement_tpu_torch.eval.runner import eval_lol
 from low_light_image_enhancement_tpu_torch.pipeline import EnhancePipeline
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 
 def test_dataset_matches_jax_and_falls_back_to_synthetic(tmp_path):

@@ -4,8 +4,12 @@ the CPU, and the pipeline under conv_impl="cascade" against the JAX
 pipeline with its kernels in interpret mode.
 
 Bars: float32 within 1e-5 over the six layers; the pipeline float32 max
-|du8| <= 1 with a changed share < 1e-3, bf16 PSNR >= 40 dB."""
+|du8| <= 1 with a changed share < 1e-3, bf16 PSNR >= 40 dB. The JAX
+kernel and net run under ``jax.jit``."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +35,9 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
 )
 from test_torch_mxu_conv import assert_within, check_pipeline, pipeline_pair
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 DILS = _dilations()[1:]   # 2, 4, 8, 16, 32, 1
 
 
@@ -52,12 +59,10 @@ def _torch_stack(ws, bs):
 
 def test_cascade_plain_matches_jax_kernel():
     x, ws, bs = _stack()
-    want = depth_to_space(jcas.fcn_cascade_mxu(
-        space_to_depth(jnp.asarray(x)),
-        [pack_dense9_weights(jnp.asarray(w), dilation=d)
-         for w, d in zip(ws, DILS)],
-        [jnp.asarray(b) for b in bs], [max(1, d // 2) for d in DILS],
-        interpret=True))
+    want = jax.jit(lambda x, ws, bs: depth_to_space(jcas.fcn_cascade_mxu(
+        space_to_depth(x),
+        [pack_dense9_weights(w, dilation=d) for w, d in zip(ws, DILS)],
+        bs, [max(1, d // 2) for d in DILS], interpret=True)))(x, ws, bs)
     tws, tbs = _torch_stack(ws, bs)
     got = tcas.fcn_cascade_mxu(torch.from_numpy(x), tws, tbs, DILS)
     assert got.shape == x.shape and got.dtype == torch.float32
@@ -95,8 +100,9 @@ def test_apply_fcn_cascade_matches_jax():
     """The shipped fcn weights at 80x96, float32."""
     params = jweights.resolve_weights("fcn")
     x = np.random.default_rng(3).random((2, 3, 80, 96), dtype=np.float32)
-    want = jcas.apply_fcn_cascade(params, jnp.asarray(x),
-                                  compute_dtype=jnp.float32, interpret=True)
+    want = jax.jit(functools.partial(
+        jcas.apply_fcn_cascade, compute_dtype=jnp.float32,
+        interpret=True))(params, jnp.asarray(x))
     got = tcas.apply_fcn_cascade(params_from_numpy(params),
                                  torch.from_numpy(x), compute_dtype="float32")
     assert got.shape == want.shape

@@ -26,6 +26,9 @@ from low_light_image_enhancement_tpu_torch.config import PipelineConfig
 from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
 from low_light_image_enhancement_tpu_torch.kernels import fused_enhance as fe
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 
 def _assert_u8_close(got, want):
     d = np.abs(np.asarray(got).astype(int) - np.asarray(want).astype(int))

@@ -11,6 +11,7 @@ chip_smoke.py; the plane that stands in for the kernels' own blur past
 MAX_BLUR_RADIUS (``blur_illumination``) is held here to the canvas blur.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ from low_light_image_enhancement_tpu import blocks as jblocks
 from low_light_image_enhancement_tpu import video as jvideo
 from low_light_image_enhancement_tpu.config import PipelineConfig as JConfig
 from low_light_image_enhancement_tpu.config import canvas_margin
+from low_light_image_enhancement_tpu.models import curve_cnn as jcnn
+from low_light_image_enhancement_tpu.models import weights as jweights
 from low_light_image_enhancement_tpu_torch import blocks as tblocks
 from low_light_image_enhancement_tpu_torch.config import PipelineConfig
 from low_light_image_enhancement_tpu_torch.core import pad_edge
@@ -38,6 +41,10 @@ from test_torch_fused_enhance import (
     _gain,
     _jax_k1,
 )
+from test_torch_models import he_params
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 
 def _f32(x):
@@ -216,12 +223,15 @@ def test_enhance_learned_block_f32_matches_jax(kw):
     xb = _f32(np.pad(lows.transpose(0, 3, 1, 2),
                      ((0, 0), (0, 0), (halo, halo + h_core - h),
                       (m, wp - w - m)), mode="edge"))
-    from low_light_image_enhancement_tpu.pipeline import EnhancePipeline
-
-    jparams = EnhancePipeline(jcfg, force_jnp=True).model_params
-    want = jblocks.enhance_learned_block(
-        jnp.asarray(xb), jcfg, jparams, -halo, h, w, use_pallas=True,
-        interpret=True, halo=halo)
+    if "curve_features" in kw:
+        # a width with no shipped weights: the JAX package draws them
+        jparams = he_params(lambda: jcnn.init_curve_cnn(
+            jax.random.PRNGKey(0), jcfg.curve_features, jcfg.curve_iters))
+    else:
+        jparams = jweights.load_pretrained(kw["method"])
+    want = jax.jit(lambda x, p: jblocks.enhance_learned_block(
+        x, jcfg, p, -halo, h, w, use_pallas=True, interpret=True,
+        halo=halo))(jnp.asarray(xb), jparams)
     params = params_from_numpy({k: {n: np.asarray(t) for n, t in v.items()}
                                 for k, v in jparams.items()})
     got = tblocks.enhance_learned_block(torch.from_numpy(xb), cfg, params,

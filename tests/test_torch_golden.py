@@ -18,6 +18,9 @@ from low_light_image_enhancement_tpu_torch.eval.metrics import (
 from low_light_image_enhancement_tpu_torch.io import codec
 from low_light_image_enhancement_tpu_torch.pipeline import EnhancePipeline
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 DATA = Path(__file__).parent / "data"
 EXPECTED = json.loads((DATA / "expected_metrics.json").read_text())
 

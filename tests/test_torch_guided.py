@@ -8,6 +8,7 @@ order in the two frameworks); the shift cores bit-equal, since both run
 the same eager ops in the same order (JAX eagerly, not under jit, which
 fuses and rounds some sums differently)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +29,9 @@ from low_light_image_enhancement_tpu_torch.ops import denoise as tdn
 from low_light_image_enhancement_tpu_torch.ops import filters as tf
 from low_light_image_enhancement_tpu_torch.ops import guided as tg
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 
 def _planes(shape, seed=0):
     return np.random.default_rng(seed).random(shape, dtype=np.float32)
@@ -47,12 +51,12 @@ def test_guided_filter_and_denoise_match():
     np.testing.assert_allclose(
         tg.guided_filter(torch.from_numpy(x), torch.from_numpy(guide), 2,
                          1e-2).numpy(),
-        np.asarray(jg.guided_filter(jnp.asarray(x), jnp.asarray(guide), 2,
-                                    1e-2)), rtol=0, atol=1e-6)
+        np.asarray(jax.jit(jg.guided_filter, static_argnums=(2, 3))(
+            jnp.asarray(x), jnp.asarray(guide), 2, 1e-2)), rtol=0, atol=1e-6)
     np.testing.assert_allclose(
         tg.guided_denoise(torch.from_numpy(x), 3, 1e-2, 0.7).numpy(),
-        np.asarray(jg.guided_denoise(jnp.asarray(x), 3, 1e-2, 0.7)),
-        rtol=0, atol=1e-6)
+        np.asarray(jax.jit(jg.guided_denoise, static_argnums=(1, 2, 3))(
+            jnp.asarray(x), 3, 1e-2, 0.7)), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("radius", [1, 2, 4])

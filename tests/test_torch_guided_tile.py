@@ -29,6 +29,9 @@ from low_light_image_enhancement_tpu_torch.ops.filters import (
     upsample_maps,
 )
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 GT, GP, NT = 32, 8, 256          # guided.cuh GT_H = GT_W, GP, GUIDED_THREADS
 SM_BYTES, BLOCK_BYTES = 233472, 232448   # an SM's, a block's at most
 

@@ -30,6 +30,9 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
 )
 from low_light_image_enhancement_tpu_torch.ops import isp as tisp
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 GAMMA = 1.0 / 2.2
 
 

@@ -31,6 +31,9 @@ from low_light_image_enhancement_tpu_torch.kernels.fused_enhance import (
 from low_light_image_enhancement_tpu_torch.ops.colorspace import quantize_u8
 from low_light_image_enhancement_tpu_torch.pipeline import EnhancePipeline
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 CANVAS_CASES = {
     "default": (dict(), False),
     "guided r2": (dict(denoise_taps="guided", guided_radius=2), False),

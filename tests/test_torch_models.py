@@ -1,6 +1,7 @@
 """The nets (curve CNN, fcn, decom) and their weights against the JAX
 package's, with the shipped weights given to both."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,26 @@ from low_light_image_enhancement_tpu_torch.models import decom as tdecom
 from low_light_image_enhancement_tpu_torch.models import fcn as tfcn
 from low_light_image_enhancement_tpu_torch.models import layers as tlayers
 from low_light_image_enhancement_tpu_torch.models import weights as tweights
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
+
+def he_params(init, seed=0):
+    """Parameters of the shapes ``init`` (a JAX package initialiser of no
+    arguments) makes, read by ``jax.eval_shape`` (nothing runs), drawn as
+    its initialisers draw them, with numpy: He-normal weights (HWIO) and
+    zero biases. JAX's eager random init compiles op by op."""
+    rng = np.random.default_rng(seed)
+
+    def draw(leaf):
+        if len(leaf.shape) != 4:
+            return np.zeros(leaf.shape, np.float32)
+        kh, kw, cin, _ = leaf.shape
+        return (rng.standard_normal(leaf.shape)
+                * np.sqrt(2.0 / (kh * kw * cin))).astype(np.float32)
+
+    return jax.tree_util.tree_map(draw, jax.eval_shape(init))
 
 
 def _hybrid_weights():

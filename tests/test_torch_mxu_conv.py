@@ -10,6 +10,9 @@ see ``assert_within``).
 Pipelines: float32 max |du8| <= 1 with a changed share < 1e-3, bf16 PSNR
 >= 40 dB, the bars of tests/test_torch_pipeline.py."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,6 +46,9 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
 )
 from test_torch_conv_wgmma import ROWS, SMEM_LIMIT, wgmma_plan
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -122,6 +128,27 @@ def test_dense9_plain_matches_jax_kernel(dilation, dtype):
     got = tmx.conv2d_dense9_mxu(txs[0], tw, tb, act="leaky",
                                 dilation=dilation)
     assert_within(got.float().numpy(), want.astype(jnp.float32), dtype)
+
+
+@pytest.mark.parametrize("groups,cout,dilation", [((24,), 24, 1),
+                                                  ((24,), 24, 2),
+                                                  ((32, 32), 24, 1),
+                                                  ((20, 12), 12, 4)])
+def test_pack_dense9_weights_matches_jax(groups, cout, dilation):
+    """The port's (Cout, Cin, 3, 3) weights packed into the JAX package's
+    dense-9 layout, Δ 0; odd dilations raise in both."""
+    _, wt, _ = _layer(groups, cout, 2, 2, seed=cout + dilation)
+    want = jmx.pack_dense9_weights(jnp.asarray(wt), groups, dilation)
+    got = tmx.pack_dense9_weights(
+        torch.from_numpy(np.ascontiguousarray(wt.transpose(3, 2, 0, 1))),
+        groups, dilation)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="even"):
+        jmx.pack_dense9_weights(jnp.asarray(wt), groups, 3)
+    with pytest.raises(ValueError, match="even"):
+        tmx.pack_dense9_weights(torch.from_numpy(wt).permute(3, 2, 0, 1),
+                                groups, 3)
 
 
 def test_wrappers_check_their_arguments():
@@ -245,6 +272,13 @@ def _net_input(h, w, seed=0):
                                               dtype=np.float32)
 
 
+def _jit_interpret(apply, **kw):
+    """A JAX pallas arm in interpret mode under one jax.jit (eager, it
+    dispatches and compiles op by op)."""
+    return jax.jit(functools.partial(apply, compute_dtype=jnp.float32,
+                                     interpret=True, **kw))
+
+
 @pytest.fixture(scope="module")
 def net_refs():
     """The JAX nets' pallas arms (interpret mode, float32) on shared
@@ -257,10 +291,21 @@ def net_refs():
             ("fcn", "fcn", jfcn.apply_fcn_pallas, (80, 96))):
         params = jweights.resolve_weights(weights)
         x = _net_input(h, w)
-        y = apply(params, jnp.asarray(x), compute_dtype=jnp.float32,
-                  interpret=True)
+        y = _jit_interpret(apply)(params, jnp.asarray(x))
         out[name] = (params, x, y)
     return out
+
+
+def _curve_params(features, n_iter, seed):
+    """The curve CNN's He-normal weights and zero biases, as
+    ``init_curve_cnn`` shapes them, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    sizes = [(3, features)] + [(features, features)] * 3 \
+        + [(2 * features, features)] * 2 + [(2 * features, 3 * n_iter)]
+    return {f"c{i}": {"w": (rng.standard_normal((3, 3, cin, cout))
+                            * np.sqrt(2.0 / (9 * cin))).astype(np.float32),
+                      "b": np.zeros(cout, np.float32)}
+            for i, (cin, cout) in enumerate(sizes, start=1)}
 
 
 @pytest.mark.parametrize("features,n_iter", [(64, 8), (32, 4), (32, 16)])
@@ -269,15 +314,10 @@ def test_pallas_curve_cnn_widths_match_jax(features, n_iter):
     curve_iters 4 and 16 reach (c5/c6 128 -> 64, heads of 12 and 48
     channels), random weights, against the JAX package's pallas arm in
     interpret mode, f32 within 1e-5."""
-    import jax
-
-    params = jcnn.init_curve_cnn(jax.random.PRNGKey(features + n_iter),
-                                 features, n_iter)
-    params = jax.tree_util.tree_map(np.asarray, params)
+    params = _curve_params(features, n_iter, seed=features + n_iter)
     x = _net_input(24, 32, seed=n_iter)
-    want = jcnn.apply_curve_cnn_pallas(params, jnp.asarray(x), n_iter,
-                                       compute_dtype=jnp.float32,
-                                       interpret=True)
+    want = _jit_interpret(jcnn.apply_curve_cnn_pallas, n_iter=n_iter)(
+        params, jnp.asarray(x))
     got = tcnn.apply_curve_cnn_pallas(params_from_numpy(params),
                                       torch.from_numpy(x), n_iter,
                                       compute_dtype="float32")

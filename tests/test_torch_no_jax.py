@@ -8,7 +8,9 @@ sharded pipeline, the sharded video enhancer and a data-parallel step on
 CPU meshes); in the same way RAW ingest (enhance_raw, also sharded, and
 llie-torch enhance --raw on a .npy) and the toolkit ops; chip_smoke.py
 names neither. Also the gemm and packed conv arms and the utils
-(checked, profile_trace, stage, enable_compile_cache)."""
+(checked, profile_trace, stage, enable_compile_cache). One interpreter
+runs every program, each in a namespace of its own, with one CPU thread
+and a time limit."""
 
 import subprocess
 import sys
@@ -26,6 +28,9 @@ from low_light_image_enhancement_tpu_torch.kernels import (
 )
 from low_light_image_enhancement_tpu_torch.kernels import mxu_conv as mx
 from low_light_image_enhancement_tpu_torch.kernels import tiled_denoise as td
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -45,7 +50,7 @@ assert not loaded, loaded
 print("OK")
 """
 
-_PROGRAM = _BLOCKED + r"""
+_PROGRAM = r"""
 import numpy as np
 import torch
 import low_light_image_enhancement_tpu_torch as llt
@@ -123,7 +128,7 @@ assert (sve.process(lows[0]) == llt.VideoEnhancer(
 params, opt, m = train.make_train_step(tcfg, parallel.make_mesh(
     2, 1, ["cpu", "cpu"]))(params, opt, batch)
 assert int(opt["count"]) == 2 and distributed.process_group_size() == 0
-""" + _LOADED
+"""
 
 # the slices' programs, each run in a fresh interpreter with jax, the JAX
 # package and PIL blocked
@@ -192,20 +197,42 @@ for y in (ops.clahe(x), ops.autocontrast(x), ops.raw_to_srgb(x[:, 0]),
 }
 
 
-def test_port_runs_without_jax():
-    proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
+_RUN_EACH = r"""
+import traceback
+import torch
+torch.set_num_threads(1)
+for name, program in PROGRAMS:
+    try:
+        exec(compile(program, name, "exec"), {"__name__": "__main__"})
+        print(f"RAN {name}", flush=True)
+    except BaseException:
+        traceback.print_exc()
+        print(f"FAILED {name}", flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def without_jax():
+    """The programs, the port's and each slice's, in one fresh interpreter
+    with jax, the JAX package and PIL blocked: its stdout and stderr."""
+    programs = [("port", _PROGRAM)] + sorted(_SLICES.items())
+    script = (_BLOCKED + f"PROGRAMS = {programs!r}\n" + _RUN_EACH
+              + _LOADED)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("OK")
+    assert proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]
+    return proc.stdout, proc.stderr
+
+
+def test_port_runs_without_jax(without_jax):
+    out, err = without_jax
+    assert "RAN port" in out.splitlines(), err[-3000:]
 
 
 @pytest.mark.parametrize("slice_", sorted(_SLICES))
-def test_port_slice_runs_without_jax(slice_):
-    proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED + _SLICES[slice_] + _LOADED],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("OK")
+def test_port_slice_runs_without_jax(without_jax, slice_):
+    out, err = without_jax
+    assert f"RAN {slice_}" in out.splitlines(), err[-3000:]
 
 
 def test_port_sources_name_no_jax_import():

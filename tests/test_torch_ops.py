@@ -10,6 +10,7 @@ import torch
 
 from low_light_image_enhancement_tpu import core as jcore
 from low_light_image_enhancement_tpu import blocks as jblocks
+from low_light_image_enhancement_tpu import pipeline as jpipe
 from low_light_image_enhancement_tpu.config import PipelineConfig as JConfig
 from low_light_image_enhancement_tpu.ops import colorspace as jcs
 from low_light_image_enhancement_tpu.ops import curves as jcurves
@@ -19,11 +20,17 @@ from low_light_image_enhancement_tpu_torch import blocks as tblocks
 from low_light_image_enhancement_tpu_torch import core as tcore
 from low_light_image_enhancement_tpu_torch import pipeline as tpipe
 from low_light_image_enhancement_tpu_torch.config import PipelineConfig
+from low_light_image_enhancement_tpu_torch.kernels.striping import (
+    plan_canvas,
+)
 from low_light_image_enhancement_tpu_torch.ops import colorspace as tcs
 from low_light_image_enhancement_tpu_torch.ops import curves as tcurves
 from low_light_image_enhancement_tpu_torch.ops import denoise as tdn
 from low_light_image_enhancement_tpu_torch.ops import filters as tf
 from low_light_image_enhancement_tpu_torch.ops import guided as tguided
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 ATOL = 1e-6
 
@@ -221,6 +228,19 @@ def test_enhance_core_padded_matches(kw):
     _close(got, want)
 
 
+@pytest.mark.parametrize("h,w,margin", [(30, 27, 4), (8, 125, 16)])
+def test_pipeline_pad_planar_matches_jax(h, w, margin):
+    """pipeline.pad_planar (core's) against the JAX package's on the
+    plan's canvas, u8 and f32, Δ 0."""
+    plan = plan_canvas(h, w, margin)
+    x = _planes((2, 3, h, w), seed=h)
+    for arr in (x, np.round(x * 255).astype(np.uint8)):
+        got = tpipe.pad_planar(torch.from_numpy(arr), plan, h, w)
+        want = jpipe.pad_planar(jnp.asarray(arr), plan, h, w)
+        assert got.shape == (2, 3, plan.padded_h, plan.padded_w)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_pad_edge_is_replicate_padding():
     x = np.arange(2 * 3 * 5 * 7, dtype=np.uint8).reshape(2, 3, 5, 7)
     got = tcore.pad_edge(torch.from_numpy(x), 2, 3, 4, 1).numpy()
@@ -229,10 +249,12 @@ def test_pad_edge_is_replicate_padding():
 
 
 def test_replicate_margin_cols_and_mask_extent_match():
+    """Also under the JAX names: blocks.replicate_margin_cols, Δ 0."""
     x = _planes((2, 3, 30, 40), seed=9)
-    np.testing.assert_array_equal(
-        tcore.replicate_margin_cols(torch.from_numpy(x), 27, 4).numpy(),
-        np.asarray(jblocks.replicate_margin_cols(jnp.asarray(x), 27, 4)))
+    want = np.asarray(jblocks.replicate_margin_cols(jnp.asarray(x), 27, 4))
+    for fn in (tcore.replicate_margin_cols, tblocks.replicate_margin_cols):
+        np.testing.assert_array_equal(
+            fn(torch.from_numpy(x), 27, 4).numpy(), want)
     np.testing.assert_array_equal(
         tblocks._mask_extent(torch.from_numpy(x), -8, 14, 27, 4).numpy(),
         np.asarray(jblocks._mask_extent(jnp.asarray(x), -8, 14, 27, 4)))

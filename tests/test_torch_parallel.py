@@ -38,6 +38,9 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
 )
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

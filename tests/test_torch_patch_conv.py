@@ -14,6 +14,9 @@ import torch
 from low_light_image_enhancement_tpu.ops import patch_conv as jpc
 from low_light_image_enhancement_tpu_torch.ops import patch_conv as tpc
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 F32_BAR = 2e-5
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -25,6 +25,9 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
 )
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 
 def _pair(kw, bucket=None):
     ref = jpipe.EnhancePipeline(JConfig(**kw), force_jnp=True, bucket=bucket)

@@ -16,6 +16,9 @@ from low_light_image_enhancement_tpu_torch.io.prefetch import (
     to_planar,
 )
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 
 def test_yields_all_items_in_order_as_tensors():
     src = [np.full((4, 4), i, np.float32) for i in range(10)]

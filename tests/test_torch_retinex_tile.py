@@ -22,6 +22,9 @@ import torch
 from low_light_image_enhancement_tpu_torch.ops import denoise
 from low_light_image_enhancement_tpu_torch.ops.filters import roll2d
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 # ------------------------------------------------- the pair-weight model #
 
 INV2S2 = 1.0 / (2.0 * 0.2 * 0.2)   # the default denoise_sigma

@@ -5,6 +5,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from low_light_image_enhancement_tpu_torch import (
     EnhancePipeline,
@@ -13,6 +14,9 @@ from low_light_image_enhancement_tpu_torch import (
     ServerSaturated,
 )
 from low_light_image_enhancement_tpu_torch.data.synth import synth_pair
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 
 def _imgs():

@@ -29,6 +29,9 @@ from low_light_image_enhancement_tpu_torch.config import (
 )
 from low_light_image_enhancement_tpu_torch.kernels import tiled_denoise as td
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 HB, WB = 40, 128  # a tiny block: one tile column of 128, one stripe
 
 

@@ -11,6 +11,9 @@ import torch
 from low_light_image_enhancement_tpu import ops as jops
 from low_light_image_enhancement_tpu_torch import ops as tops
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 SHAPE = (2, 3, 24, 36)
 
 

@@ -6,6 +6,7 @@ queue staging a (low, high) pair, checkpoint rotation, ``save_params``
 through the JAX package's ``load_params`` and ``apply_*``, the roofline's
 counts (equal), and ``llie-torch train`` on the CPU."""
 
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,22 +39,32 @@ from low_light_image_enhancement_tpu_torch.utils.checkpoint import (
     CheckpointManager,
 )
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
-def jax_draws(key, b, h, w):
-    """The JAX package's synth_pair_batch draws, by its own key split."""
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _jax_draws(key, b, h, w):
     (k_base, k_tex, k_fine, k_lvl, k_illum, k_cast, k_rd, k_sh,
      k_noise) = jax.random.split(key, 9)
     u = jax.random.uniform
-    d = {"base": u(k_base, (b, 6, 6, 3)), "texture": u(k_tex, (b, 24, 24, 3)),
-         "fine": u(k_fine, (b, 48, 48, 3)),
-         "log_level": u(k_lvl, (b, 1, 1, 1), minval=jnp.log(0.03),
-                        maxval=jnp.log(0.45)),
-         "illum": u(k_illum, (b, 4, 4, 1)),
-         "cast": u(k_cast, (b, 1, 1, 3), minval=-0.25, maxval=0.25),
-         "read": u(k_rd, (b, 1, 1, 1), minval=0.004, maxval=0.015),
-         "shot": u(k_sh, (b, 1, 1, 1), minval=0.0005, maxval=0.003),
-         "noise": jax.random.normal(k_noise, (b, h, w, 3))}
-    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    return {"base": u(k_base, (b, 6, 6, 3)),
+            "texture": u(k_tex, (b, 24, 24, 3)),
+            "fine": u(k_fine, (b, 48, 48, 3)),
+            "log_level": u(k_lvl, (b, 1, 1, 1), minval=jnp.log(0.03),
+                           maxval=jnp.log(0.45)),
+            "illum": u(k_illum, (b, 4, 4, 1)),
+            "cast": u(k_cast, (b, 1, 1, 3), minval=-0.25, maxval=0.25),
+            "read": u(k_rd, (b, 1, 1, 1), minval=0.004, maxval=0.015),
+            "shot": u(k_sh, (b, 1, 1, 1), minval=0.0005, maxval=0.003),
+            "noise": jax.random.normal(k_noise, (b, h, w, 3))}
+
+
+def jax_draws(key, b, h, w):
+    """The JAX package's synth_pair_batch draws, by its own key split
+    (under jax.jit, as the JAX package's training loop draws them)."""
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in _jax_draws(key, b, h, w).items()}
 
 
 def test_synth_pair_batch_body_matches_jax():
@@ -61,7 +72,8 @@ def test_synth_pair_batch_body_matches_jax():
     its columns and the other fields grow."""
     key = jax.random.PRNGKey(7)
     b, h, w = 2, 40, 56
-    want = jsd.synth_pair_batch(key, b, h, w)
+    want = jax.jit(jsd.synth_pair_batch, static_argnums=(1, 2, 3))(
+        key, b, h, w)
     got = tsd.synth_from_draws(jax_draws(key, b, h, w), h, w)
     for g, wnt in zip(got, want):
         assert g.shape == (b, 3, h, w)

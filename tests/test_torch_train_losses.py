@@ -38,6 +38,10 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
     params_to_numpy,
 )
+from test_torch_models import he_params
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 LOSS_RTOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-4
@@ -74,11 +78,10 @@ def tie_batch():
 
 def jax_params(net):
     key = jax.random.PRNGKey(0)
-    if net == "curve":
-        return jt.init_train_state(TINY)[0]
-    if net == "fcn":
-        return j_init_fcn(key, features=TINY.features)
-    return j_init_decom(key)
+    return he_params({
+        "curve": lambda: jt.init_train_state(TINY)[0],
+        "fcn": lambda: j_init_fcn(key, features=TINY.features),
+        "decom": lambda: j_init_decom(key)}[net])
 
 
 B = dataclasses.replace(TINY, denoise_in_loss=True)

@@ -33,6 +33,9 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     params_to_numpy,
 )
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 LOSS_REL, PARAMS_REL = 1e-6, 1e-5

@@ -25,6 +25,10 @@ from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
     params_to_numpy,
 )
+from test_torch_models import he_params
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 PARAM_ATOL, PARAM_RTOL = 1e-6, 1e-4
 
@@ -57,9 +61,10 @@ def lows(seed=0, n=4):
 
 
 def carried_state(jcfg):
-    """JAX's initial params and optimizer state, and the port's from the
-    same weights."""
-    jp, jo = jt.init_train_state(jcfg)
+    """JAX's initial params (``init_train_state``'s, drawn with numpy) and
+    optimizer state, and the port's from the same weights."""
+    jp = he_params(lambda: jt.init_train_state(jcfg)[0])
+    jo = jt.make_optimizer(jcfg).init(jp)
     pp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
     return jp, jo, pp, tt.make_optimizer(port_cfg(jcfg)).init(pp)
 
@@ -118,7 +123,8 @@ def test_bf16_loss_matches_jax():
     jcfg = dataclasses.replace(TINY, compute_dtype="bfloat16")
     jp, _, pp, _ = carried_state(jcfg)
     x = lows()
-    lj, _ = jt.zero_reference_loss(jp, jnp.asarray(x), jcfg)
+    lj, _ = jax.jit(functools.partial(jt.zero_reference_loss, tcfg=jcfg))(
+        jp, jnp.asarray(x))
     lt, _ = tt.zero_reference_loss(pp, torch.from_numpy(x), port_cfg(jcfg))
     np.testing.assert_allclose(float(lt), float(lj), rtol=1e-2)
 

@@ -23,6 +23,9 @@ from low_light_image_enhancement_tpu_torch.utils import (
 )
 from low_light_image_enhancement_tpu_torch.utils.debug import checked
 
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
+
 
 def test_profile_trace_writes_a_trace_naming_the_stage(tmp_path):
     d = tmp_path / "trace"
@@ -35,6 +38,30 @@ def test_profile_trace_writes_a_trace_naming_the_stage(tmp_path):
              ["traceEvents"]}
     assert "tiny-op" in names
     assert any(e.key == "tiny-op" for e in prof.key_averages())
+
+
+def test_a_trace_of_launches_without_device_events_is_told():
+    """profile_trace raises DeviceEventsLost where the trace holds kernel
+    launches and no device event (torch's profiler dropped the card's
+    activity); a trace with the kernel, or of no launch, passes."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from low_light_image_enhancement_tpu_torch.utils import profiling
+
+    def ev(name, device):
+        return SimpleNamespace(name=name, device_type=device)
+
+    launch = ev("cudaLaunchKernel", DeviceType.CPU)
+    kernel = ev("retinex_tile_kernel", DeviceType.CUDA)
+    op = ev("aten::mul", DeviceType.CPU)
+    assert profiling.launches_without_device_events([op, launch, launch]) \
+        == 2
+    assert profiling.launches_without_device_events([op, launch, kernel]) \
+        == 0
+    assert profiling.launches_without_device_events([op]) == 0
+    assert issubclass(profiling.DeviceEventsLost, RuntimeError)
 
 
 def test_stage_is_transparent():

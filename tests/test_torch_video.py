@@ -11,6 +11,9 @@ own bar (tests/test_torch_models.py), found 1.3e-6. Output deltas found at
 40x72: 0 for every float32 arm, retinex included (it has no conv).
 """
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -28,6 +31,9 @@ from low_light_image_enhancement_tpu_torch.data.synth import synth_batch
 from low_light_image_enhancement_tpu_torch.models.weights import (
     params_from_numpy,
 )
+
+# one CPU thread a test worker: the tier-1 run's workers share the cores
+torch.set_num_threads(1)
 
 
 def _pair(kw, ema_in_kernel=True, alpha=0.3):
@@ -204,7 +210,8 @@ def test_video_options_and_inputs_are_checked():
 ])
 def test_video_step_takes_f32_blocks(kw, ema_in_kernel):
     """video_step on an f32 block (refused before f32 I/O was ported)
-    against the JAX video_step on the same block: two chained frames, f32
+    against the JAX video_step (jitted) on the same block: two chained
+    frames, f32
     out within 1e-5 on the consumed columns, the carries within 1e-6."""
     kw = dict(kw, compute_dtype="float32")
     cfg, jcfg = PipelineConfig(**kw), JConfig(**kw)
@@ -214,6 +221,9 @@ def test_video_step_takes_f32_blocks(kw, ema_in_kernel):
         jparams = jvideo.VideoEnhancer(jcfg).model_params
         params = params_from_numpy(jparams)
     m = canvas_margin(cfg)
+    jstep = jax.jit(functools.partial(
+        jvideo.video_step, cfg=jcfg, alpha=0.3, h=33, w=47,
+        ema_in_kernel=ema_in_kernel))
     tstate, jstate = (torch.zeros((1,), dtype=torch.bool), None), None
     for f in frames:
         xb = tvideo.pad_video_block(torch.from_numpy(f[None]), cfg)
@@ -224,10 +234,9 @@ def test_video_step_takes_f32_blocks(kw, ema_in_kernel):
                                                      np.float32))
         tstate, got = tvideo.video_step(tstate, xf, cfg, 0.3, params, 33,
                                         47, ema_in_kernel=ema_in_kernel)
-        jstate, want = jvideo.video_step(
-            jstate, xf.numpy(), jcfg, 0.3,
-            None if params is None else jparams, 33, 47,
-            ema_in_kernel=ema_in_kernel)
+        jstate, want = jstep(
+            jstate, xf.numpy(),
+            model_params=None if params is None else jparams)
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy()[..., :33, m:m + 47],
                                    np.asarray(want)[..., :33, m:m + 47],
