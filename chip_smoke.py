@@ -37,6 +37,9 @@ gamma, Fourier, contrast) on the card. The nets' conv arms gemm, packed and
 packed12 (hybrid then K3, the presets then K5), the utils (checked,
 profile_trace, the per-source kernel build), a spatial mesh spanning
 two processes (config 5, curve) and K8's canvas form fused_retinex_hwc.
+The bench (bench.py): each method's chain of enhance_batch_device steps
+captured into a CUDA graph (retinex K1, curve and hybrid K3, fcn and
+decom K5; retinex's canvas chain K1's canvas form), and its main.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. the card: CUDA present, compute capability 9.0, name and power limit;
@@ -219,7 +222,20 @@ Phases (each raises on failure, so the script exits non-zero):
      4 shards, Δ 0 against the same mesh in one process and the
      single-device pipeline, and curve at 1080p on 2 x 2, Δ 0 against the
      mesh in one process and PSNR >= 40 dB against the single device; the
-     processes load the library the parent built.
+     processes load the library the parent built;
+  11. the bench (bench.py) at 600x400 b48: bench_throughput(chain=
+     "device") for retinex, curve, hybrid, fcn and decom (8- and 60-step
+     chains, each one CUDA graph replay; 3 repeats): the 8-step graph's
+     output equal to the eager chain's (Δu8 0), the kernels each capture
+     holds (8 launches of K1, K3 or K5 a graph, K1's canvas form for
+     retinex's canvas chain, and no other kernel of the port), a positive
+     marginal rate in every repeat, the rates, the roofline placement and
+     the long capture's peak memory; retinex's Python chain beside it;
+     then python -m low_light_image_enhancement_tpu_torch.bench in a
+     process of its own, whose last line must name the metric with a
+     positive value and the card's power limit. Its launch counts add one
+     a launch its wrappers made: the eager steps and each launch captured
+     into a graph once (a replay runs the graph without the wrappers).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels
@@ -1723,6 +1739,125 @@ def phase10_conv_arms_utils(torch, card, wrappers, t_start):
     print(f"  10d took {time.perf_counter() - t0:.1f} s")
     if failed:
         raise AssertionError("phase 10 failed: " + "; ".join(failed))
+    return paths, launches
+
+
+# ------------------------------------------------------------ phase 11 --- #
+
+BENCH_METHODS = {"retinex": ("k1",), "curve": ("k3",), "hybrid": ("k3",),
+                 "fcn": ("k5",), "decom": ("k5",)}
+
+
+def phase11_bench(torch, card, wrappers, t_start, k1_ms=None):
+    """The port's throughput bench (bench.py) on the card at 600x400 b48:
+    each method's device chain (a CUDA graph a chain), its graph against
+    the eager chain (Δu8 0), the kernels each capture holds (one count a
+    captured launch: the wrappers count when a launch is captured, and a
+    replay runs the graph without them), retinex's Python chain and canvas
+    rate, then ``python -m low_light_image_enhancement_tpu_torch.bench``
+    in a process of its own. Every check runs and prints before the first
+    failure raises. Returns the paths' (name, kernels, never) and their
+    launches."""
+    from low_light_image_enhancement_tpu_torch import bench as tb
+
+    t0 = time.perf_counter()
+    print(f"[11] bench: bench_throughput at 600x400 b48 "
+          f"({t0 - t_start:.0f} s)")
+    key_of = {wr.__name__: k for k, wr in wrappers.items()}
+    all_k = tuple(wrappers)
+    paths, launches, failed = [], {}, []
+    b, h, w, n_short, n_long, repeats = 48, 400, 600, 8, 60, 3
+
+    def counted(name, kernels, run):
+        never = tuple(k for k in all_k if k not in kernels)
+        paths.append((name, kernels, never))
+        for wr in wrappers.values():
+            wr.launches = 0
+        out = run()
+        launches[name] = {k: wr.launches for k, wr in wrappers.items()}
+        return out
+
+    def roof(res):
+        return ", ".join(f"{k} {res[k]}" for k in res
+                         if k.startswith("achieved_")
+                         or k.endswith("_util_pct")
+                         or k == "roofline_bound")
+
+    for method, kernels in BENCH_METHODS.items():
+        chains = [("device", kernels + (("kc",) if method == "retinex"
+                                        else ()))]
+        if method == "retinex":
+            chains.append(("python", kernels))
+        for chain, ks in chains:
+            name = f"11 bench {method} {chain}"
+            t1 = time.perf_counter()
+            res = counted(name, ks, lambda: tb.bench_throughput(
+                batch=b, h=h, w=w, repeats=repeats, n_short=n_short,
+                n_long=n_long, method=method, chain=chain, device="cuda"))
+            rates = res["rates"]
+            print(f"  {method} {chain} chain: {res['images_per_sec']:.1f} "
+                  f"img/s (median of {len(rates)}; min "
+                  f"{res['rate_min']:.1f}, max {res['rate_max']:.1f}, IQR "
+                  f"{res['rate_iqr_pct']:.2f}%; rates {rates}; "
+                  f"{res['n_fallback']} total-time fallbacks); roofline: "
+                  f"{roof(res)}; {time.perf_counter() - t1:.1f} s; on "
+                  f"{card}")
+            if min(rates) <= 0:
+                failed.append(f"{name}: a rate is not positive: {rates}")
+            if chain == "python":
+                continue
+            held = {key_of[k]: n for k, n in res["graph_launches"].items()}
+            want = {k: n_short for k in kernels}
+            print(f"    the {n_short}-step graph holds {held} (captured "
+                  f"launches); its output against the eager chain's: max "
+                  f"|du8| {res['graph_max_abs_du8']}; the {n_long}-step "
+                  f"capture's peak memory "
+                  f"{res['capture_peak_bytes'] / 2**30:.2f} GiB")
+            if held != want:
+                failed.append(f"{name}: the graph holds {held}, not {want}")
+            if res["graph_max_abs_du8"] != 0:
+                failed.append(f"{name}: graph differs from the eager chain")
+            if res["n_fallback"]:
+                failed.append(f"{name}: {res['n_fallback']} repeats had no "
+                              "positive marginal time")
+            if method == "retinex":
+                c_held = {key_of[k]: n for k, n
+                          in res["canvas_graph_launches"].items()}
+                print(f"    canvas rate (the bottom rows' re-pad, then K1's "
+                      f"canvas form): "
+                      f"{res['canvas_images_per_sec']} img/s; its graph "
+                      f"holds {c_held}; 48 / K1's phase-3 time: "
+                      + (f"{b * 1e3 / k1_ms:.1f} img/s" if k1_ms
+                         else "not measured"))
+                if c_held != {"kc": n_short}:
+                    failed.append(f"{name}: the canvas graph holds {c_held}")
+                if not res["canvas_images_per_sec"]:
+                    failed.append(f"{name}: no canvas rate")
+
+    # the module's main in a process of its own: its last line
+    t1 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "low_light_image_enhancement_tpu_torch.bench",
+             "--repeats", "5", "--watchdog", "240"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        line = json.loads(lines[-1]) if proc.returncode == 0 and lines \
+            else {}
+        print(f"  python -m ...bench (rc {proc.returncode}, "
+              f"{time.perf_counter() - t1:.1f} s): {json.dumps(line)}")
+        print(f"    stderr: {proc.stderr.strip().splitlines()[-1:]}")
+        if (line.get("metric") != "images_per_sec_per_chip_600x400"
+                or not line.get("value", 0) > 0
+                or not line.get("power_limit")):
+            failed.append(f"bench main: rc {proc.returncode}, last line "
+                          f"{lines[-1:]}, stderr {proc.stderr[-2000:]}")
+    except subprocess.TimeoutExpired:
+        failed.append("bench main did not finish in 300 s")
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("phase 11 failed: " + "; ".join(failed))
     return paths, launches
 
 
@@ -3516,6 +3651,17 @@ def main() -> int:
             if k == "k5":
                 arm = "k5g" if "quality " in name else "k5b"
                 total[arm] += arm_launches[name][k]
+    # phase 11 adds a count a launch its wrapper made: the eager steps and
+    # one a launch captured into a graph, not a replay's
+    bench_paths, bench_launches = phase11_bench(torch, card, wrappers,
+                                                t_start, k1_ms)
+    print(f"  phase 11 launches per path: {bench_launches}")
+    check_launches(bench_paths, bench_launches)
+    for name, kernels, _ in bench_paths:
+        for k in kernels:
+            total[k] += bench_launches[name][k]
+            if k == "k5":
+                total["k5b"] += bench_launches[name][k]
 
     src = "low_light_image_enhancement_tpu_torch/kernels/csrc/"
     tpu = "low_light_image_enhancement_tpu/kernels/"

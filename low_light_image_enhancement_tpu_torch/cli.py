@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``llie-torch enhance [--raw] | eval |
-serve | video | train`` (``bench`` is not ported yet and exits non-zero).
+bench | serve | video | train``.
 
 The port of the JAX package's ``cli.py`` (``llie``, which stays the JAX
 package's), with the same config flags and ``--device cuda|cpu`` (default
@@ -11,7 +11,8 @@ package's), with the same config flags and ``--device cuda|cpu`` (default
 frame-sequence path
 (video.py), one stream or, with ``--streams``, one per directory; ``train``
 trains the curve (zero-reference or paired, also hybrid), fcn or decom net
-(train.py).
+(train.py); ``bench`` measures the chained marginal-rate throughput
+(bench.py; ``--chain python`` on the CPU).
 """
 
 from __future__ import annotations
@@ -27,12 +28,6 @@ from low_light_image_enhancement_tpu_torch.config import (
     PRESETS,
     PipelineConfig,
 )
-
-# what is not ported yet, and the ROADMAP.md item (Queue 1) that ports it
-NOT_PORTED = {
-    "bench": "the port's benchmark (ROADMAP.md Queue 1, item 1)",
-}
-
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -107,12 +102,6 @@ def _pipeline(args, **kw):
     return EnhancePipeline(_build_config(args),
                            model_params=_model_params(args),
                            device=args.device, **kw)
-
-
-def _not_ported(what: str) -> int:
-    print(f"llie-torch {what}: not in the port yet: {NOT_PORTED[what]}",
-          file=sys.stderr)
-    return 2
 
 
 def _load_raw_mosaic(path: str):
@@ -194,6 +183,17 @@ def cmd_eval(args) -> int:
     report = eval_lol(_pipeline(args), ds, max_images=args.max_images,
                       parity=not args.no_parity)
     print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from low_light_image_enhancement_tpu_torch.bench import bench_throughput
+
+    res = bench_throughput(batch=args.batch, repeats=args.repeats,
+                           method=args.bench_method, h=args.height,
+                           w=args.width, chain=args.chain,
+                           device=args.device)
+    print(json.dumps(res))
     return 0
 
 
@@ -460,8 +460,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_config_args(p)
     p.set_defaults(fn=cmd_eval)
 
-    p = sub.add_parser("bench", help=f"not ported yet: {NOT_PORTED['bench']}")
-    p.set_defaults(fn=lambda args: _not_ported("bench"))
+    p = sub.add_parser("bench", help="throughput benchmark (chained "
+                                     "marginal rate, bench.py)")
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--repeats", type=int, default=5)
+    p.add_argument("--bench-method", default="retinex",
+                   choices=["retinex", "curve", "hybrid", "fcn", "decom"],
+                   help="pipeline method to benchmark")
+    p.add_argument("--height", type=int, default=400)
+    p.add_argument("--width", type=int, default=600)
+    p.add_argument("--chain", choices=["device", "python"], default="device",
+                   help="each chain one CUDA graph replay (device, the card "
+                        "only) or one Python launch a step (python)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the pipeline runs")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser(
         "train", help="model training: curve/hybrid (zero-reference or "
@@ -541,9 +554,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_config_args(p)
     p.set_defaults(fn=cmd_video)
 
-    args, rest = parser.parse_known_args(argv)
-    if rest and args.command != "bench":
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = parser.parse_args(argv)
     return args.fn(args)
 
 

@@ -1,6 +1,6 @@
 """The port's front ends on the CPU: ``llie-torch`` (cli.main) enhance,
-eval, video and video --streams with ``--device cpu``; the subcommands
-not ported yet exit non-zero naming their ROADMAP item; and the HTTP server
+eval, bench (``--chain python``), video and video --streams with
+``--device cpu``; and the HTTP server
 on an ephemeral loopback port, whose answers equal pipeline.enhance, with
 its 400, 404, /healthz and /stats."""
 
@@ -58,11 +58,19 @@ def test_cli_eval_json_report(tmp_path, capsys):
     assert rep["parity_max_abs_u8"] == 0.0
 
 
-@pytest.mark.parametrize("argv", [["bench"],
-                                  ["bench", "--batch", "8"]])
-def test_cli_not_ported_exits_nonzero(argv, capsys):
-    assert cli.main(argv) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+@pytest.mark.parametrize("method", ["retinex", "hybrid"])
+def test_cli_bench_python_chain_on_cpu(method, capsys):
+    """llie-torch bench at a tiny size on the CPU: one JSON line, the
+    bench's result."""
+    assert cli.main(["bench", "--device", "cpu", "--chain", "python",
+                     "--bench-method", method, "--height", "16", "--width",
+                     "24", "--batch", "2", "--repeats", "2"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert res["images_per_sec"] > 0 and res["method"] == method
+    assert res["backend"] == "cpu" and res["chain"] == "python"
+    assert res["batch"] == 2 and len(res["rates"]) == 2
 
 
 def test_cli_video_frames(tmp_path, capsys):

@@ -87,6 +87,10 @@ _WORKER = textwrap.dedent(
         except ValueError as e:
             print(f"raised as it should: {e}", flush=True)
     print(f"SPATIAL-OK {pid}", flush=True)
+    # leave the group together: a process that exits with gloo's threads
+    # up can abort in teardown (SIGABRT) after its work passed
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
     """
 )
 
@@ -143,6 +147,8 @@ _HALO_WORKER = textwrap.dedent(
         assert torch.equal(got, halo_pad(shards, m)[pid]), m
         np.save(src.replace(".npy", f"_{pid}_{m}.npy"), got.numpy())
     print(f"HALO-OK {pid}", flush=True)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
     """
 )
 

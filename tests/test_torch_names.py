@@ -4,8 +4,7 @@ function, a class or an assignment, its name without a leading
 underscore) is a name of the port's module: defined there or imported
 into it. The names are read from the sources by ``ast``; nothing is
 imported, so this test holds without JAX. The allow-list holds the names
-that are TPU-only by what they compute, and the benchmark's entry point
-until the port has a benchmark."""
+that are TPU-only by what they compute."""
 
 import ast
 from pathlib import Path
@@ -21,8 +20,6 @@ TPU_ONLY = {
     # the batch bands at which conv_impl="auto" picks packed on a TPU,
     # measured on a v5e; the port's auto is xla
     "blocks.py": {"AUTO_CONV_BANDS"},
-    # the port's benchmark entry point (ROADMAP Queue 1, item 1)
-    "cli.py": {"cmd_bench"},
     # pltpu.roll, and the VMEM planners of the TPU kernels' stripes
     "kernels/fused_enhance.py": {"kroll2d", "curve_plan_bytes_per_px",
                                  "guided_tail_bytes_per_px",

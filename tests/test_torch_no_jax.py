@@ -7,8 +7,10 @@ a checkpoint save and restore, and the parallel package (config 5's
 sharded pipeline, the sharded video enhancer and a data-parallel step on
 CPU meshes); in the same way RAW ingest (enhance_raw, also sharded, and
 llie-torch enhance --raw on a .npy) and the toolkit ops; chip_smoke.py
-names neither. Also the gemm and packed conv arms and the utils
-(checked, profile_trace, stage, enable_compile_cache). One interpreter
+names neither. Also the gemm and packed conv arms, the utils
+(checked, profile_trace, stage, enable_compile_cache) and the bench
+(bench_throughput's Python chain, its main and llie-torch bench on the
+CPU). One interpreter
 runs every program, each in a namespace of its own, with one CPU thread
 and a time limit."""
 
@@ -184,6 +186,19 @@ with tempfile.TemporaryDirectory() as tmp:
     assert os.listdir(tmp)
     assert enable_compile_cache(os.path.join(tmp, "k")) == \
         str(_build.BUILD_DIR)
+""",
+    "bench": r"""
+import json
+from low_light_image_enhancement_tpu_torch import bench, cli
+res = bench.bench_throughput(batch=2, h=16, w=24, repeats=2, n_short=1,
+                             n_long=3, chain="python", device="cpu")
+assert res["images_per_sec"] > 0 and res["backend"] == "cpu"
+assert bench.main(["--device", "cpu", "--chain", "python", "--height", "16",
+                   "--width", "24", "--batch", "2", "--repeats", "1",
+                   "--watchdog", "0"]) == 0
+assert cli.main(["bench", "--device", "cpu", "--chain", "python",
+                 "--height", "16", "--width", "24", "--batch", "2",
+                 "--repeats", "1"]) == 0
 """,
     "toolkit": r"""
 import torch

@@ -36,6 +36,14 @@ at 1080p b1 (the gain plane and maps at 1/4: u8 in, gain, u8 out; +
 curves; + the bilateral tail) and hybrid's at 600x400 b48 (maps at 1/1:
 curve's u8 in, curves, u8 out; + hybrid's blur and boost; + the tail).
 
+``graph_<method>`` (retinex, curve, hybrid, fcn, decom) profiles the
+bench's device chain (``bench.py``): one step of
+``enhance_batch_device`` on the bench's input (600x400 b48) captured into
+a CUDA graph (``bench.DeviceChain``), a call one replay, so that the wall
+time and idle share are the graph's own, without Python's launches;
+``graph_canvas`` one step of retinex's canvas chain (``bench.canvas_step``
+on ``bench.canvas_input``).
+
 Needs a CUDA card; run from the repository root:
 
     python3 tools/profile_torch.py [quality quality_fast retinex hybrid
@@ -48,7 +56,9 @@ Needs a CUDA card; run from the repository root:
                                     video_retinex_extgain video_curve_ds4
                                     video_hybrid_ds4 video_retinex_guided
                                     video_hybrid_ds4_guided
-                                    stages stages_guided stages_k3]
+                                    stages stages_guided stages_k3
+                                    graph_retinex graph_curve graph_hybrid
+                                    graph_fcn graph_decom graph_canvas]
 """
 
 from __future__ import annotations
@@ -122,6 +132,9 @@ STAGE_STEPS = (("none", ()), ("blur", ("blur",)),
                ("boost", ("blur", "boost")),
                ("denoise", ("blur", "boost", "denoise")))
 STAGE_PATHS = {"stages": llt.PipelineConfig()}
+# the bench's device chain, one step a graph replay
+GRAPH_PATHS = {f"graph_{m}": m for m in ("retinex", "curve", "hybrid",
+                                          "fcn", "decom", "canvas")}
 CALLS, TOP = 3, 12
 SPIN_CYCLES = 50_000_000
 
@@ -166,6 +179,26 @@ def profile(name: str, x: torch.Tensor) -> None:
     pipe = llt.EnhancePipeline(PATHS[name], device="cuda")
     _report(f"{name}: 600x400 b{x.shape[0]}",
             lambda: pipe.enhance_batch_device(x))
+
+
+def profile_graph(name: str) -> None:
+    """One call is one replay of a CUDA graph that holds one step of the
+    bench's chain (``bench.DeviceChain``)."""
+    from low_light_image_enhancement_tpu_torch import bench
+
+    method = GRAPH_PATHS[name]
+    canvas = method == "canvas"
+    pipe = llt.EnhancePipeline(llt.PipelineConfig(
+        method="retinex" if canvas else method), device="cuda")
+    x0 = bench.bench_input(48, 400, 600, "cuda")
+    step = pipe.enhance_batch_device
+    if canvas:
+        step, x0 = bench.canvas_step(pipe, 400, 600), bench.canvas_input(
+            pipe, x0)
+    bench.warm_up(step, x0, x0.device)
+    chain = bench.DeviceChain(step, x0, 1)
+    _report(f"{name}: 600x400 b48, one step a graph replay", chain.replay)
+    chain.reset()
 
 
 def profile_video(name: str, frame: torch.Tensor) -> None:
@@ -402,9 +435,10 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), torch.__version__)
     names = argv or (list(PATHS) + list(VIDEO_PATHS) + list(STAGE_PATHS)
-                     + ["stages_guided", "stages_k3"])
+                     + ["stages_guided", "stages_k3"] + list(GRAPH_PATHS))
     unknown = (set(names) - set(PATHS) - set(VIDEO_PATHS)
-               - set(STAGE_PATHS) - {"stages_guided", "stages_k3"})
+               - set(STAGE_PATHS) - {"stages_guided", "stages_k3"}
+               - set(GRAPH_PATHS))
     if unknown:
         print(f"profile_torch: unknown paths {sorted(unknown)}",
               file=sys.stderr)
@@ -424,6 +458,8 @@ def main(argv) -> int:
             profile_stages_guided(x, frame)
         elif name == "stages_k3":
             profile_stages_k3(x, frame)
+        elif name in GRAPH_PATHS:
+            profile_graph(name)
         else:
             profile_video(name, frame)
     return 0
