@@ -67,6 +67,7 @@ from low_light_image_enhancement_tpu_torch.models.fcn import (
 )
 from low_light_image_enhancement_tpu_torch.ops.colorspace import quantize_u8
 from low_light_image_enhancement_tpu_torch.ops.filters import upsample_maps
+from low_light_image_enhancement_tpu_torch.utils.profiling import stage
 
 __all__ = ["cnn_radius", "learned_halo", "single_block_halo",
            "block_geometry", "resolve_conv_impl", "replicate_margin_cols",
@@ -202,8 +203,9 @@ def _curve_maps_lowres(cnn_in: torch.Tensor, cfg: PipelineConfig,
              "packed": apply_curve_cnn_packed,
              "packed12": partial(apply_curve_cnn_packed, block=(1, 2)),
              }.get(cfg.conv_impl, apply_curve_cnn)
-    return apply(params, cnn_in, n_iter=cfg.curve_iters,
-                 compute_dtype=cfg.compute_dtype)
+    with stage("nets.curve_cnn", cnn_in.device, batch=cnn_in.shape[0]):
+        return apply(params, cnn_in, n_iter=cfg.curve_iters,
+                     compute_dtype=cfg.compute_dtype)
 
 
 def _curve_maps(cnn_in: torch.Tensor, cfg: PipelineConfig,
@@ -274,6 +276,7 @@ def block_net_image(
     if cfg.method not in ("fcn", "decom"):
         raise ValueError(f"method {cfg.method!r} is not fcn or decom")
     cnn_in = _mask_extent(_to_float(xb), row0, h, w, canvas_margin(cfg))
+    b = cnn_in.shape[0]
     if cfg.method == "fcn":
         apply = {"pallas": apply_fcn_pallas,
                  "cascade": apply_fcn_cascade,
@@ -281,14 +284,16 @@ def block_net_image(
                  "packed": apply_fcn_packed,
                  "packed12": partial(apply_fcn_packed, block=(1, 2)),
                  }.get(cfg.conv_impl, apply_fcn)
-        y = apply(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
+        with stage("nets.fcn", cnn_in.device, batch=b):
+            y = apply(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
         return torch.clamp(y, 0.0, 1.0)
     apply = {"pallas": apply_decom_net_pallas,
              "gemm": apply_decom_net_gemm,
              "packed": apply_decom_net_packed,
              "packed12": partial(apply_decom_net_packed, block=(1, 2)),
              }.get(cfg.conv_impl, apply_decom_net)
-    r, l = apply(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
+    with stage("nets.decom_net", cnn_in.device, batch=b):
+        r, l = apply(model_params, cnn_in, compute_dtype=cfg.compute_dtype)
     l_boost = torch.clamp(l, cfg.illum_eps, 1.0) ** cfg.decom_gamma
     return torch.clamp(r * l_boost, 0.0, 1.0)
 

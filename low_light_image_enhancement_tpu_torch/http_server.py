@@ -14,7 +14,8 @@ Endpoints:
     when the backend fails.
   * ``GET /healthz``: 200 ``ok``.
   * ``GET /stats``: JSON request counts by status and the p50/p99 enhance
-    latency over a ring of recent requests.
+    latency over a ring of recent requests, and under ``server`` the
+    batching server's counters (``EnhanceServer.stats``).
 
 The port of the JAX package's ``http_server.py``.
 """
@@ -110,7 +111,9 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/healthz":
             self._respond(200, b"ok", "text/plain")
         elif self.path == "/stats":
-            body = json.dumps(self.stats.snapshot()).encode()
+            body = json.dumps({**self.stats.snapshot(),
+                               "server": self.enhance_server.stats()}
+                              ).encode()
             self._respond(200, body, "application/json")
         else:
             self._respond(404, b"not found", "text/plain")

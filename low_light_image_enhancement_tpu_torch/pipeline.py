@@ -74,6 +74,7 @@ from low_light_image_enhancement_tpu_torch.ops.isp import (
     gray_world_gains,
     white_balance,
 )
+from low_light_image_enhancement_tpu_torch.utils.profiling import stage
 
 __all__ = ["pad_planar", "pad_block", "pad_block_planar", "resolve_device",
            "params_on", "EnhancePipeline", "enhance", "enhance_batch"]
@@ -303,18 +304,20 @@ class EnhancePipeline:
                 f"expected RGB (B,H,W,3), got {tuple(imgs_u8.shape)}")
         self._check_on_device(imgs_u8)
         cfg = self.config
-        if cfg.spatial_shards > 1:
-            mesh = self._mesh(1, cfg.spatial_shards)
-            if mesh.shape["spatial"] > 1:
-                from low_light_image_enhancement_tpu_torch.parallel.sharding \
-                    import enhance_spatial_sharded
+        b, h, w, _ = imgs_u8.shape
+        with stage("pipeline.enhance_batch_device", batch=b, h=h, w=w):
+            if cfg.spatial_shards > 1:
+                mesh = self._mesh(1, cfg.spatial_shards)
+                if mesh.shape["spatial"] > 1:
+                    from low_light_image_enhancement_tpu_torch.parallel \
+                        .sharding import enhance_spatial_sharded
 
-                y = enhance_spatial_sharded(imgs_u8.permute(0, 3, 1, 2), cfg,
-                                            mesh, self.model_params)
-                return y.permute(0, 2, 3, 1).contiguous()
-        if cfg.data_shards > 1:
-            return self._data_sharded(_enhance_u8_batch, imgs_u8)
-        return _enhance_u8_batch(imgs_u8, self.model_params, cfg=cfg)
+                    y = enhance_spatial_sharded(imgs_u8.permute(0, 3, 1, 2),
+                                                cfg, mesh, self.model_params)
+                    return y.permute(0, 2, 3, 1).contiguous()
+            if cfg.data_shards > 1:
+                return self._data_sharded(_enhance_u8_batch, imgs_u8)
+            return _enhance_u8_batch(imgs_u8, self.model_params, cfg=cfg)
 
     def _mesh(self, n_data: int, n_spatial: int):
         """The mesh of the sharded configs: ``n_data x n_spatial`` devices

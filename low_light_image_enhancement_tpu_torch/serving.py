@@ -11,7 +11,14 @@ resolves one Future per request.
     wait of a group that does not fill;
   * ``max_queue`` bounds requests in flight, and ``overflow`` says whether
     a full server blocks ``submit`` or raises ``ServerSaturated``;
-  * ``close()`` drains every queued request before the dispatcher exits.
+  * ``close()`` drains every queued request before the dispatcher exits;
+  * ``stats()`` counts requests, batches, slots launched and bytes copied
+    to the device and back.
+
+While spans record (``utils.profiling``), each request's wait in the queue
+is a ``serve.queue`` span and each batch a ``serve.batch`` span around its
+steps ``serve.stack``, ``serve.copy_in``, ``serve.run``, ``serve.copy_out``
+and ``serve.resolve``; a request's span names its batch's id.
 
 On CUDA the kernel library is built (once, under its lock) before the
 dispatcher starts, so no request waits for ``nvcc``.
@@ -32,6 +39,11 @@ from low_light_image_enhancement_tpu_torch.config import PipelineConfig
 from low_light_image_enhancement_tpu_torch.kernels import _build
 from low_light_image_enhancement_tpu_torch.parallel.sharding import mesh_for
 from low_light_image_enhancement_tpu_torch.pipeline import EnhancePipeline
+from low_light_image_enhancement_tpu_torch.utils.profiling import (
+    record_span,
+    recording,
+    stage,
+)
 
 ShapeKey = Tuple[int, int]
 
@@ -99,6 +111,9 @@ class EnhanceServer:
         # per-shape pending items + arrival time of the oldest pending item
         self._pending: Dict[ShapeKey, List] = {}
         self._since: Dict[ShapeKey, float] = {}
+        # counters: requests under _submit_lock, the rest by the dispatcher
+        self._requests = self._batches = self._slots = 0
+        self._bytes_in = self._bytes_out = 0
         self._thread = threading.Thread(target=self._dispatch, daemon=True)
         self._thread.start()
 
@@ -127,12 +142,23 @@ class EnhanceServer:
                 if not fut.done():
                     fut.cancel()  # fires the callback -> capacity released
                 raise RuntimeError("server closed")
-            self._q.put((img_u8, fut))
+            request = self._requests
+            self._requests += 1
+            self._q.put((img_u8, fut, request,
+                         time.perf_counter() if recording() else None))
         return fut
 
     def enhance(self, img_u8: np.ndarray) -> np.ndarray:
         """Blocking convenience call."""
         return self.submit(img_u8).result()
+
+    def stats(self) -> Dict[str, int]:
+        """Counts since the server started: requests accepted, batches
+        launched, slots launched (a batch's requests padded up to its
+        batch size), bytes copied to the device and back."""
+        return {"requests": self._requests, "batches": self._batches,
+                "slots": self._slots, "bytes_in": self._bytes_in,
+                "bytes_out": self._bytes_out}
 
     def close(self, timeout: float = 600.0) -> None:
         """Stop taking requests, serve every queued one, stop the
@@ -146,13 +172,13 @@ class EnhanceServer:
         )
         try:
             while True:
-                _, fut = self._q.get_nowait()
+                fut = self._q.get_nowait()[1]
                 if not fut.done():
                     fut.set_exception(err)
         except queue.Empty:
             pass
         for items in list(self._pending.values()):
-            for _, fut in list(items):
+            for _, fut, *_ in list(items):
                 if not fut.done():
                     try:
                         fut.set_exception(err)
@@ -193,7 +219,7 @@ class EnhanceServer:
         except BaseException as e:
             # fail every outstanding future so callers unblock
             for items in list(self._pending.values()):
-                for _, fut in list(items):
+                for _, fut, *_ in list(items):
                     if not fut.done():
                         fut.set_exception(e)
             raise
@@ -226,30 +252,49 @@ class EnhanceServer:
                 self._run_group(key[0], key[1], take)
 
     def _run_group(self, hb: int, wb: int, items: List) -> None:
+        batch_id = self._batches
+        self._batches += 1
+        b_pad = self._b_pad(len(items))
+        self._slots += b_pad
+        if recording():
+            taken = time.perf_counter()
+            for _, _, request, enqueued in items:
+                if enqueued is not None:
+                    record_span("serve.queue", enqueued, taken,
+                                request_id=request, batch_id=batch_id)
         try:
-            padded = np.stack([
-                np.pad(
-                    img,
-                    ((0, hb - img.shape[0]), (0, wb - img.shape[1]), (0, 0)),
-                    mode="edge",
-                )
-                for img, _ in items
-            ])
-            b_pad = self._b_pad(len(items))
-            if b_pad > len(items):
-                # replicate the last image up to the batch bucket
-                padded = np.concatenate(
-                    [padded,
-                     np.repeat(padded[-1:], b_pad - len(items), axis=0)]
-                )
-            x = torch.from_numpy(padded).to(self._pipe.device)
-            out = self._pipe.enhance_batch_device(x).cpu().numpy()
-            for (img, fut), res in zip(items, out):
-                h, w, _ = img.shape
-                if not fut.done():
-                    fut.set_result(res[:h, :w])
+            with stage("serve.batch", batch_id=batch_id,
+                       requests=len(items), slots=b_pad) as span:
+                with stage("serve.stack"):
+                    padded = np.stack([
+                        np.pad(img, ((0, hb - img.shape[0]),
+                                     (0, wb - img.shape[1]), (0, 0)),
+                               mode="edge")
+                        for img, *_ in items
+                    ])
+                    if b_pad > len(items):
+                        # replicate the last image up to the batch bucket
+                        padded = np.concatenate(
+                            [padded,
+                             np.repeat(padded[-1:], b_pad - len(items),
+                                       axis=0)]
+                        )
+                with stage("serve.copy_in"):
+                    x = torch.from_numpy(padded).to(self._pipe.device)
+                self._bytes_in += x.nbytes
+                with stage("serve.run"):
+                    y = self._pipe.enhance_batch_device(x)
+                with stage("serve.copy_out"):
+                    out = y.cpu().numpy()
+                self._bytes_out += out.nbytes
+                span.set(bytes_in=x.nbytes, bytes_out=out.nbytes)
+                with stage("serve.resolve"):
+                    for (img, fut, *_), res in zip(items, out):
+                        h, w, _ = img.shape
+                        if not fut.done():
+                            fut.set_result(res[:h, :w])
         except BaseException as e:
-            for _, fut in items:
+            for _, fut, *_ in items:
                 if not fut.done():
                     fut.set_exception(e)
             if not isinstance(e, Exception):

@@ -146,5 +146,10 @@ def test_http_roundtrip_and_errors():
         assert stats["requests_by_status"]["200"] >= 4
         assert stats["requests_by_status"]["400"] == 2
         assert stats["enhance_latency_ms"]["window"] == 3
+        # the batching server's counters: the three images it enhanced
+        server = stats["server"]
+        assert server["requests"] == 3
+        assert 1 <= server["batches"] <= 3 <= server["slots"]
+        assert server["bytes_in"] == server["bytes_out"] > 0
     finally:
         srv.close()

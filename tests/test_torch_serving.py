@@ -1,5 +1,5 @@
 """EnhanceServer on the CPU: batching by shape, equality with
-pipeline.enhance, backpressure and close()."""
+pipeline.enhance, backpressure and close(), its counters and its spans."""
 
 import threading
 
@@ -107,3 +107,55 @@ def test_guided_server_matches_jax_jnp_path(kw):
         got = srv.submit(img).result(timeout=120)
     d = np.abs(got.astype(int) - ref.enhance(img).astype(int))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
+
+
+def test_stats_count_requests_batches_slots_and_bytes():
+    img = synth_pair(2, 24, 32)[0]
+    n = 6
+    with EnhanceServer(PipelineConfig(), device="cpu", max_batch=4,
+                       max_delay_ms=1.0) as srv:
+        assert srv.stats() == dict(requests=0, batches=0, slots=0,
+                                   bytes_in=0, bytes_out=0)
+        for f in [srv.submit(img) for _ in range(n)]:
+            f.result(timeout=60)
+        s = srv.stats()
+    assert s["requests"] == n
+    assert 2 <= s["batches"] <= n
+    assert s["slots"] >= n
+    # each slot is one image padded to the 64 x 64 bucket, in and out
+    assert s["bytes_in"] == s["bytes_out"] == s["slots"] * 64 * 64 * 3
+
+
+def test_serve_spans_name_their_batch():
+    """The dispatcher thread, started before the profiler session, records
+    a ``serve.queue`` span a request and a ``serve.batch`` span a batch,
+    around its steps; a request's span names its batch's id."""
+    from low_light_image_enhancement_tpu_torch.utils import profiling
+
+    img = synth_pair(3, 24, 32)[0]
+    with EnhanceServer(PipelineConfig(), device="cpu", max_batch=4,
+                       max_delay_ms=1.0) as srv:
+        t0 = profiling.time.perf_counter()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            for f in [srv.submit(img) for _ in range(6)]:
+                f.result(timeout=60)
+        spans = profiling.recorded_spans(t0, profiling.time.perf_counter())
+    queue = [s for s in spans if s.name == "serve.queue"]
+    batches = {s.attrs["batch_id"]: s for s in spans
+               if s.name == "serve.batch"}
+    assert sorted(s.attrs["request_id"] for s in queue) == list(range(6))
+    for s in queue:
+        assert s.attrs["batch_id"] in batches
+        assert s.end <= batches[s.attrs["batch_id"]].start
+    assert sum(b.attrs["requests"] for b in batches.values()) == 6
+    for b in batches.values():
+        assert b.attrs["slots"] >= b.attrs["requests"]
+        assert b.attrs["bytes_in"] == b.attrs["slots"] * 64 * 64 * 3
+        steps = [s for s in spans if s.parent == b.id]
+        assert [s.name for s in steps] == [
+            "serve.stack", "serve.copy_in", "serve.run", "serve.copy_out",
+            "serve.resolve"]
+        (call,) = [s for s in spans if s.parent == steps[2].id]
+        assert call.name == "pipeline.enhance_batch_device"
+        assert call.attrs["batch"] == b.attrs["slots"]
